@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's dense-retrieval serving path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. device   the card's name and power limit (nvidia-smi).
+2. build    nvcc-builds the hand-written kernels of
+            openmatch_tpu_torch/ops/csrc from this checkout.
+3. kernels  each kernel against its plain PyTorch version at serving
+            shapes (Q in {64, 128}, D = 768, a 2^20 + 29 doc corpus whose
+            last tile and N % 8 tail are ragged), with median times.
+4. serve    a BERT-base DRModel (bf16 compute, seeded random weights)
+            encodes 4,096 passages through encode_dataset; the npz shard is
+            written and reloaded; the index is filled on the device to all
+            8,841,823 MS MARCO rows; a Searcher(k=1000) and a
+            RetrievalService(max_batch=64) answer GET /health and 8
+            concurrent POST /search requests of 8 queries over HTTP. The
+            kernel launch counters must rise during the requests, every
+            response must hold k finite non-increasing scores, and an
+            exactness audit against a chunked fp32 top-k over the whole
+            device index must pass. Then each kernel is compared with its
+            plain version once more at the exact shapes the requests gave
+            it.
+
+The second-to-last line is the kernel table as one JSON object, the last
+line {"ok": true, "device": {...}}. It needs CUDA: without a card it
+raises before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+N_MSMARCO = 8_841_823
+D = 768
+K = 1000
+MAX_BATCH = 64
+REL_TOL = 1e-3  # |kernel - plain| <= REL_TOL * max|score|: bf16 inputs,
+# fp32 sums in another order; masked entries must be bit-equal
+GMAX_REPLACES = "openmatch_tpu/ops/pallas_mips.py:562"
+RESCORE_REPLACES = "openmatch_tpu/ops/pallas_mips.py:970"
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+    """Median device time of ``fn`` in ms, one CUDA event pair per run."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs error of ``got`` vs ``want``; raises past REL_TOL * max|want|
+    on finite entries and unless masked (finfo.min) entries are bit-equal."""
+    neg = torch.finfo(torch.float32).min
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    masked = want == neg
+    if not torch.equal(got == neg, masked):
+        raise AssertionError(f"{name}: masked entries differ")
+    live = ~masked
+    err = (got[live] - want[live]).abs().max().item() if live.any() else 0.0
+    scale = want[live].abs().max().item() if live.any() else 0.0
+    if not err <= REL_TOL * max(scale, 1e-30):
+        raise AssertionError(f"{name}: max abs err {err} > {REL_TOL} * {scale}")
+    log(f"  {name}: max_abs_err={err:.3e} (max|score|={scale:.3e}, "
+        f"masked={int(masked.sum())})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"device: {name} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+    log(smi.splitlines()[0])
+    return {"name": name, "smi": smi.splitlines()[0]}
+
+
+def phase_build():
+    from openmatch_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.load_library()
+    log(f"build: {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {_build.build_info['seconds']:.2f} s) -> "
+        f"{os.path.relpath(_build.build_info['library'], REPO)}")
+    for line in _build.build_info["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+def phase_kernels(dev):
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    N = 2**20 + 29  # 131075 blocks: the last 16-block tile holds 3; tail 5
+    NB = N // 8
+    corpus = (torch.randn(N, D, generator=g, device=dev) * 0.05).to(
+        torch.bfloat16)
+    prep = cm.prepare_plain_corpus(corpus)
+    for Q in (64, 128):
+        q = torch.randn(Q, D, generator=g, device=dev).to(torch.bfloat16)
+        nb_valid = NB - 37
+        g1, l1 = cm.fused_plain_gmax(q, prep.plain, emit_l1=8,
+                                     nb_valid=nb_valid)
+        r1, rl1 = cm.plain_gmax_reference(q, prep.plain, emit_l1=8,
+                                          nb_valid=nb_valid)
+        torch.cuda.synchronize()
+        compare(f"K1 gmax Q={Q}", g1, r1)
+        compare(f"K1 l1 Q={Q}", l1, rl1)
+        lo, n = 1001, 50_003  # a window that starts and ends mid-tile
+        gw, lw = cm.fused_plain_gmax(q, prep.plain, blk_lo=lo, n_blk=n,
+                                     emit_l1=8, nb_valid=lo + n - 11)
+        rw, rlw = cm.plain_gmax_reference(q, prep.plain, blk_lo=lo, n_blk=n,
+                                          emit_l1=8, nb_valid=lo + n - 11)
+        compare(f"K1 window gmax Q={Q}", gw, rw)
+        compare(f"K1 window l1 Q={Q}", lw, rlw)
+        g2 = cm.fused_plain_gmax(q, prep.plain)
+        compare(f"K2 gmax Q={Q}", g2, cm.plain_gmax_reference(
+            q, prep.plain))
+        bids = torch.randint(0, NB, (Q, K), generator=g, device=dev,
+                             dtype=torch.int32)
+        bids[:, :4] = bids[:, 4:8]  # repeated ids
+        bids[:, -1] = NB - 1        # the last block
+        s3 = cm.gather_rescore(q, prep.plain, bids)
+        compare(f"K3 rescore Q={Q}", s3,
+                cm.gather_rescore_reference(q, prep.plain, bids))
+        t = {
+            "K1": (cuda_time_ms(lambda: cm.fused_plain_gmax(
+                q, prep.plain, emit_l1=8, nb_valid=nb_valid)),
+                cuda_time_ms(lambda: cm.plain_gmax_reference(
+                    q, prep.plain, emit_l1=8, nb_valid=nb_valid))),
+            "K2": (cuda_time_ms(lambda: cm.fused_plain_gmax(q, prep.plain)),
+                   cuda_time_ms(lambda: cm.plain_gmax_reference(
+                       q, prep.plain))),
+            "K3": (cuda_time_ms(lambda: cm.gather_rescore(
+                q, prep.plain, bids)),
+                cuda_time_ms(lambda: cm.gather_rescore_reference(
+                    q, prep.plain, bids))),
+        }
+        for key, (ms, plain_ms) in t.items():
+            log(f"  {key} Q={Q} N={N}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
+    del corpus, prep
+    torch.cuda.empty_cache()
+
+
+class WhitespaceTokenizer:
+    """Hashes whitespace-separated words into the BERT vocab:
+    [CLS] word ids [SEP], pad id 0 (the card's machine has no
+    ``transformers``)."""
+
+    pad_token_id = 0
+    cls_token_id = 101
+    sep_token_id = 102
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def encode_plus(self, text, truncation=None, max_length=None,
+                    padding=False, return_attention_mask=False,
+                    return_token_type_ids=False):
+        import zlib
+
+        ids = [1000 + zlib.crc32(w.encode()) % (self.vocab_size - 1000)
+               for w in text.split()]
+        if max_length is not None:
+            ids = ids[:max_length - 2]
+        return {"input_ids": [self.cls_token_id] + ids + [self.sep_token_id]}
+
+
+class SyntheticDocIds:
+    """Doc ids of the index without a list of 8.8M strings: the encoded
+    passages keep their ids, the generated rows are named by position."""
+
+    def __init__(self, passage_ids, n_docs: int):
+        self.passage_ids = passage_ids
+        self.n_docs = n_docs
+
+    def __len__(self):
+        return self.n_docs
+
+    def __getitem__(self, i: int) -> str:
+        if i < 0 or i >= self.n_docs:
+            raise IndexError(i)
+        return self.passage_ids[i] if i < len(self.passage_ids) else f"syn{i}"
+
+
+def bert_base_tree(rng: np.random.Generator, cfg) -> dict:
+    """Seeded random weights in the JAX package's Flax tree layout."""
+    d, ff, H = cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads
+
+    def n(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    def ln():
+        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
+
+    tree = {
+        "word_embeddings": {"embedding": n(cfg.vocab_size, d)},
+        "position_embeddings": {"embedding": n(cfg.max_position_embeddings, d)},
+        "token_type_embeddings": {"embedding": n(cfg.type_vocab_size, d)},
+        "embeddings_ln": ln(),
+    }
+    for i in range(cfg.num_hidden_layers):
+        tree[f"layer_{i}"] = {
+            "attention": {
+                "qkv": {"kernel": n(d, 3, H, d // H),
+                        "bias": n(3, H, d // H)},
+                "out": {"kernel": n(H, d // H, d), "bias": n(d)},
+            },
+            "attention_ln": ln(),
+            "intermediate": {"kernel": n(d, ff), "bias": n(ff)},
+            "output": {"kernel": n(ff, d), "bias": n(d)},
+            "output_ln": ln(),
+        }
+    return {"encoder_q": tree}
+
+
+def http_json(url: str, payload=None, timeout: float = 600.0):
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = json.loads(resp.read())
+            status = resp.status
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{url}: HTTP {e.code} {e.read()[:2000]!r}") from e
+    return status, body, time.perf_counter() - t0
+
+
+AUDIT_REL = 1e-4  # audit: score tolerance and tie band, x max|score| of the row
+
+
+def audit(reps: torch.Tensor, index: torch.Tensor, results, doc_pos) -> float:
+    """HTTP results vs a chunked fp32 top-k over the whole device index.
+    Every doc scoring above the k-th score's tie band must be returned,
+    every returned doc must score within the band of the k-th, and the
+    returned scores must match the fp32 ones. Returns the max abs error."""
+    from openmatch_tpu_torch.ops.mips import exact_search
+
+    ref_s, ref_i = exact_search(reps, index, k=K)
+    worst = 0.0
+    for r, res in enumerate(results):
+        ids = torch.tensor([doc_pos(x["id"]) for x in res], device=index.device)
+        got = torch.tensor([x["score"] for x in res], device=index.device)
+        exact = index[ids].float() @ reps[r].float()
+        tol = AUDIT_REL * ref_s[r].abs().max().item()
+        s_k = ref_s[r, K - 1].item()
+        err = max((got - exact).abs().max().item(),
+                  (got - ref_s[r]).abs().max().item())
+        worst = max(worst, err)
+        if err > tol:
+            raise AssertionError(f"audit row {r}: scores off by {err} > {tol}")
+        if len(set(ids.tolist())) != K:
+            raise AssertionError(f"audit row {r}: duplicate docs returned")
+        if (exact < s_k - tol).any():
+            raise AssertionError(f"audit row {r}: a returned doc scores "
+                                 "below the k-th score's tie band")
+        must = set(ref_i[r][ref_s[r] > s_k + tol].tolist())
+        missing = must - set(ids.tolist())
+        if missing:
+            raise AssertionError(f"audit row {r}: {len(missing)} of the "
+                                 f"{len(must)} docs above the tie band are "
+                                 "missing")
+    return worst
+
+
+def phase_serve(dev) -> dict:
+    from openmatch_tpu_torch.drivers.serve import (RetrievalService,
+                                                   ServingHTTPServer,
+                                                   make_handler)
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.models.jax_convert import params_from_jax
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops.mips import Searcher, _select_groups
+    from openmatch_tpu_torch.retriever.encoder import (encode_dataset,
+                                                       list_shards,
+                                                       load_embeddings,
+                                                       save_embeddings,
+                                                       shard_path)
+
+    rng = np.random.default_rng(0)
+    cfg = BertConfig()  # BERT-base: 768 wide, 12 layers, 12 heads
+    n_docs, n_pass = N_MSMARCO, 4096
+    t0 = time.perf_counter()
+    model = DRModel(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(params_from_jax(bert_base_tree(rng, cfg)))
+    model = model.to(dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: BERT-base DRModel ({n_params} fp32 params, bf16 compute) "
+        f"built in {time.perf_counter() - t0:.2f} s")
+
+    tok = WhitespaceTokenizer(cfg.vocab_size)
+    words = [f"t{i}" for i in range(20000)]
+    lengths = rng.integers(40, 121, n_pass)
+    passages = [" ".join(rng.choice(words, n)) for n in lengths]
+    dataset = [{"id": f"p{i}", "input_ids": tok.encode_plus(
+        t, max_length=128)["input_ids"]} for i, t in enumerate(passages)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, ids = encode_dataset(model, dataset, batch_size=256, max_len=128,
+                              pad_token_id=0, device=dev)
+    enc_s = time.perf_counter() - t0
+    log(f"serve: encoded {len(ids)} passages (p_max_len 128) in "
+        f"{enc_s:.3f} s = {len(ids) / enc_s:.1f} passages/s")
+    if emb.shape != (n_pass, cfg.hidden_size) or not np.isfinite(emb).all():
+        raise AssertionError(f"bad passage embeddings {emb.shape}")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_embeddings(emb, ids, shard_path(tmp, "corpus", 0), num_shards=1)
+        (path,) = list_shards(tmp, "corpus")
+        emb2, ids2 = load_embeddings(path)
+    if not (np.array_equal(emb, emb2) and ids == ids2):
+        raise AssertionError("npz shard did not round-trip")
+
+    t0 = time.perf_counter()
+    index = torch.empty((n_docs, cfg.hidden_size), dtype=torch.bfloat16, device=dev)
+    enc = torch.from_numpy(emb2).to(dev)
+    index[:n_pass] = enc.to(torch.bfloat16)
+    mu, sigma = enc.float().mean(0), enc.float().std(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    step = 1 << 20
+    for lo in range(n_pass, n_docs, step):
+        hi = min(lo + step, n_docs)
+        rows = torch.randn((hi - lo, cfg.hidden_size), generator=g, device=dev)
+        index[lo:hi] = (rows * sigma + mu).to(torch.bfloat16)
+    del enc, rows
+    torch.cuda.synchronize()
+    log(f"serve: index {n_docs} x {cfg.hidden_size} bf16 "
+        f"({index.numel() * 2 / 2**30:.2f} GiB) filled on the device in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    doc_ids = SyntheticDocIds(ids2, n_docs)
+    searcher = Searcher(index, k=K)
+    if searcher.method != "kernel":
+        raise AssertionError(f"Searcher chose {searcher.method} on CUDA")
+    service = RetrievalService(model, tok, searcher, doc_ids, q_max_len=32,
+                               max_batch=MAX_BATCH)
+    service.warmup()
+    service.timeline = []
+    server = ServingHTTPServer(("127.0.0.1", 0), make_handler(service, K))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = [[" ".join(rng.choice(words, rng.integers(3, 9)))
+                 for _ in range(8)] for _ in range(8)]
+    try:
+        cm.fused_plain_gmax.launches = 0
+        cm.gather_rescore.launches = 0
+        status, health, _ = http_json(base + "/health")
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            futures = [pool.submit(http_json, base + "/search",
+                                   {"queries": qs, "k": K})
+                       for qs in requests]
+            answers = [f.result() for f in futures]
+        launches = {"plain_gmax": cm.fused_plain_gmax.launches,
+                    "gather_rescore": cm.gather_rescore.launches}
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if status != 200 or health.get("num_docs") != n_docs:
+        raise AssertionError(f"/health: {status} {health}")
+    log(f"serve: /health {health}")
+    log(f"serve: launches during the requests {launches}; service "
+        f"{service.stats}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    lat = []
+    for (st, body, sec), qs in zip(answers, requests):
+        lat.append(sec * 1000)
+        if st != 200 or len(body["results"]) != len(qs):
+            raise AssertionError(f"/search answered {st}")
+        for res in body["results"]:
+            s = np.array([x["score"] for x in res])
+            if len(res) != K or not np.isfinite(s).all() or (np.diff(s) > 0).any():
+                raise AssertionError("a response is not k finite "
+                                     "non-increasing scores")
+    log("serve: per-request latency ms (8 concurrent x 8 queries, k=1000): "
+        + ", ".join(f"{x:.1f}" for x in lat))
+    for t in service.timeline:
+        log(f"serve: dispatch of {t['reqs']} requests / {t['rows']} queries: "
+            f"queued {t['wait_s'] * 1000:.1f} ms, executed "
+            f"{t['exec_s'] * 1000:.1f} ms, of which encode+search+readback "
+            f"{t['device_s'] * 1000:.1f} ms")
+
+    # the same 64 query embeddings the service searched (batches are padded
+    # to max_batch, so a query encodes the same in any batch)
+    flat_q = [q for qs in requests for q in qs]
+    flat_res = [res for _, body, _ in answers for res in body["results"]]
+    with torch.inference_mode():
+        reps = service.encode_queries(flat_q).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_k, i_k = searcher.search(reps)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1000
+        search_ms = cuda_time_ms(lambda: searcher.search(reps), 2, 10)
+        log(f"serve: per-batch search (Q={MAX_BATCH}, k={K}, N={n_docs}): "
+            f"median {search_ms:.3f} ms device-timed, one host-timed call "
+            f"{host_ms:.3f} ms")
+        pos = {d: i for i, d in enumerate(ids2)}
+
+        def doc_pos(d):
+            return pos[d] if d in pos else int(d[3:])
+
+        err = audit(reps, index, flat_res, doc_pos)
+        log(f"serve: exactness audit vs fp32 top-k over {n_docs} docs "
+            f"passed for {len(flat_res)} queries (max abs err {err:.3e}, "
+            f"tolerance {AUDIT_REL} x max|score|)")
+
+        # each kernel vs its plain version at the shapes the requests gave it
+        prep = searcher._prep
+        g1, l1 = cm.fused_plain_gmax(reps, prep.plain, emit_l1=8)
+        r1, rl1 = cm.plain_gmax_reference(reps, prep.plain, emit_l1=8)
+        e1 = max(compare("full-scale K1 gmax", g1, r1),
+                 compare("full-scale K1 l1", l1, rl1))
+        bid = _select_groups(g1, K, l1=l1).to(torch.int32)
+        s3 = cm.gather_rescore(reps, prep.plain, bid)
+        e3 = compare("full-scale K3 rescore", s3,
+                     cm.gather_rescore_reference(reps, prep.plain, bid))
+        t1 = cuda_time_ms(lambda: cm.fused_plain_gmax(reps, prep.plain,
+                                                      emit_l1=8))
+        t1p = cuda_time_ms(lambda: cm.plain_gmax_reference(
+            reps, prep.plain, emit_l1=8), 1, 3)
+        t_sel = cuda_time_ms(lambda: _select_groups(g1, K, l1=l1))
+        t3 = cuda_time_ms(lambda: cm.gather_rescore(reps, prep.plain, bid))
+        t3p = cuda_time_ms(lambda: cm.gather_rescore_reference(
+            reps, prep.plain, bid), 1, 5)
+        log(f"serve: at Q={MAX_BATCH}, N={n_docs}: K1 {t1:.4f} ms "
+            f"(plain {t1p:.4f}), selection {t_sel:.4f} ms, K3 {t3:.4f} ms "
+            f"(plain {t3p:.4f}), whole search {search_ms:.4f} ms")
+    del index, prep, searcher, service
+    torch.cuda.empty_cache()
+    return {"kernels": [
+        {"name": "plain_gmax", "route": "cuda",
+         "source": "openmatch_tpu_torch/ops/csrc/plain_gmax.cu",
+         "replaces": GMAX_REPLACES, "launches": launches["plain_gmax"],
+         "max_abs_err": e1, "ms": t1, "plain_ms": t1p},
+        {"name": "gather_rescore", "route": "cuda",
+         "source": "openmatch_tpu_torch/ops/csrc/gather_rescore.cu",
+         "replaces": RESCORE_REPLACES, "launches": launches["gather_rescore"],
+         "max_abs_err": e3, "ms": t3, "plain_ms": t3p},
+    ]}
+
+
+PHASES = ("device", "build", "kernels", "serve")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "runs the port on an NVIDIA card only")
+    sys.path.insert(0, REPO)
+    import openmatch_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = phase_device()
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        phase_kernels(dev)
+    table = None
+    if "serve" in phases:
+        table = phase_serve(dev)
+    if table is not None:
+        print(json.dumps(table))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": info["name"],
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""OpenMatch-TPU in PyTorch: the dense-retrieval serving path on CUDA.
+
+A second package beside ``openmatch_tpu`` (the JAX reference), with the
+same layout: ``openmatch_tpu/X/y.py`` has its counterpart at
+``openmatch_tpu_torch/X/y.py``. It imports ``torch`` and never JAX.
+
+- ``models``: BERT-family encoders and the bi-encoder ``DRModel``.
+- ``ops.mips`` / ``ops.cuda_mips``: exact MIPS, with hand-written CUDA
+  kernels (``ops/csrc``) for the block-max pass and the gather-rescore.
+- ``retriever``: encode to embedding shards, load them, search.
+- ``drivers``: ``build_index``, ``retrieve`` and the HTTP ``serve``.
+
+The JAX package's jax-free modules (``config``, ``data.collators``,
+``data.loader``, ``data.inference_dataset``, ``utils.trec``) are imported,
+not copied.
+"""
+
+__version__ = "0.1.0"
+
+from .device import resolve_device, resolve_dtype  # noqa: F401,E402

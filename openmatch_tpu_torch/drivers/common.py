@@ -1,0 +1,44 @@
+"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag."""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+from typing import List, Optional, Tuple
+
+from ..device import resolve_device
+
+
+def setup_logging():
+    logging.basicConfig(
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+        level=os.environ.get("OPENMATCH_LOG_LEVEL", "INFO"),
+    )
+
+
+def load_tokenizer(model_args):
+    """The HF fast tokenizer named by ``--tokenizer_name`` or the model
+    path. ``transformers`` is imported here, and only here."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        raise RuntimeError(
+            "loading a tokenizer needs the 'transformers' package, which is "
+            "not installed; construct the service with a tokenizer object "
+            "instead") from None
+    name = model_args.tokenizer_name or model_args.model_name_or_path
+    return AutoTokenizer.from_pretrained(name, cache_dir=model_args.cache_dir,
+                                         use_fast=True)
+
+
+def split_device_flag(argv: Optional[List[str]]) -> Tuple[object, List[str]]:
+    """Take ``--device`` (default ``cuda``) off the command line; the rest
+    are the JAX drivers' flags. The CPU runs only when named."""
+    extra = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+    extra.add_argument("--device", default="cuda",
+                       help="cuda | cuda:N | cpu (default cuda)")
+    args, rest = extra.parse_known_args(
+        list(argv) if argv is not None else sys.argv[1:])
+    return resolve_device(args.device), rest

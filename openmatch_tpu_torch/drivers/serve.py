@@ -1,0 +1,322 @@
+"""Retrieval serving: hold the model and the index on the device, answer HTTP.
+
+Port of the retrieval half of ``openmatch_tpu/drivers/serve.py``:
+
+    python -m openmatch_tpu_torch.drivers.serve \
+        --model_name_or_path ckpt_dr --encoded_save_path embeddings/ \
+        --port 8080 [--retrieve_depth 100] [--max_batch 64] [--device cuda]
+
+    GET  /health
+    POST /search   {"queries": ["...", ...], "k": 10}
+      -> {"results": [[{"id": ..., "score": ...}, ...], ...]}
+
+``/rerank`` answers 404: the cross-encoder is not ported yet.
+
+One worker thread owns the device: concurrent HTTP handlers enqueue and
+wait, and the worker coalesces what arrived into batches of at most
+``max_batch`` queries. ``torch.inference_mode`` is thread-local, so the
+worker enters it itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import numpy as np
+import torch
+
+from openmatch_tpu.config import (ArgumentParser, DataArguments,
+                                  InferenceArguments, ModelArguments)
+from openmatch_tpu.data.collators import pad_ids
+
+from ..models.dr_model import DRModel
+from ..ops.mips import Searcher
+from .common import load_tokenizer, setup_logging, split_device_flag
+
+
+class OverloadedError(RuntimeError):
+    """Bounded request queue is full: callers get HTTP 503."""
+
+
+class _QueueService:
+    """Single-consumer work queue with cross-request coalescing (copied
+    from the JAX package's host layer). Concurrent handlers enqueue; the
+    worker gathers whatever arrived, waiting up to ``coalesce_window_s``
+    for stragglers while under ``max_batch`` rows, into one dispatch. The
+    queue holds at most ``max_queue`` pending requests; beyond it
+    submitters fail fast with OverloadedError.
+
+    Subclasses define ``_rows(args)`` (rows a request contributes) and
+    ``_run_many(requests)`` (batch-execute, one result per request)."""
+
+    max_queue = 256
+    coalesce_window_s = 0.002
+
+    def _start_worker(self):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
+        self.stats = {"dispatch_groups": 0, "requests": 0, "max_coalesced": 0}
+        # assign a list to record one dict per dispatch (enqueue-to-
+        # dispatch wait, exec wall, device span)
+        self.timeline = None
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        with torch.inference_mode():
+            while True:
+                self._serve_one_group()
+
+    def _serve_one_group(self):
+        items = [self._queue.get()]
+        deadline = time.monotonic() + self.coalesce_window_s
+        while sum(self._rows(args) for args, _, _ in items) < self.max_batch:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                items.append(self._queue.get(timeout=remaining))
+            except queue.Empty:
+                break
+        self.stats["dispatch_groups"] += 1
+        self.stats["requests"] += len(items)
+        self.stats["max_coalesced"] = max(self.stats["max_coalesced"],
+                                          len(items))
+        t_exec0 = time.monotonic()
+        try:
+            self._exec_device_s = 0.0  # _run_many accumulates
+            results = self._run_many([args for args, _, _ in items])
+            for (_, reply, _), res in zip(items, results):
+                reply.put(("ok", res))
+            err = False
+        except Exception as e:  # the worker must outlive a failed batch
+            for _, reply, _ in items:
+                reply.put(("error", f"{type(e).__name__}: {e}"))
+            err = True
+        if self.timeline is not None:
+            t1 = time.monotonic()
+            self.timeline.append({
+                "t": t_exec0,
+                "wait_s": t_exec0 - min(enq for _, _, enq in items),
+                "exec_s": t1 - t_exec0,
+                "device_s": self._exec_device_s,
+                "rows": sum(self._rows(args) for args, _, _ in items),
+                "reqs": len(items), "error": err,
+            })
+
+    def _submit(self, *args):
+        reply: "queue.Queue" = queue.Queue()
+        try:
+            self._queue.put((args, reply, time.monotonic()), block=False)
+        except queue.Full:
+            raise OverloadedError(
+                f"request queue full ({self.max_queue} pending)") from None
+        status, payload = reply.get()
+        if status == "error":
+            raise RuntimeError(payload)
+        return payload
+
+
+class RetrievalService(_QueueService):
+    """Query encoding plus exact search behind a single-consumer queue."""
+
+    def __init__(self, model, tokenizer, searcher: Searcher, doc_ids,
+                 q_max_len: int, max_batch: int):
+        """The model runs on the searcher's device, where the index is."""
+        self.model = model
+        self.tokenizer = tokenizer
+        self.doc_ids = doc_ids
+        self.searcher = searcher
+        self.q_max_len = q_max_len
+        self.max_batch = max_batch
+        self.device = searcher.device
+        self._start_worker()
+
+    def warmup(self):
+        self.search(["warmup"], k=1)
+
+    @staticmethod
+    def _rows(args):
+        return len(args[0])
+
+    def encode_queries(self, queries) -> torch.Tensor:
+        """At most ``max_batch`` query strings -> reps [n, D] on the device.
+        The batch is padded to ``max_batch`` rows, so a query's
+        representation does not depend on what it was batched with."""
+        enc = [
+            self.tokenizer.encode_plus(
+                q, truncation="only_first", max_length=self.q_max_len,
+                padding=False, return_attention_mask=False,
+                return_token_type_ids=False,
+            )["input_ids"]
+            for q in queries
+        ]
+        enc = enc + [enc[-1]] * (self.max_batch - len(enc))
+        batch = pad_ids(enc, self.q_max_len, self.tokenizer.pad_token_id or 0)
+        ids = torch.from_numpy(batch["input_ids"]).to(self.device)
+        mask = torch.from_numpy(batch["attention_mask"]).to(self.device)
+        return self.model.encode_query(ids, mask)[: len(queries)]
+
+    def _search_rows(self, queries):
+        """One device dispatch per max_batch chunk of the merged queries;
+        returns (scores [n, K], indices [n, K]) at the searcher's depth."""
+        s_out, i_out = [], []
+        for start in range(0, len(queries), self.max_batch):
+            chunk = queries[start:start + self.max_batch]
+            t_dev = time.monotonic()  # device span: encode->search->readback
+            reps = self.encode_queries(chunk)
+            scores, indices = self.searcher.search(reps)
+            s_out.append(scores.float().cpu().numpy())
+            i_out.append(indices.cpu().numpy())
+            self._exec_device_s += time.monotonic() - t_dev
+        return np.concatenate(s_out), np.concatenate(i_out)
+
+    def _run_many(self, requests):
+        """requests: [(queries, k)], coalesced into shared device batches."""
+        merged = [q for queries, _ in requests for q in queries]
+        scores, indices = self._search_rows(merged)
+        results, row = [], 0
+        for queries, k in requests:
+            results.append([
+                [
+                    {"id": self.doc_ids[int(d)], "score": float(s)}
+                    for d, s in zip(indices[row + r, :k], scores[row + r, :k])
+                    if np.isfinite(s)
+                ]
+                for r in range(len(queries))
+            ])
+            row += len(queries)
+        return results
+
+    def search(self, queries, k: int = 10):
+        if not queries:
+            return []
+        return self._submit(queries, k)
+
+
+def make_handler(service, default_k: int):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def _send(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/health":
+                payload = {"status": "ok",
+                           "endpoints": ["/search"] if service else []}
+                if service:
+                    payload["num_docs"] = service.searcher.n_docs
+                self._send(200, payload)
+            else:
+                self._send(404, {"error": "unknown path"})
+
+        def _handle_search(self, req):
+            if service is None:
+                self._send(404, {"error": "/search not enabled (no "
+                                          "--encoded_save_path)"})
+                return
+            queries = req.get("queries")
+            if not isinstance(queries, list) or not all(
+                    isinstance(q, str) for q in queries):
+                self._send(400, {"error": "'queries' must be a list of "
+                                          "strings"})
+                return
+            try:
+                k = int(req.get("k", default_k))
+            except (TypeError, ValueError):
+                self._send(400, {"error": "'k' must be an integer"})
+                return
+            max_k = service.searcher.k
+            if k < 1 or k > max_k:
+                self._send(400, {"error": f"'k' must be in [1, {max_k}] "
+                                          "(the index was built with "
+                                          f"retrieve_depth={max_k})"})
+                return
+            self._send(200, {"results": service.search(queries, k=k)})
+
+        def _handle_rerank(self, req):
+            self._send(404, {"error": "/rerank not enabled (the PyTorch "
+                                      "port has no cross-encoder yet)"})
+
+        def do_POST(self):
+            routes = {"/search": self._handle_search,
+                      "/rerank": self._handle_rerank}
+            handler = routes.get(self.path)
+            if handler is None:
+                self._send(404, {"error": "unknown path"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                handler(req)
+            except json.JSONDecodeError:
+                self._send(400, {"error": "invalid JSON body"})
+            except OverloadedError as e:
+                self._send(503, {"error": str(e)})
+            except Exception as e:  # the server thread must keep answering
+                self._send(500, {"error": str(e)})
+
+    return Handler
+
+
+def build_service(model_args, data_args, infer_args, max_batch: int,
+                  device) -> RetrievalService:
+    from ..retriever.retriever import Retriever, searcher_method
+
+    tokenizer = load_tokenizer(model_args)
+    model = DRModel.build(model_args, device=device)
+    retriever = Retriever.from_embeddings(
+        model, data_args, infer_args, tokenizer.pad_token_id or 0, device)
+    searcher = Searcher(retriever.index_tensor(), k=infer_args.retrieve_depth,
+                        method=searcher_method(infer_args))
+    retriever.doc_embeddings = None  # the device index is the copy we keep
+    return RetrievalService(model, tokenizer, searcher, retriever.doc_ids,
+                            q_max_len=data_args.q_max_len,
+                            max_batch=max_batch)
+
+
+class ServingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a production listen backlog: the default
+    of 5 drops SYNs from concurrent one-connection-per-request clients,
+    and each dropped SYN costs a 1 s retransmit."""
+
+    request_queue_size = 1024
+
+
+def main(argv=None):
+    setup_logging()
+    device, rest = split_device_flag(argv)
+    extra = argparse.ArgumentParser(allow_abbrev=False)
+    extra.add_argument("--port", type=int, default=8080)
+    extra.add_argument("--max_batch", type=int, default=64)
+    extra.add_argument("--rr_model_name_or_path", default=None,
+                       help="not available in the PyTorch port yet")
+    extra_args, rest = extra.parse_known_args(rest)
+    if extra_args.rr_model_name_or_path:
+        raise NotImplementedError("/rerank is not ported to PyTorch yet")
+    model_args, data_args, infer_args = ArgumentParser(
+        (ModelArguments, DataArguments, InferenceArguments)).parse(rest)
+    if not infer_args.encoded_save_path:
+        raise ValueError("nothing to serve: pass --encoded_save_path")
+    service = build_service(model_args, data_args, infer_args,
+                            extra_args.max_batch, device)
+    service.warmup()
+    server = ServingHTTPServer(("0.0.0.0", extra_args.port),
+                               make_handler(service, infer_args.retrieve_depth))
+    print(f"serving /search on :{extra_args.port}")
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

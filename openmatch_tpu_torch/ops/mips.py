@@ -1,0 +1,180 @@
+"""Exact maximum-inner-product search (MIPS) in PyTorch.
+
+Port of ``openmatch_tpu/ops/mips.py`` for one device:
+
+- ``exact_search``: chunked running top-k over [Q, D] x [N, D]; the plain
+  path, and the fallback of the kernel path for tiny corpora.
+- ``gather_row_slices`` and ``_select_groups``: the exact max-pyramid
+  selection of the kernel path (``ops/cuda_mips.py``), on ``torch.topk``
+  and ``torch.gather``.
+- ``Searcher``: a fixed index answering repeated query batches.
+
+The pyramid uses a fixed fanout of 8 and adds a level while
+``width // 8 > k``. The TPU package's cost model that picked the depth
+(``_plan_pyramid``) was fitted on TPU timings and is not carried over;
+selection is exact at any depth.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG = torch.finfo(torch.float32).min  # pallas_mips masks with this, not -inf
+FANOUT = 8
+
+
+def exact_search(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int = 100,
+    chunk_size: int = 0,
+    valid_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k inner products. queries [Q, D], corpus [N, D] on one device.
+
+    Returns (scores [Q, min(k, N)] fp32 sorted descending, indices int64).
+    Products are taken in fp32 (both operands upcast), chunk by chunk, and
+    merged into a running top-k, so the [Q, N] score matrix is never held.
+    Rows >= ``valid_rows`` score -inf."""
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    k = min(k, N)
+    if chunk_size <= 0:
+        # fp32 staging of one chunk stays near 256 MiB at any Q and D
+        chunk_size = max(1024, (64 * 2**20) // max(Q + D, 1))
+    chunk_size = min(chunk_size, max(N, 1))
+    limit = N if valid_rows is None else min(int(valid_rows), N)
+    q = queries.float()
+    best_s = torch.full((Q, k), float("-inf"), device=queries.device)
+    best_i = torch.zeros((Q, k), dtype=torch.int64, device=queries.device)
+    for lo in range(0, N, chunk_size):
+        hi = min(lo + chunk_size, N)
+        s = q @ corpus[lo:hi].float().T
+        if limit < hi:
+            s[:, max(limit - lo, 0):] = float("-inf")
+        cs, ci = torch.topk(s, min(k, hi - lo), dim=1)
+        cat_s = torch.cat([best_s, cs], dim=1)
+        cat_i = torch.cat([best_i, ci + lo], dim=1)
+        best_s, pos = torch.topk(cat_s, k, dim=1)
+        best_i = torch.gather(cat_i, 1, pos)
+    return best_s, best_i
+
+
+def gather_row_slices(arr: torch.Tensor, starts: torch.Tensor,
+                      size: int) -> torch.Tensor:
+    """out[q, j, :] = arr[q, starts[q, j] : starts[q, j] + size].
+
+    Every start is a multiple of ``size`` (callers pass ``parent * size``).
+    When ``size`` divides the width this is one gather of whole slabs, with
+    out-of-range slabs clamped as in the JAX version. When it does not,
+    the members past the last column read as ``finfo(float32).min``: the
+    value the JAX pyramid pads a ragged level with."""
+    Q, W = arr.shape
+    if W % size == 0:
+        slab = (starts // size).clamp(0, W // size - 1)
+        return torch.gather(arr.view(Q, W // size, size), 1,
+                            slab[:, :, None].expand(-1, -1, size))
+    idx = starts[:, :, None] + torch.arange(size, device=arr.device)
+    vals = torch.gather(arr, 1, idx.clamp(0, W - 1).reshape(Q, -1))
+    return vals.view(idx.shape).masked_fill(idx >= W, NEG)
+
+
+def pyramid_fanouts(width: int, k: int) -> tuple:
+    """Finest-first fanouts of the max pyramid over ``width`` groups."""
+    fanouts = []
+    while width // FANOUT > k:
+        fanouts.append(FANOUT)
+        width = -(-width // FANOUT)
+    return tuple(fanouts)
+
+
+def _select_groups(gmax: torch.Tensor, k: int,
+                   l1: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact top-k group selection from per-group maxima [Q, W].
+
+    Builds coarser maxima levels until one more would hold <= k entries,
+    top-k's the coarsest, then expands level by level: gather the
+    8*k member maxima of the selected parents and keep the top k. Any
+    group of the true top-k has every ancestor's max >= the k-th best, and
+    at most k ancestors per level can, so nothing is lost at any depth.
+
+    ``l1`` is the precomputed first level [Q, ceil(W / 8)] (the gmax
+    kernel emits it), which skips the widest build pass. Returns group ids
+    [Q, k] int64 (not sorted; the caller rescores the members)."""
+    Q, W = gmax.shape
+    fanouts = pyramid_fanouts(W, k)
+    if l1 is not None:
+        if not fanouts or tuple(l1.shape) != (Q, -(-W // FANOUT)):
+            raise ValueError(f"l1 {tuple(l1.shape)} does not fit gmax "
+                             f"{tuple(gmax.shape)} at k={k}")
+        levels = [gmax, l1]
+        build = fanouts[1:]
+    else:
+        levels = [gmax]
+        build = fanouts
+    for f in build:
+        cur = levels[-1]
+        pad = (-cur.shape[1]) % f
+        if pad:
+            cur = torch.nn.functional.pad(cur, (0, pad), value=NEG)
+        levels.append(cur.view(Q, -1, f).amax(-1))
+
+    top = levels[-1]
+    _, ids = torch.topk(top, min(k, top.shape[1]), dim=1)
+    if ids.shape[1] < k:  # tiny corpus: every coarse entry is selected
+        ids = torch.cat([ids, ids[:, -1:].expand(Q, k - ids.shape[1])], 1)
+    for lvl, f in zip(reversed(levels[:-1]), reversed(fanouts)):
+        member_vals = gather_row_slices(lvl, ids * f, f).reshape(Q, -1)
+        _, pos = torch.topk(member_vals, k, dim=1)
+        # pos is parent-major (slot * f + m): rebuild the global id from
+        # the selected parent instead of carrying ids through the sort
+        ids = torch.gather(ids, 1, pos // f) * f + pos % f
+    return ids
+
+
+class Searcher:
+    """A fixed single-device index answering repeated query batches.
+
+    ``method``: "kernel" holds the prepared doc-major layout and searches
+    it with the gmax kernel, pyramid selection and the gather-rescore
+    kernel (``ops/cuda_mips.py``); "plain" runs ``exact_search``; "auto"
+    takes "kernel" when the corpus is a CUDA tensor and "plain" when the
+    caller put it on the CPU. The kernel wrappers run their plain PyTorch
+    versions on CPU tensors, so "kernel" on the CPU runs the same pipeline
+    without CUDA."""
+
+    def __init__(self, corpus: torch.Tensor, k: int = 100,
+                 chunk_size: int = 0, method: str = "auto"):
+        if method == "auto":
+            method = "kernel" if corpus.is_cuda else "plain"
+        if method not in ("kernel", "plain"):
+            raise ValueError(f"unknown search method {method!r} "
+                             "(auto | kernel | plain)")
+        self.k = k
+        self.chunk_size = chunk_size
+        self.method = method
+        self.dtype = corpus.dtype
+        self.device = corpus.device
+        self.n_docs = corpus.shape[0]
+        self.last_dispatch = None
+        self._prep = None
+        self.corpus = None
+        if method == "kernel":
+            from .cuda_mips import prepare_plain_corpus
+
+            self._prep = prepare_plain_corpus(corpus)
+        else:
+            self.corpus = corpus
+
+    def search(self, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # pooled reps are often strided views; the kernels take dense rows
+        queries = queries.to(device=self.device, dtype=self.dtype).contiguous()
+        if self.method == "kernel":
+            from .cuda_mips import plain_topk_prepared
+
+            self.last_dispatch = f"kernel:{self.device.type}"
+            return plain_topk_prepared(queries, self._prep, self.k)
+        self.last_dispatch = f"plain:{self.device.type}"
+        return exact_search(queries, self.corpus, self.k, self.chunk_size)

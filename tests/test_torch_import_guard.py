@@ -1,0 +1,38 @@
+"""The PyTorch port imports no JAX: in a fresh interpreter where importing
+jax, flax, optax or ml_dtypes fails, every module of openmatch_tpu_torch
+still imports."""
+
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "optax", "ml_dtypes"):
+    sys.modules[name] = None  # any import of these raises ImportError
+import openmatch_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(openmatch_tpu_torch.__path__,
+                                                "openmatch_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in ("jax", "flax", "optax", "ml_dtypes")
+                if sys.modules.get(m) is not None)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    # every module of the slice is covered, not just the package root
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 17

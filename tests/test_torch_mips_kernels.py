@@ -1,0 +1,153 @@
+"""The port's kernel modules against the JAX Pallas kernels (interpret mode
+on the CPU, as tests/test_pallas_mips.py runs them).
+
+On the CPU the port's wrappers run their plain PyTorch versions; the same
+inputs (made with numpy from a seed, bf16-representable) go through the
+JAX kernels. Tolerance: atol 1e-4 (fp32 sums in another order) and entries
+masked to finfo(float32).min bit-equal. The CUDA kernels themselves are
+compared with the plain versions in the ``cuda``-marked tests, which skip
+without a card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openmatch_tpu.ops import pallas_mips as pm
+from openmatch_tpu_torch.ops import cuda_mips as cm
+
+torch.set_num_threads(2)
+ATOL = 1e-4
+NEG = np.finfo(np.float32).min
+TILE_G, TILE_Q = 128, 8  # the JAX kernels' test tiles
+
+
+def bf16_data(seed, *shape):
+    """A bf16 tensor for the port and the same values as fp32 for JAX."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(
+        np.float32)).to(torch.bfloat16)
+    return x, jnp.asarray(x.float().numpy())
+
+
+def assert_match(got: torch.Tensor, want):
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got == NEG, want == NEG)
+    live = want != NEG
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("emit_l1,nb_valid,tile_lo,n_tiles", [
+    (0, None, 0, None),   # K2: gmax only
+    (8, None, 0, None),   # K1: gmax + level 1
+    (8, 300, 0, None),    # K1 with pad blocks masked (mid-tile boundary)
+    (8, 300, 1, 2),       # K1 over a window of corpus tiles
+    (0, None, 2, 1),      # K2 over the last tile only
+])
+def test_plain_gmax_matches_jax(emit_l1, nb_valid, tile_lo, n_tiles):
+    N, D, Q = 3 * TILE_G * 8, 64, 8  # three corpus tiles
+    plain, plain_j = bf16_data(0, N, D)
+    q, q_j = bf16_data(1, Q, D)
+    if nb_valid is not None:  # pads would win every block if unmasked
+        plain[nb_valid * 8:] = 4.0
+        plain_j = jnp.asarray(plain.float().numpy())
+    want = pm.fused_plain_gmax(q_j, plain_j, tile_g=TILE_G, tile_q=TILE_Q,
+                               tile_lo=tile_lo, n_tiles=n_tiles,
+                               emit_l1=emit_l1, nb_valid=nb_valid)
+    blk_lo = tile_lo * TILE_G
+    n_blk = None if n_tiles is None else n_tiles * TILE_G
+    before = cm.fused_plain_gmax.launches
+    got = cm.fused_plain_gmax(q, plain, blk_lo=blk_lo, n_blk=n_blk,
+                              emit_l1=emit_l1, nb_valid=nb_valid)
+    assert cm.fused_plain_gmax.launches == before  # CPU: no kernel launch
+    if emit_l1:
+        assert_match(got[0], want[0])
+        assert_match(got[1], want[1])
+    else:
+        assert_match(got, want)
+
+
+def test_plain_gmax_ragged_window_l1():
+    """A window whose length is not a multiple of 8 or 16 blocks: l1's
+    last entry is the max over the blocks that exist."""
+    plain, _ = bf16_data(2, 8 * 203, 32)
+    q, _ = bf16_data(3, 5, 32)
+    g, l1 = cm.fused_plain_gmax(q, plain, blk_lo=7, n_blk=189, emit_l1=8)
+    full = (q.float() @ plain.float().T).view(5, 203, 8).amax(-1)
+    np.testing.assert_allclose(g.numpy(), full[:, 7:196].numpy(), atol=ATOL)
+    assert l1.shape == (5, 24)
+    np.testing.assert_array_equal(l1[:, -1].numpy(),
+                                  g[:, 184:].amax(-1).numpy())
+
+
+def test_gather_rescore_matches_jax():
+    Q, NB, k, D = 9, 40, 12, 64  # Q and k both off the JAX kernel's tiles
+    plain, plain_j = bf16_data(4, NB * 8, D)
+    q, q_j = bf16_data(5, Q, D)
+    bids = np.random.RandomState(6).randint(0, NB, size=(Q, k)).astype(np.int32)
+    bids[:, 0] = NB - 1  # the last block
+    bids[:, 1] = bids[:, 2]  # a repeated id
+    want, _ = pm.pallas_gather_rescore(q_j, plain_j, jnp.asarray(bids))
+    got = cm.gather_rescore(q, plain, torch.from_numpy(bids))
+    assert_match(got, np.asarray(want)[:, :k * 8])
+
+
+def test_wrappers_reject_bad_windows_and_shapes():
+    plain, _ = bf16_data(7, 64, 16)
+    q, _ = bf16_data(8, 2, 16)
+    with pytest.raises(ValueError, match="window"):
+        cm.fused_plain_gmax(q, plain, blk_lo=4, n_blk=5)
+    with pytest.raises(ValueError, match="rows"):
+        cm.fused_plain_gmax(q, plain[:60])
+    with pytest.raises(ValueError, match="emit_l1"):
+        cm.fused_plain_gmax(q, plain, emit_l1=3)
+    with pytest.raises(ValueError, match="shapes"):
+        cm.gather_rescore(q, plain, torch.zeros(3, 4, dtype=torch.int32))
+
+
+# ---- on the card ----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+REL = 1e-3  # bf16 inputs, fp32 sums in another order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_l1,nb_valid", [(0, None), (8, 4000)])
+def test_cuda_plain_gmax_matches_plain(cuda_device, emit_l1, nb_valid):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    plain = torch.randn(8 * 4099, 768, generator=g, device=cuda_device
+                        ).to(torch.bfloat16)
+    q = torch.randn(70, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    before = cm.fused_plain_gmax.launches
+    got = cm.fused_plain_gmax(q, plain, blk_lo=3, emit_l1=emit_l1,
+                              nb_valid=nb_valid)
+    want = cm.plain_gmax_reference(q, plain, blk_lo=3, emit_l1=emit_l1,
+                                   nb_valid=nb_valid)
+    assert cm.fused_plain_gmax.launches == before + 1
+    for a, b in zip(got if emit_l1 else (got,), want if emit_l1 else (want,)):
+        assert torch.equal(a == cm.NEG, b == cm.NEG)
+        live = b != cm.NEG
+        err = (a[live] - b[live]).abs().max().item()
+        assert err <= REL * b[live].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_gather_rescore_matches_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    NB = 5003
+    plain = torch.randn(8 * NB, 768, generator=g, device=cuda_device
+                        ).to(torch.bfloat16)
+    q = torch.randn(33, 768, generator=g, device=cuda_device).to(torch.bfloat16)
+    bids = torch.randint(0, NB, (33, 1000), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    bids[:, -1] = NB - 1
+    got = cm.gather_rescore(q, plain, bids)
+    want = cm.gather_rescore_reference(q, plain, bids)
+    assert (got - want).abs().max().item() <= REL * want.abs().max().item()
