@@ -7,10 +7,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device   the card's name and power limit (nvidia-smi).
 2. build    nvcc-builds the hand-written kernels of
-            openmatch_tpu_torch/ops/csrc from this checkout.
+            openmatch_tpu_torch/ops/csrc from this checkout (one nvcc per
+            source, all at once).
 3. kernels  each kernel against its plain PyTorch version at serving
             shapes (Q in {64, 128}, D = 768, a 2^20 + 29 doc corpus whose
-            last tile and N % 8 tail are ragged), with median times.
+            last tile and N % 8 tail are ragged; the segment kernels over
+            the same corpus cut into 3 segments), with median times.
 4. serve    a BERT-base DRModel (bf16 compute, seeded random weights)
             encodes 4,096 passages through encode_dataset; the npz shard is
             written and reloaded; the index is filled on the device to all
@@ -23,6 +25,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             device index must pass. Then each kernel is compared with its
             plain version once more at the exact shapes the requests gave
             it.
+            The segmented index: the same rows rebuilt as 6 separately
+            allocated segments behind a Searcher(k=1000, n_segs=6) and a
+            second RetrievalService answer the same 8 concurrent requests;
+            the segment kernels' counters must rise (and the single-buffer
+            kernels' stay at 0), the answers must equal the single-buffer
+            answers above the k-th score's tie band and pass the fp32
+            audit. At Q=64, plain_topk_prepared with pipeline=True (the
+            pipelined rescore kernel must launch) and with c_split=4 must
+            equal the default above the tie band. Each segment kernel and
+            the pipelined kernel are compared with their plain versions at
+            the requests' shapes.
 
 The second-to-last line is the kernel table as one JSON object, the last
 line {"ok": true, "device": {...}}. It needs CUDA: without a card it
@@ -54,8 +67,18 @@ K = 1000
 MAX_BATCH = 64
 REL_TOL = 1e-3  # |kernel - plain| <= REL_TOL * max|score|: bf16 inputs,
 # fp32 sums in another order; masked entries must be bit-equal
-GMAX_REPLACES = "openmatch_tpu/ops/pallas_mips.py:562"
-RESCORE_REPLACES = "openmatch_tpu/ops/pallas_mips.py:970"
+N_SEGS = 6  # the segmented index of the reference's 8.8M-doc headline
+CSRC = "openmatch_tpu_torch/ops/csrc/"
+TPU = "openmatch_tpu/ops/pallas_mips.py:"
+# kernel-table name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "plain_gmax": (CSRC + "plain_gmax.cu", TPU + "562"),
+    "gather_rescore": (CSRC + "gather_rescore.cu", TPU + "970"),
+    "plain_gmax_segs": (CSRC + "plain_gmax.cu", TPU + "732"),
+    "gather_rescore_seg": (CSRC + "gather_rescore.cu", TPU + "1013"),
+    "gather_rescore_pipelined": (CSRC + "gather_rescore_pipelined.cu",
+                                 TPU + "1114"),
+}
 
 
 def log(msg: str):
@@ -76,6 +99,23 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def reset_launches(cm):
+    """Set every kernel wrapper's launch count to 0."""
+    cm.fused_plain_gmax.launches = 0
+    cm.fused_plain_gmax_segs.launches = 0
+    cm.gather_rescore.launches = 0
+    cm.gather_rescore.seg_launches = 0
+    cm.gather_rescore.pipelined_launches = 0
+
+
+def read_launches(cm) -> dict:
+    return {"plain_gmax": cm.fused_plain_gmax.launches,
+            "plain_gmax_segs": cm.fused_plain_gmax_segs.launches,
+            "gather_rescore": cm.gather_rescore.launches,
+            "gather_rescore_seg": cm.gather_rescore.seg_launches,
+            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -135,6 +175,8 @@ def phase_kernels(dev):
     corpus = (torch.randn(N, D, generator=g, device=dev) * 0.05).to(
         torch.bfloat16)
     prep = cm.prepare_plain_corpus(corpus)
+    segs = cm.prepare_plain_corpus(corpus, n_segs=3).plain
+    log(f"kernels: 3 segments of {[s.shape[0] // 8 for s in segs]} blocks")
     for Q in (64, 128):
         q = torch.randn(Q, D, generator=g, device=dev).to(torch.bfloat16)
         nb_valid = NB - 37
@@ -155,13 +197,31 @@ def phase_kernels(dev):
         g2 = cm.fused_plain_gmax(q, prep.plain)
         compare(f"K2 gmax Q={Q}", g2, cm.plain_gmax_reference(
             q, prep.plain))
+        g4, l4 = cm.fused_plain_gmax_segs(q, segs, emit_l1=8,
+                                          nb_valid=nb_valid)
+        r4, rl4 = cm.plain_gmax_segs_reference(q, segs, emit_l1=8,
+                                               nb_valid=nb_valid)
+        compare(f"K4 gmax Q={Q}", g4, r4)
+        compare(f"K4 l1 Q={Q}", l4, rl4)
+        if not (torch.equal(g4, g1) and torch.equal(l4, l1)):
+            raise AssertionError("K4 over 3 segments != K1 over one buffer")
         bids = torch.randint(0, NB, (Q, K), generator=g, device=dev,
                              dtype=torch.int32)
         bids[:, :4] = bids[:, 4:8]  # repeated ids
         bids[:, -1] = NB - 1        # the last block
+        cuts = torch.tensor([0] + [s.shape[0] // 8 for s in segs],
+                            device=dev).cumsum(0)
+        bids[:, 8:11] = cuts[1:].int() - 1  # each segment's last block
+        bids[:, 11:14] = cuts[:-1].int()    # ... and its first
         s3 = cm.gather_rescore(q, prep.plain, bids)
-        compare(f"K3 rescore Q={Q}", s3,
-                cm.gather_rescore_reference(q, prep.plain, bids))
+        r3 = cm.gather_rescore_reference(q, prep.plain, bids)
+        compare(f"K3 rescore Q={Q}", s3, r3)
+        s5 = cm.gather_rescore(q, segs, bids)
+        compare(f"K5 rescore Q={Q}", s5, r3)
+        if not torch.equal(s5, s3):
+            raise AssertionError("K5 over 3 segments != K3 over one buffer")
+        s6 = cm.gather_rescore(q, prep.plain, bids, pipeline=True)
+        compare(f"K6 rescore Q={Q}", s6, r3)
         t = {
             "K1": (cuda_time_ms(lambda: cm.fused_plain_gmax(
                 q, prep.plain, emit_l1=8, nb_valid=nb_valid)),
@@ -170,15 +230,26 @@ def phase_kernels(dev):
             "K2": (cuda_time_ms(lambda: cm.fused_plain_gmax(q, prep.plain)),
                    cuda_time_ms(lambda: cm.plain_gmax_reference(
                        q, prep.plain))),
+            "K4": (cuda_time_ms(lambda: cm.fused_plain_gmax_segs(
+                q, segs, emit_l1=8, nb_valid=nb_valid)),
+                cuda_time_ms(lambda: cm.plain_gmax_segs_reference(
+                    q, segs, emit_l1=8, nb_valid=nb_valid))),
             "K3": (cuda_time_ms(lambda: cm.gather_rescore(
                 q, prep.plain, bids)),
+                cuda_time_ms(lambda: cm.gather_rescore_reference(
+                    q, prep.plain, bids))),
+            "K5": (cuda_time_ms(lambda: cm.gather_rescore(q, segs, bids)),
+                   cuda_time_ms(lambda: cm.gather_rescore_reference(
+                       q, segs, bids))),
+            "K6": (cuda_time_ms(lambda: cm.gather_rescore(
+                q, prep.plain, bids, pipeline=True)),
                 cuda_time_ms(lambda: cm.gather_rescore_reference(
                     q, prep.plain, bids))),
         }
         for key, (ms, plain_ms) in t.items():
             log(f"  {key} Q={Q} N={N}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
-    del corpus, prep
+    del corpus, prep, segs
     torch.cuda.empty_cache()
 
 
@@ -305,10 +376,82 @@ def audit(reps: torch.Tensor, index: torch.Tensor, results, doc_pos) -> float:
     return worst
 
 
+def same_above_band(name: str, s_a, i_a, s_b, i_b):
+    """Two top-k answers [Q, K] agree: scores within AUDIT_REL x max|score|
+    and the same docs above the k-th score's tie band of ``s_b``."""
+    for r in range(s_b.shape[0]):
+        tol = AUDIT_REL * s_b[r].abs().max().item()
+        err = (s_a[r] - s_b[r]).abs().max().item()
+        band = s_b[r, -1].item() + tol
+        if err > tol or set(i_a[r][s_a[r] > band].tolist()) \
+                != set(i_b[r][s_b[r] > band].tolist()):
+            raise AssertionError(f"{name}: row {r} differs above the tie "
+                                 f"band (score err {err}, tolerance {tol})")
+    log(f"serve: {name}: equal above the tie band for {s_b.shape[0]} rows")
+
+
+def serve_http(service, requests, cm) -> tuple:
+    """GET /health and the requests as concurrent POST /search over HTTP,
+    with every launch count set to 0 just before and read just after.
+    Returns (answers, launches)."""
+    from openmatch_tpu_torch.drivers.serve import ServingHTTPServer, make_handler
+
+    service.warmup()
+    service.timeline = []
+    server = ServingHTTPServer(("127.0.0.1", 0), make_handler(service, K))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_launches(cm)
+        status, health, _ = http_json(base + "/health")
+        with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+            futures = [pool.submit(http_json, base + "/search",
+                                   {"queries": qs, "k": K})
+                       for qs in requests]
+            answers = [f.result() for f in futures]
+        launches = read_launches(cm)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if status != 200 or health.get("num_docs") != service.searcher.n_docs:
+        raise AssertionError(f"/health: {status} {health}")
+    log(f"serve: /health {health}")
+    log(f"serve: launches during the requests {launches}; service "
+        f"{service.stats}")
+    lat = []
+    for (st, body, sec), qs in zip(answers, requests):
+        lat.append(sec * 1000)
+        if st != 200 or len(body["results"]) != len(qs):
+            raise AssertionError(f"/search answered {st}")
+        for res in body["results"]:
+            s = np.array([x["score"] for x in res])
+            if len(res) != K or not np.isfinite(s).all() or (np.diff(s) > 0).any():
+                raise AssertionError("a response is not k finite "
+                                     "non-increasing scores")
+    log(f"serve: per-request latency ms ({len(requests)} concurrent x "
+        f"{len(requests[0])} queries, k={K}): "
+        + ", ".join(f"{x:.1f}" for x in lat))
+    for t in service.timeline:
+        log(f"serve: dispatch of {t['reqs']} requests / {t['rows']} queries: "
+            f"queued {t['wait_s'] * 1000:.1f} ms, executed "
+            f"{t['exec_s'] * 1000:.1f} ms, of which encode+search+readback "
+            f"{t['device_s'] * 1000:.1f} ms")
+    return [res for _, body, _ in answers for res in body["results"]], launches
+
+
+def answers_tensor(results, doc_pos, device):
+    """HTTP results -> (scores [n, K], doc positions [n, K])."""
+    s = torch.tensor([[x["score"] for x in res] for res in results],
+                     device=device)
+    i = torch.tensor([[doc_pos(x["id"]) for x in res] for res in results],
+                     device=device)
+    return s, i
+
+
 def phase_serve(dev) -> dict:
-    from openmatch_tpu_torch.drivers.serve import (RetrievalService,
-                                                   ServingHTTPServer,
-                                                   make_handler)
+    from openmatch_tpu_torch.drivers.serve import RetrievalService
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
     from openmatch_tpu_torch.models.jax_convert import params_from_jax
@@ -371,63 +514,27 @@ def phase_serve(dev) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
 
     doc_ids = SyntheticDocIds(ids2, n_docs)
+    pos = {d: i for i, d in enumerate(ids2)}
+
+    def doc_pos(d):
+        return pos[d] if d in pos else int(d[3:])
+
     searcher = Searcher(index, k=K)
     if searcher.method != "kernel":
         raise AssertionError(f"Searcher chose {searcher.method} on CUDA")
     service = RetrievalService(model, tok, searcher, doc_ids, q_max_len=32,
                                max_batch=MAX_BATCH)
-    service.warmup()
-    service.timeline = []
-    server = ServingHTTPServer(("127.0.0.1", 0), make_handler(service, K))
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
     requests = [[" ".join(rng.choice(words, rng.integers(3, 9)))
                  for _ in range(8)] for _ in range(8)]
-    try:
-        cm.fused_plain_gmax.launches = 0
-        cm.gather_rescore.launches = 0
-        status, health, _ = http_json(base + "/health")
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            futures = [pool.submit(http_json, base + "/search",
-                                   {"queries": qs, "k": K})
-                       for qs in requests]
-            answers = [f.result() for f in futures]
-        launches = {"plain_gmax": cm.fused_plain_gmax.launches,
-                    "gather_rescore": cm.gather_rescore.launches}
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    if status != 200 or health.get("num_docs") != n_docs:
-        raise AssertionError(f"/health: {status} {health}")
-    log(f"serve: /health {health}")
-    log(f"serve: launches during the requests {launches}; service "
-        f"{service.stats}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-    lat = []
-    for (st, body, sec), qs in zip(answers, requests):
-        lat.append(sec * 1000)
-        if st != 200 or len(body["results"]) != len(qs):
-            raise AssertionError(f"/search answered {st}")
-        for res in body["results"]:
-            s = np.array([x["score"] for x in res])
-            if len(res) != K or not np.isfinite(s).all() or (np.diff(s) > 0).any():
-                raise AssertionError("a response is not k finite "
-                                     "non-increasing scores")
-    log("serve: per-request latency ms (8 concurrent x 8 queries, k=1000): "
-        + ", ".join(f"{x:.1f}" for x in lat))
-    for t in service.timeline:
-        log(f"serve: dispatch of {t['reqs']} requests / {t['rows']} queries: "
-            f"queued {t['wait_s'] * 1000:.1f} ms, executed "
-            f"{t['exec_s'] * 1000:.1f} ms, of which encode+search+readback "
-            f"{t['device_s'] * 1000:.1f} ms")
+    flat_res, launches = serve_http(service, requests, cm)
+    if min(launches["plain_gmax"], launches["gather_rescore"]) < 1 \
+            or launches["plain_gmax_segs"] or launches["gather_rescore_seg"]:
+        raise AssertionError("the single-buffer path must run the "
+                             f"single-buffer kernels only: {launches}")
 
     # the same 64 query embeddings the service searched (batches are padded
     # to max_batch, so a query encodes the same in any batch)
     flat_q = [q for qs in requests for q in qs]
-    flat_res = [res for _, body, _ in answers for res in body["results"]]
     with torch.inference_mode():
         reps = service.encode_queries(flat_q).contiguous()
         torch.cuda.synchronize()
@@ -439,11 +546,6 @@ def phase_serve(dev) -> dict:
         log(f"serve: per-batch search (Q={MAX_BATCH}, k={K}, N={n_docs}): "
             f"median {search_ms:.3f} ms device-timed, one host-timed call "
             f"{host_ms:.3f} ms")
-        pos = {d: i for i, d in enumerate(ids2)}
-
-        def doc_pos(d):
-            return pos[d] if d in pos else int(d[3:])
-
         err = audit(reps, index, flat_res, doc_pos)
         log(f"serve: exactness audit vs fp32 top-k over {n_docs} docs "
             f"passed for {len(flat_res)} queries (max abs err {err:.3e}, "
@@ -455,6 +557,7 @@ def phase_serve(dev) -> dict:
         r1, rl1 = cm.plain_gmax_reference(reps, prep.plain, emit_l1=8)
         e1 = max(compare("full-scale K1 gmax", g1, r1),
                  compare("full-scale K1 l1", l1, rl1))
+        del r1, rl1
         bid = _select_groups(g1, K, l1=l1).to(torch.int32)
         s3 = cm.gather_rescore(reps, prep.plain, bid)
         e3 = compare("full-scale K3 rescore", s3,
@@ -470,18 +573,114 @@ def phase_serve(dev) -> dict:
         log(f"serve: at Q={MAX_BATCH}, N={n_docs}: K1 {t1:.4f} ms "
             f"(plain {t1p:.4f}), selection {t_sel:.4f} ms, K3 {t3:.4f} ms "
             f"(plain {t3p:.4f}), whole search {search_ms:.4f} ms")
-    del index, prep, searcher, service
+
+        # the pipelined rescore and the sequential corpus windows, at Q=64
+        reset_launches(cm)
+        s_p, i_p = cm.plain_topk_prepared(reps, prep, K, pipeline=True)
+        launches["gather_rescore_pipelined"] = read_launches(cm)[
+            "gather_rescore_pipelined"]
+        if launches["gather_rescore_pipelined"] < 1:
+            raise AssertionError("pipeline=True never launched the "
+                                 "pipelined rescore kernel")
+        same_above_band("pipeline=True vs the default", s_p, i_p, s_k, i_k)
+        s_c, i_c = cm.plain_topk_prepared(reps, prep, K, c_split=4)
+        same_above_band("c_split=4 vs the default", s_c, i_c, s_k, i_k)
+        s6 = cm.gather_rescore(reps, prep.plain, bid, pipeline=True)
+        e6 = compare("full-scale K6 rescore", s6,
+                     cm.gather_rescore_reference(reps, prep.plain, bid))
+        t6 = cuda_time_ms(lambda: cm.gather_rescore(reps, prep.plain, bid,
+                                                    pipeline=True))
+        t6p = t3p  # K6's plain version is K3's
+        search_p = cuda_time_ms(lambda: cm.plain_topk_prepared(
+            reps, prep, K, pipeline=True), 2, 10)
+        search_c = cuda_time_ms(lambda: cm.plain_topk_prepared(
+            reps, prep, K, c_split=4), 2, 10)
+        log(f"serve: at Q={MAX_BATCH}: K6 {t6:.4f} ms (plain {t6p:.4f}); "
+            f"search with pipeline=True {search_p:.4f} ms, with c_split=4 "
+            f"{search_c:.4f} ms")
+    del searcher, service, prep, g1, l1
     torch.cuda.empty_cache()
+
+    seg_table = serve_segmented(dev, model, tok, index, doc_ids, doc_pos,
+                                requests, flat_res, reps, cm)
+    del index
+    torch.cuda.empty_cache()
+    row = {
+        "plain_gmax": (e1, t1, t1p), "gather_rescore": (e3, t3, t3p),
+        "gather_rescore_pipelined": (e6, t6, t6p), **seg_table["timing"]}
+    launches.update(seg_table["launches"])
     return {"kernels": [
-        {"name": "plain_gmax", "route": "cuda",
-         "source": "openmatch_tpu_torch/ops/csrc/plain_gmax.cu",
-         "replaces": GMAX_REPLACES, "launches": launches["plain_gmax"],
-         "max_abs_err": e1, "ms": t1, "plain_ms": t1p},
-        {"name": "gather_rescore", "route": "cuda",
-         "source": "openmatch_tpu_torch/ops/csrc/gather_rescore.cu",
-         "replaces": RESCORE_REPLACES, "launches": launches["gather_rescore"],
-         "max_abs_err": e3, "ms": t3, "plain_ms": t3p},
-    ]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": row[name][0],
+         "ms": row[name][1], "plain_ms": row[name][2]}
+        for name, (src, rep) in KERNELS.items()]}
+
+
+def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
+                    flat_res, reps, cm) -> dict:
+    """The same index as N_SEGS separately allocated segments behind a
+    Searcher(n_segs) and its own RetrievalService, driven by the same
+    requests; returns the segment kernels' launches and (err, ms, plain
+    ms)."""
+    from openmatch_tpu_torch.drivers.serve import RetrievalService
+    from openmatch_tpu_torch.ops.mips import Searcher, _select_groups
+
+    n_docs = index.shape[0]
+    t0 = time.perf_counter()
+    searcher = Searcher(index, k=K, n_segs=N_SEGS)
+    torch.cuda.synchronize()
+    segs = searcher._prep.plain
+    sizes = [s.untyped_storage().nbytes() for s in segs]
+    storages = {s.untyped_storage().data_ptr() for s in segs}
+    if len(segs) != N_SEGS or len(storages) != N_SEGS \
+            or index.untyped_storage().data_ptr() in storages:
+        raise AssertionError(f"{len(segs)} segments in {len(storages)} "
+                             "allocations, expected "
+                             f"{N_SEGS} separate ones")
+    log(f"serve: index rebuilt as {N_SEGS} segments of "
+        f"{[s.shape[0] // 8 for s in segs]} blocks, each its own allocation "
+        f"({', '.join(f'{b / 1e9:.3f}' for b in sizes)} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    service = RetrievalService(model, tok, searcher, doc_ids, q_max_len=32,
+                               max_batch=MAX_BATCH)
+    seg_res, launches = serve_http(service, requests, cm)
+    if min(launches["plain_gmax_segs"], launches["gather_rescore_seg"]) < 1 \
+            or launches["plain_gmax"] or launches["gather_rescore"]:
+        raise AssertionError("the segmented path must run the segment "
+                             f"kernels only: {launches}")
+    with torch.inference_mode():
+        same_above_band("segmented vs single-buffer HTTP answers",
+                        *answers_tensor(seg_res, doc_pos, dev),
+                        *answers_tensor(flat_res, doc_pos, dev))
+        err = audit(reps, index, seg_res, doc_pos)
+        log(f"serve: segmented exactness audit vs fp32 top-k passed for "
+            f"{len(seg_res)} queries (max abs err {err:.3e})")
+        search_ms = cuda_time_ms(lambda: searcher.search(reps), 2, 10)
+        g4, l4 = cm.fused_plain_gmax_segs(reps, segs, emit_l1=8)
+        r4, rl4 = cm.plain_gmax_segs_reference(reps, segs, emit_l1=8)
+        e4 = max(compare("full-scale K4 gmax", g4, r4),
+                 compare("full-scale K4 l1", l4, rl4))
+        del r4, rl4
+        bid = _select_groups(g4, K, l1=l4).to(torch.int32)
+        s5 = cm.gather_rescore(reps, segs, bid)
+        e5 = compare("full-scale K5 rescore", s5,
+                     cm.gather_rescore_reference(reps, segs, bid))
+        t4 = cuda_time_ms(lambda: cm.fused_plain_gmax_segs(reps, segs,
+                                                           emit_l1=8))
+        t4p = cuda_time_ms(lambda: cm.plain_gmax_segs_reference(
+            reps, segs, emit_l1=8), 1, 3)
+        t5 = cuda_time_ms(lambda: cm.gather_rescore(reps, segs, bid))
+        t5p = cuda_time_ms(lambda: cm.gather_rescore_reference(
+            reps, segs, bid), 1, 5)
+        log(f"serve: segmented, at Q={MAX_BATCH}, N={n_docs}: K4 {t4:.4f} ms "
+            f"(plain {t4p:.4f}), K5 {t5:.4f} ms (plain {t5p:.4f}), whole "
+            f"search {search_ms:.4f} ms")
+    del searcher, service, segs, g4, l4
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] for k in ("plain_gmax_segs",
+                                                  "gather_rescore_seg")},
+            "timing": {"plain_gmax_segs": (e4, t4, t4p),
+                       "gather_rescore_seg": (e5, t5, t5p)}}
 
 
 PHASES = ("device", "build", "kernels", "serve")

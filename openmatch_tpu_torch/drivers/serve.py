@@ -4,13 +4,17 @@ Port of the retrieval half of ``openmatch_tpu/drivers/serve.py``:
 
     python -m openmatch_tpu_torch.drivers.serve \
         --model_name_or_path ckpt_dr --encoded_save_path embeddings/ \
-        --port 8080 [--retrieve_depth 100] [--max_batch 64] [--device cuda]
+        --port 8080 [--retrieve_depth 100] [--max_batch 64] [--device cuda] \
+        [--search_n_segs 6]
 
     GET  /health
     POST /search   {"queries": ["...", ...], "k": 10}
       -> {"results": [[{"id": ..., "score": ...}, ...], ...]}
 
 ``/rerank`` answers 404: the cross-encoder is not ported yet.
+``--search_n_segs`` > 1 holds the index as that many separate device
+allocations (the kernel path only: ``--search_method auto`` on a CPU
+device refuses it, as the JAX driver does).
 
 One worker thread owns the device: concurrent HTTP handlers enqueue and
 wait, and the worker coalesces what arrived into batches of at most
@@ -272,14 +276,14 @@ def make_handler(service, default_k: int):
 
 def build_service(model_args, data_args, infer_args, max_batch: int,
                   device) -> RetrievalService:
-    from ..retriever.retriever import Retriever, searcher_method
+    from ..retriever.retriever import Retriever, build_searcher
 
     tokenizer = load_tokenizer(model_args)
     model = DRModel.build(model_args, device=device)
     retriever = Retriever.from_embeddings(
         model, data_args, infer_args, tokenizer.pad_token_id or 0, device)
-    searcher = Searcher(retriever.index_tensor(), k=infer_args.retrieve_depth,
-                        method=searcher_method(infer_args))
+    searcher = build_searcher(retriever.index_tensor(), infer_args,
+                              infer_args.retrieve_depth)
     retriever.doc_embeddings = None  # the device index is the copy we keep
     return RetrievalService(model, tokenizer, searcher, retriever.doc_ids,
                             q_max_len=data_args.q_max_len,

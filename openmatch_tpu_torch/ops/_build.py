@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, at first use, and loaded
-with ``ctypes``. The library's file name carries a hash of the sources and
-the flags, so an edited kernel is rebuilt and a stale build is never
-loaded. Nothing here runs at import time: the CPU tests import every
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all of them at once, and the objects are linked into one
+shared library with a plain C interface, at first use, and loaded with
+``ctypes``. The library's file name carries a hash of the sources, the
+headers and the flags, so an edited kernel is rebuilt and a stale build is
+never loaded. Nothing here runs at import time: the CPU tests import every
 module of the package on machines without ``nvcc``.
 
 The build directory defaults to ``build/kernels`` at the root of the
@@ -25,14 +26,17 @@ from pathlib import Path
 from typing import Optional
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "plain_gmax_launch": (_P, _P, _P, _P, _I, _I, _LL, _LL, _LL, _I, _P),
-    "gather_rescore_launch": (_P, _P, _P, _P, _I, _I, _I, _LL, _P),
+    "plain_gmax_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _LL, _I,
+                          _P),
+    "gather_rescore_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _P),
+    "gather_rescore_pipelined_launch": (_P, _P, _P, _P, _I, _I, _I, _LL, _P),
 }
 
 _lock = threading.Lock()
@@ -67,7 +71,7 @@ def load_library() -> ctypes.CDLL:
         if not srcs:
             raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in sorted(SRC_DIR.glob("*.cu*")):
             h.update(s.name.encode())
             h.update(s.read_bytes())
         out_dir = _build_dir()
@@ -75,17 +79,9 @@ def load_library() -> ctypes.CDLL:
         lib_path = out_dir / f"libopenmatch_kernels_{h.hexdigest()[:16]}.so"
         build_info.update(library=str(lib_path), seconds=0.0, log="(cached)")
         if not lib_path.exists():
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_info.update(seconds=time.perf_counter() - t0,
-                              log=proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib_path)
+            log = _compile_and_link(srcs, lib_path)
+            build_info.update(seconds=time.perf_counter() - t0, log=log)
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -93,6 +89,39 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def _run(cmds):
+    """Run the commands at once; return their output, raise if any failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(out for _, out, _ in outs)
+
+
+def _compile_and_link(srcs, lib_path: Path) -> str:
+    """One nvcc per source, all started together, then one link. Objects
+    and the library are written under per-process names and the library
+    renamed into place, so concurrent builds never see a partial file."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [lib_path.with_name(f"{lib_path.stem}.{s.stem}.{tag}.o")
+            for s in srcs]
+    tmp = lib_path.with_suffix(f".{tag}.so")
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                    for s, o in zip(srcs, objs)])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+        os.replace(tmp, lib_path)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
+    return log
 
 
 def check(rc: int, name: str):

@@ -143,28 +143,38 @@ class Searcher:
     takes "kernel" when the corpus is a CUDA tensor and "plain" when the
     caller put it on the CPU. The kernel wrappers run their plain PyTorch
     versions on CPU tensors, so "kernel" on the CPU runs the same pipeline
-    without CUDA."""
+    without CUDA.
+
+    ``n_segs`` > 1 holds the prepared index as that many segment
+    allocations (``prepare_plain_corpus``): the same search, but no single
+    allocation holds more than about 1/n_segs of the index. It needs the
+    kernel path, as the JAX package's needs its Pallas path."""
 
     def __init__(self, corpus: torch.Tensor, k: int = 100,
-                 chunk_size: int = 0, method: str = "auto"):
+                 chunk_size: int = 0, method: str = "auto", n_segs: int = 1):
         if method == "auto":
             method = "kernel" if corpus.is_cuda else "plain"
         if method not in ("kernel", "plain"):
             raise ValueError(f"unknown search method {method!r} "
                              "(auto | kernel | plain)")
+        if n_segs > 1 and method != "kernel":
+            # refuse rather than silently ignore, as the JAX package does
+            raise ValueError(f"n_segs={n_segs} requires method='kernel' "
+                             f"(got method={method!r})")
         self.k = k
         self.chunk_size = chunk_size
         self.method = method
         self.dtype = corpus.dtype
         self.device = corpus.device
         self.n_docs = corpus.shape[0]
+        self.n_segs = n_segs
         self.last_dispatch = None
         self._prep = None
         self.corpus = None
         if method == "kernel":
             from .cuda_mips import prepare_plain_corpus
 
-            self._prep = prepare_plain_corpus(corpus)
+            self._prep = prepare_plain_corpus(corpus, n_segs=n_segs)
         else:
             self.corpus = corpus
 
@@ -174,7 +184,8 @@ class Searcher:
         if self.method == "kernel":
             from .cuda_mips import plain_topk_prepared
 
-            self.last_dispatch = f"kernel:{self.device.type}"
+            self.last_dispatch = ("kernel-segmented" if self.n_segs > 1
+                                  else "kernel") + f":{self.device.type}"
             return plain_topk_prepared(queries, self._prep, self.k)
         self.last_dispatch = f"plain:{self.device.type}"
         return exact_search(queries, self.corpus, self.k, self.chunk_size)

@@ -35,10 +35,14 @@ def searcher_method(inference_args) -> str:
     if name not in SEARCH_METHODS:
         raise ValueError(f"search_method {name!r} is not available in the "
                          f"PyTorch port (one of {sorted(SEARCH_METHODS)})")
-    if getattr(inference_args, "search_n_segs", 1) != 1:
-        raise NotImplementedError("search_n_segs > 1 (segmented index "
-                                  "storage) is not ported yet")
     return SEARCH_METHODS[name]
+
+
+def build_searcher(index: torch.Tensor, inference_args, k: int) -> Searcher:
+    """The ``Searcher`` the inference arguments ask for over ``index``:
+    ``search_method`` and ``search_n_segs``."""
+    return Searcher(index, k=k, method=searcher_method(inference_args),
+                    n_segs=getattr(inference_args, "search_n_segs", 1))
 
 
 def _to_result(scores: np.ndarray, indices: np.ndarray, qids: List[str],
@@ -119,10 +123,12 @@ class Retriever:
     # ---- search ---------------------------------------------------------
 
     def index_tensor(self, search_dtype=torch.bfloat16) -> torch.Tensor:
-        """The corpus embeddings on the device in ``search_dtype``; the
-        host array is uploaded in its stored dtype and cast there."""
+        """The corpus embeddings on the device in ``search_dtype``. The cast
+        runs on the host before the upload: uploading the stored fp32 array
+        first would put a second, twice as large copy of the index on the
+        device beside the one kept."""
         emb = torch.from_numpy(np.ascontiguousarray(self.doc_embeddings))
-        return emb.to(self.device).to(search_dtype)
+        return emb.to(search_dtype).to(self.device)
 
     def search(self, q_embeddings: np.ndarray, qids: List[str],
                topk: int = 100, search_dtype=torch.bfloat16) -> RankResult:
@@ -135,8 +141,8 @@ class Retriever:
         if self._searcher_key != key:
             self._searcher = None
             self._searcher_key = None
-            self._searcher = Searcher(self.index_tensor(search_dtype),
-                                      k=topk, method=searcher_method(self.args))
+            self._searcher = build_searcher(self.index_tensor(search_dtype),
+                                            self.args, topk)
             self._searcher_key = key
         q = torch.from_numpy(np.ascontiguousarray(q_embeddings))
         with torch.inference_mode():

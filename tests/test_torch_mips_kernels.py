@@ -6,15 +6,21 @@ inputs (made with numpy from a seed, bf16-representable) go through the
 JAX kernels. Tolerance: atol 1e-4 (fp32 sums in another order) and entries
 masked to finfo(float32).min bit-equal. The CUDA kernels themselves are
 compared with the plain versions in the ``cuda``-marked tests, which skip
-without a card."""
+without a card. The card's machine has no JAX: there they run alone with
+``python -m pytest --noconftest tests/test_torch_mips_kernels.py -m cuda``."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from openmatch_tpu.ops import pallas_mips as pm
 from openmatch_tpu_torch.ops import cuda_mips as cm
+
+try:
+    import jax.numpy as jnp
+
+    from openmatch_tpu.ops import pallas_mips as pm
+except ImportError:  # only the cuda-marked tests run without JAX
+    jnp = pm = None
 
 torch.set_num_threads(2)
 ATOL = 1e-4
@@ -118,6 +124,20 @@ def cuda_device():
 REL = 1e-3  # bf16 inputs, fp32 sums in another order
 
 
+def assert_kernel_close(got: torch.Tensor, want: torch.Tensor):
+    """Masked entries bit-equal, the rest within REL * max|want|."""
+    assert got.shape == want.shape
+    assert torch.equal(got == cm.NEG, want == cm.NEG)
+    live = want != cm.NEG
+    err = (got[live] - want[live]).abs().max().item()
+    assert err <= REL * want[live].abs().max().item()
+
+
+def card_data(device, seed, *shape):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=device).to(torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("emit_l1,nb_valid", [(0, None), (8, 4000)])
 def test_cuda_plain_gmax_matches_plain(cuda_device, emit_l1, nb_valid):
@@ -132,10 +152,57 @@ def test_cuda_plain_gmax_matches_plain(cuda_device, emit_l1, nb_valid):
                                    nb_valid=nb_valid)
     assert cm.fused_plain_gmax.launches == before + 1
     for a, b in zip(got if emit_l1 else (got,), want if emit_l1 else (want,)):
-        assert torch.equal(a == cm.NEG, b == cm.NEG)
-        live = b != cm.NEG
-        err = (a[live] - b[live]).abs().max().item()
-        assert err <= REL * b[live].abs().max().item()
+        assert_kernel_close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_l1", [0, 8])
+def test_cuda_plain_gmax_segs_matches_plain(cuda_device, emit_l1):
+    """K4: segments of 256, 512 and 301 blocks, pads masked in the last;
+    bit-equal to K1 over the concatenated buffer."""
+    segs = tuple(card_data(cuda_device, 10 + i, 8 * nb, 768)
+                 for i, nb in enumerate((256, 512, 301)))
+    q = card_data(cuda_device, 13, 70, 768)
+    nb_valid = 256 + 512 + 301 - 29
+    before = cm.fused_plain_gmax_segs.launches
+    got = cm.fused_plain_gmax_segs(q, segs, emit_l1=emit_l1,
+                                   nb_valid=nb_valid)
+    want = cm.plain_gmax_segs_reference(q, segs, emit_l1=emit_l1,
+                                        nb_valid=nb_valid)
+    one = cm.fused_plain_gmax(q, torch.cat(segs), emit_l1=emit_l1,
+                              nb_valid=nb_valid)
+    assert cm.fused_plain_gmax_segs.launches == before + 1
+    for a, b, c in zip(*((x,) if not emit_l1 else x
+                         for x in (got, want, one))):
+        assert_kernel_close(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_cuda_gather_rescore_segments_and_pipeline(cuda_device, pipeline):
+    """K5 over segments of 300, 517 and 100 blocks (ids at every cut) and
+    K6 over one buffer, each against the plain version; K5 bit-equal to K3
+    over the concatenated buffer."""
+    segs = tuple(card_data(cuda_device, 20 + i, 8 * nb, 768)
+                 for i, nb in enumerate((300, 517, 100)))
+    full = torch.cat(segs)
+    q = card_data(cuda_device, 23, 33, 768)
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    bids = torch.randint(0, 917, (33, 1000), generator=g, device=cuda_device,
+                         dtype=torch.int32)
+    bids[:, :6] = torch.tensor([0, 299, 300, 816, 817, 916],
+                               dtype=torch.int32, device=cuda_device)
+    if pipeline:
+        before = cm.gather_rescore.pipelined_launches
+        got = cm.gather_rescore(q, full, bids, pipeline=True)
+        assert cm.gather_rescore.pipelined_launches == before + 1
+    else:
+        before = cm.gather_rescore.seg_launches
+        got = cm.gather_rescore(q, segs, bids)
+        assert cm.gather_rescore.seg_launches == before + 1
+        assert torch.equal(got, cm.gather_rescore(q, full, bids))
+    assert_kernel_close(got, cm.gather_rescore_reference(q, segs, bids))
 
 
 @pytest.mark.cuda

@@ -205,3 +205,32 @@ def test_port_http_search_matches_jax_service(workspace, jax_index):
         assert [x["id"] for x in g] == [x["id"] for x in w]
         np.testing.assert_allclose([x["score"] for x in g],
                                    [x["score"] for x in w], atol=1e-4)
+
+
+def test_build_service_takes_search_n_segs(workspace, jax_index):
+    """--search_n_segs reaches the served Searcher: a segmented index with
+    the kernel path answers as the single buffer does; "auto" on the CPU
+    (the plain path) refuses it, as the JAX package does."""
+    from openmatch_tpu_torch.drivers.serve import build_service
+
+    root, _, queries = workspace
+    emb, _ = jax_index
+    model_args = ModelArguments(model_name_or_path=str(root / "ckpt"),
+                                dtype="float32")
+    data_args = DataArguments(q_max_len=8)
+    cpu = torch.device("cpu")
+    answers = []
+    for n_segs in (1, 2):
+        infer = InferenceArguments(encoded_save_path=str(emb),
+                                   retrieve_depth=10, search_method="pallas",
+                                   search_n_segs=n_segs)
+        service = build_service(model_args, data_args, infer, max_batch=4,
+                                device=cpu)
+        assert isinstance(service.searcher._prep.plain, tuple) == (n_segs > 1)
+        answers.append(service.search(queries, k=7))
+    assert answers[0] == answers[1]
+    with pytest.raises(ValueError, match="n_segs"):
+        build_service(model_args, data_args,
+                      InferenceArguments(encoded_save_path=str(emb),
+                                         search_n_segs=2),
+                      max_batch=4, device=cpu)
