@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels  each kernel against its plain PyTorch version at serving
             shapes (Q in {64, 128}, D = 768, a 2^20 + 29 doc corpus whose
             last tile and N % 8 tail are ragged; the segment kernels over
-            the same corpus cut into 3 segments), with median times.
+            the same corpus cut into 3 segments; the block-row gmax over
+            its [131075, 8 * 768] block-row view, the score kernel over
+            the 8-doc body, the strided-group kernels at tile 2048 and
+            1024 over the whole corpus, whose last tile is ragged), with
+            median times.
 4. serve    a BERT-base DRModel (bf16 compute, seeded random weights)
             encodes 4,096 passages through encode_dataset; the npz shard is
             written and reloaded; the index is filled on the device to all
@@ -36,6 +40,15 @@ Phases, in order; any failure raises and the script exits non-zero:
             equal the default above the tie band. Each segment kernel and
             the pipelined kernel are compared with their plain versions at
             the requests' shapes.
+            The alternative layouts, at Q=64 and k=1000 over the same
+            single-buffer index (a view, never a copy):
+            block_topk_prepared with rescore "xla" and "dma",
+            block_score_topk_prepared, hier2_search and hier2_rescore at
+            tile 2048. Each must equal the default answer above the tie
+            band, launch its kernels (and no other layout's), and
+            allocate less than 13 GB beyond what was resident; each of
+            their kernels is compared with its plain version at the
+            shapes the paths gave it.
 
 The second-to-last line is the kernel table as one JSON object, the last
 line {"ok": true, "device": {...}}. It needs CUDA: without a card it
@@ -78,7 +91,12 @@ KERNELS = {
     "gather_rescore_seg": (CSRC + "gather_rescore.cu", TPU + "1013"),
     "gather_rescore_pipelined": (CSRC + "gather_rescore_pipelined.cu",
                                  TPU + "1114"),
+    "block_gmax": (CSRC + "plain_gmax.cu", TPU + "469"),
+    "scores": (CSRC + "score_tiles.cu", TPU + "1591"),
+    "score_gmax": (CSRC + "score_tiles.cu", TPU + "133"),
+    "gmax_only": (CSRC + "score_tiles.cu", TPU + "254"),
 }
+CORPUS_COPY = 13e9  # bytes: a layout path allocating this much copied the index
 
 
 def log(msg: str):
@@ -108,6 +126,10 @@ def reset_launches(cm):
     cm.gather_rescore.launches = 0
     cm.gather_rescore.seg_launches = 0
     cm.gather_rescore.pipelined_launches = 0
+    cm.fused_block_gmax.launches = 0
+    cm.fused_scores.launches = 0
+    cm.fused_score_gmax.launches = 0
+    cm.fused_gmax_only.launches = 0
 
 
 def read_launches(cm) -> dict:
@@ -115,7 +137,11 @@ def read_launches(cm) -> dict:
             "plain_gmax_segs": cm.fused_plain_gmax_segs.launches,
             "gather_rescore": cm.gather_rescore.launches,
             "gather_rescore_seg": cm.gather_rescore.seg_launches,
-            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches}
+            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches,
+            "block_gmax": cm.fused_block_gmax.launches,
+            "scores": cm.fused_scores.launches,
+            "score_gmax": cm.fused_score_gmax.launches,
+            "gmax_only": cm.fused_gmax_only.launches}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -176,7 +202,9 @@ def phase_kernels(dev):
         torch.bfloat16)
     prep = cm.prepare_plain_corpus(corpus)
     segs = cm.prepare_plain_corpus(corpus, n_segs=3).plain
-    log(f"kernels: 3 segments of {[s.shape[0] // 8 for s in segs]} blocks")
+    cb = cm.prepare_block_corpus(corpus).cb
+    log(f"kernels: 3 segments of {[s.shape[0] // 8 for s in segs]} blocks; "
+        f"block rows {tuple(cb.shape)}")
     for Q in (64, 128):
         q = torch.randn(Q, D, generator=g, device=dev).to(torch.bfloat16)
         nb_valid = NB - 37
@@ -246,11 +274,51 @@ def phase_kernels(dev):
                 cuda_time_ms(lambda: cm.gather_rescore_reference(
                     q, prep.plain, bids))),
         }
+        t.update(layout_kernels(cm, q, corpus, prep.plain, cb))
         for key, (ms, plain_ms) in t.items():
             log(f"  {key} Q={Q} N={N}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
-    del corpus, prep, segs
+    del corpus, prep, segs, cb
     torch.cuda.empty_cache()
+
+
+def layout_kernels(cm, q, corpus, body, cb) -> dict:
+    """K7-K10 against their plain versions on the kernels phase's corpus:
+    K7 over the block-row view (bit-equal to K2 over the same bytes), K8
+    over the 8-doc body, K9 and K10 at tile 2048 and 1024 over the whole
+    corpus (ragged last tile; K10 bit-equal to K9's maxima). Returns
+    {name: (kernel ms, plain ms)}."""
+    Q = q.shape[0]
+    g7 = cm.fused_block_gmax(q, cb)
+    compare(f"K7 block gmax Q={Q}", g7, cm.block_gmax_reference(q, cb))
+    if not torch.equal(g7, cm.fused_plain_gmax(q, body)):
+        raise AssertionError("K7 over the block rows != K2 over the body")
+    del g7
+    compare(f"K8 scores Q={Q}", cm.fused_scores(q, body),
+            cm.scores_reference(q, body))
+    t = {"K7": (cuda_time_ms(lambda: cm.fused_block_gmax(q, cb)),
+                cuda_time_ms(lambda: cm.block_gmax_reference(q, cb), 1, 3)),
+         "K8": (cuda_time_ms(lambda: cm.fused_scores(q, body)),
+                cuda_time_ms(lambda: cm.scores_reference(q, body), 1, 3))}
+    for tile in (2048, 1024):
+        s9, g9 = cm.fused_score_gmax(q, corpus, tile)
+        rs, rg = cm.score_gmax_reference(q, corpus, tile)
+        compare(f"K9 scores tile={tile} Q={Q}", s9, rs)
+        compare(f"K9 gmax tile={tile} Q={Q}", g9, rg)
+        g10 = cm.fused_gmax_only(q, corpus, tile)
+        compare(f"K10 gmax tile={tile} Q={Q}", g10, rg)
+        if not torch.equal(g10, g9):
+            raise AssertionError(f"K10 != K9's maxima at tile {tile}")
+        del s9, g9, rs, rg, g10
+        t[f"K9 tile={tile}"] = (
+            cuda_time_ms(lambda: cm.fused_score_gmax(q, corpus, tile)),
+            cuda_time_ms(lambda: cm.score_gmax_reference(q, corpus, tile),
+                         1, 3))
+        t[f"K10 tile={tile}"] = (
+            cuda_time_ms(lambda: cm.fused_gmax_only(q, corpus, tile)),
+            cuda_time_ms(lambda: cm.gmax_only_reference(q, corpus, tile),
+                         1, 3))
+    return t
 
 
 class WhitespaceTokenizer:
@@ -377,14 +445,20 @@ def audit(reps: torch.Tensor, index: torch.Tensor, results, doc_pos) -> float:
 
 
 def same_above_band(name: str, s_a, i_a, s_b, i_b):
-    """Two top-k answers [Q, K] agree: scores within AUDIT_REL x max|score|
-    and the same docs above the k-th score's tie band of ``s_b``."""
+    """Two top-k answers [Q, K] agree: scores within AUDIT_REL x max|score|,
+    and each answer holds every doc the other scores above the k-th score's
+    tie band of ``s_b``. (Two paths that sum a doc's score in another order
+    may put it on either side of the band's edge, so the docs above the
+    band are looked up in the whole other answer.)"""
     for r in range(s_b.shape[0]):
         tol = AUDIT_REL * s_b[r].abs().max().item()
         err = (s_a[r] - s_b[r]).abs().max().item()
         band = s_b[r, -1].item() + tol
-        if err > tol or set(i_a[r][s_a[r] > band].tolist()) \
-                != set(i_b[r][s_b[r] > band].tolist()):
+        if err > tol \
+                or not set(i_a[r][s_a[r] > band].tolist()) <= set(
+                    i_b[r].tolist()) \
+                or not set(i_b[r][s_b[r] > band].tolist()) <= set(
+                    i_a[r].tolist()):
             raise AssertionError(f"{name}: row {r} differs above the tie "
                                  f"band (score err {err}, tolerance {tol})")
     log(f"serve: {name}: equal above the tie band for {s_b.shape[0]} rows")
@@ -601,19 +675,123 @@ def phase_serve(dev) -> dict:
     del searcher, service, prep, g1, l1
     torch.cuda.empty_cache()
 
+    layout_table = serve_layouts(index, reps, s_k, i_k, cm)
     seg_table = serve_segmented(dev, model, tok, index, doc_ids, doc_pos,
                                 requests, flat_res, reps, cm)
     del index
     torch.cuda.empty_cache()
     row = {
         "plain_gmax": (e1, t1, t1p), "gather_rescore": (e3, t3, t3p),
-        "gather_rescore_pipelined": (e6, t6, t6p), **seg_table["timing"]}
+        "gather_rescore_pipelined": (e6, t6, t6p), **seg_table["timing"],
+        **layout_table["timing"]}
     launches.update(seg_table["launches"])
+    launches.update(layout_table["launches"])
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": row[name][0],
          "ms": row[name][1], "plain_ms": row[name][2]}
         for name, (src, rep) in KERNELS.items()]}
+
+
+def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
+    """The alternative layout paths at Q=64, k=1000 over the single-buffer
+    index, each run once with every launch count set to 0 just before and
+    read just after; then each of their kernels against its plain version
+    at the shapes the paths gave it. Returns the layout kernels' launches
+    and (err, ms, plain ms)."""
+    from openmatch_tpu_torch.ops.mips import _select_groups
+
+    prep = cm.prepare_block_corpus(index, with_plain=True)
+    if not (prep.cb.data_ptr() == prep.plain.data_ptr() == index.data_ptr()):
+        raise AssertionError("the block layout is not a view of the index")
+    paths = {
+        "block_topk_prepared(rescore='xla')": (
+            lambda: cm.block_topk_prepared(reps, prep, K), {"block_gmax"}),
+        "block_topk_prepared(rescore='dma')": (
+            lambda: cm.block_topk_prepared(reps, prep, K, rescore="dma"),
+            {"block_gmax", "gather_rescore"}),
+        "block_score_topk_prepared": (
+            lambda: cm.block_score_topk_prepared(reps, prep, K),
+            {"block_gmax", "scores"}),
+        "hier2_search(tile=2048)": (
+            lambda: cm.hier2_search(reps, index, K, tile=2048),
+            {"score_gmax"}),
+        "hier2_rescore(tile=2048)": (
+            lambda: cm.hier2_rescore(reps, index, K, tile=2048),
+            {"gmax_only"}),
+    }
+    layout_kernels = ("block_gmax", "scores", "score_gmax", "gmax_only")
+    launches = dict.fromkeys(layout_kernels, 0)
+    with torch.inference_mode():
+        for name, (fn, kernels) in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_launches(cm)
+            s, i = fn()
+            torch.cuda.synchronize()
+            ran = {n for n, v in read_launches(cm).items() if v}
+            extra = torch.cuda.max_memory_allocated() - resident
+            if ran != kernels:
+                raise AssertionError(f"{name} launched {sorted(ran)}, "
+                                     f"expected {sorted(kernels)}")
+            for n in layout_kernels:
+                launches[n] += read_launches(cm)[n]
+            same_above_band(f"{name} vs the default", s, i, s_k, i_k)
+            del s, i
+            if extra >= CORPUS_COPY:
+                raise AssertionError(f"{name} allocated {extra / 1e9:.3f} GB "
+                                     "beyond the resident index")
+            ms = cuda_time_ms(fn, 1, 5)
+            log(f"serve: {name} at Q={MAX_BATCH}, k={K}: {ms:.4f} ms, peak "
+                f"{extra / 1e9:.3f} GB beyond the resident "
+                f"{resident / 1e9:.3f} GB")
+        torch.cuda.empty_cache()
+
+        # each kernel vs its plain version at the shapes the paths gave it
+        g7 = cm.fused_block_gmax(reps, prep.cb)
+        e7 = compare("full-scale K7 block gmax", g7,
+                     cm.block_gmax_reference(reps, prep.cb))
+        bid = _select_groups(g7, K).to(torch.int32)
+        del g7
+        compare("full-scale K3 rescore of the K7 selection",
+                cm.gather_rescore(reps, prep.plain, bid),
+                cm.gather_rescore_reference(reps, prep.plain, bid))
+        e8 = compare("full-scale K8 scores", cm.fused_scores(reps, prep.plain),
+                     cm.scores_reference(reps, prep.plain))
+        torch.cuda.empty_cache()
+        s9, g9 = cm.fused_score_gmax(reps, index, 2048)
+        rs, rg = cm.score_gmax_reference(reps, index, 2048)
+        e9 = max(compare("full-scale K9 scores", s9, rs),
+                 compare("full-scale K9 gmax", g9, rg))
+        del s9, rs
+        torch.cuda.empty_cache()
+        g10 = cm.fused_gmax_only(reps, index, 2048)
+        e10 = compare("full-scale K10 gmax", g10, rg)
+        if not torch.equal(g10, g9):
+            raise AssertionError("K10 != K9's maxima over the index")
+        del g9, rg, g10
+        torch.cuda.empty_cache()
+        t = {
+            "block_gmax": (e7, cuda_time_ms(lambda: cm.fused_block_gmax(
+                reps, prep.cb)), cuda_time_ms(lambda: cm.block_gmax_reference(
+                    reps, prep.cb), 1, 2)),
+            "scores": (e8, cuda_time_ms(lambda: cm.fused_scores(
+                reps, prep.plain)), cuda_time_ms(lambda: cm.scores_reference(
+                    reps, prep.plain), 1, 2)),
+            "score_gmax": (e9, cuda_time_ms(lambda: cm.fused_score_gmax(
+                reps, index, 2048)), cuda_time_ms(
+                    lambda: cm.score_gmax_reference(reps, index, 2048), 1, 2)),
+            "gmax_only": (e10, cuda_time_ms(lambda: cm.fused_gmax_only(
+                reps, index, 2048)), cuda_time_ms(
+                    lambda: cm.gmax_only_reference(reps, index, 2048), 1, 2)),
+        }
+        log(f"serve: layout kernels at Q={MAX_BATCH}, N={index.shape[0]}: "
+            + ", ".join(f"{n} {ms:.4f} ms (plain {p:.4f})"
+                        for n, (_, ms, p) in t.items()))
+    del prep
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": t}
 
 
 def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,

@@ -5,7 +5,13 @@
 // (K1, gmax plus level-1 maxima plus masking) and `_plain_gmax_kernel` (K2,
 // gmax only), both reached through `fused_plain_gmax`, and
 // `fused_plain_gmax_segs` (K4: K1 over a corpus held as several segment
-// allocations, writing one shared gmax and l1).
+// allocations, writing one shared gmax and l1), and `_block_gmax_kernel` (K7,
+// via `fused_block_gmax`: block maxima from the block-row layout
+// cb [NB, 8*D]). The TPU kernel took the 8 members of a block as 8 static
+// D-wide column slabs of a block row because Mosaic could not slice them out
+// of the doc-major layout; on the card cb is the doc-major body viewed as
+// [NB, 8*D], the same bytes, so K7 is the single-buffer instantiation with
+// no level 1 and no masking, behind its own entry point `block_gmax_launch`.
 //
 // What it computes, for queries q [Q, D] bf16 and the body [NB*8, D] bf16
 // held as the segments of a SegTable (segments.cuh; one segment for a
@@ -24,11 +30,9 @@
 // What the design does about it: each CUDA block owns one tile of 128 doc
 // rows (16 blocks of 8) and 64 queries, so the corpus tile is read from
 // HBM once per 64 queries (the query tiles of one corpus tile are adjacent
-// in the launch order, so a second query tile finds the tile in L2). D is
-// consumed in 64-wide chunks through a 3-stage ring in shared memory fed by
-// cp.async 16-byte copies, so the loads of the next two chunks are in
-// flight while the tensor cores (wmma bf16 16x16x16, fp32 accumulate) work
-// on the current one,
+// in the launch order, so a second query tile finds the tile in L2). The
+// mainloop is score_tile.cuh's (a 3-stage cp.async ring into wmma bf16
+// with fp32 accumulation), over contiguous doc rows,
 // and the 64 x 128 score tile never leaves the SM: the epilogue reduces
 // 8 contiguous doc rows per block, masks, and reduces f blocks for l1.
 // Only the [Q, NB] maxima reach HBM (1/8 of the score bytes). The ragged
@@ -48,79 +52,29 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "score_tile.cuh"
 #include "segments.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int GROUP = 8;             // docs per block
-constexpr int TQ = 64;               // queries per CUDA block
-constexpr int TD = 128;              // doc rows per CUDA block
-constexpr int NBT = TD / GROUP;      // 8-doc blocks per tile
-constexpr int KC = 64;               // depth staged per step
-constexpr int LDS = KC + 8;          // padded shared row, bf16 elements
-constexpr int LDC = TD + 4;          // padded score row, floats
-constexpr int THREADS = 256;         // 8 warps: 4 over queries x 2 over docs
-constexpr int VEC = 8;               // bf16 per 16-byte load
+using namespace score_tile;
 
-constexpr int STAGES = 3;            // depth chunks in flight
+constexpr int GROUP = 8;         // docs per block
+constexpr int NBT = TD / GROUP;  // 8-doc blocks per tile
 
-struct Operands {
-  __nv_bfloat16 q[TQ][LDS];
-  __nv_bfloat16 d[TD][LDS];
-};
-
-union __align__(128) Smem {
-  Operands ops[STAGES];
-  float s[TQ][LDC];
-};
-
-constexpr size_t SMEM_BYTES = sizeof(Smem);
-
-// 16-byte global -> shared copy that does not wait; src_bytes = 0 fills
-// the destination with zeros (the ragged edges) without reading
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// start the copies of depth chunk [k0, k0 + KC) into one stage
-__device__ __forceinline__ void load_chunk(
-    Operands& st, const __nv_bfloat16* __restrict__ q,
-    const __nv_bfloat16* __restrict__ body, int Q, int D, int q0,
-    long long row0, long long rows_left, int k0, int tid) {
-  for (int v = tid; v < TQ * (KC / VEC); v += THREADS) {
-    const int r = v / (KC / VEC);
-    const int c = (v % (KC / VEC)) * VEC;
-    const bool ok = q0 + r < Q && k0 + c < D;
-    cp_async16(&st.q[r][c],
-               ok ? q + static_cast<size_t>(q0 + r) * D + k0 + c : q,
-               ok ? 16 : 0);
+// tile row r is body row row0 + r, present while r < rows_left
+struct BodyRows {
+  const __nv_bfloat16* base;
+  long long row0;
+  long long rows_left;
+  int D;
+  __device__ __forceinline__ bool ok(int r) const { return r < rows_left; }
+  __device__ __forceinline__ const __nv_bfloat16* at(int r) const {
+    return base + static_cast<size_t>(row0 + r) * D;
   }
-  for (int v = tid; v < TD * (KC / VEC); v += THREADS) {
-    const int r = v / (KC / VEC);
-    const int c = (v % (KC / VEC)) * VEC;
-    const bool ok = r < rows_left && k0 + c < D;
-    cp_async16(&st.d[r][c],
-               ok ? body + static_cast<size_t>(row0 + r) * D + k0 + c : body,
-               ok ? 16 : 0);
-  }
-}
+};
 
 template <bool kSegmented>
 __global__ void __launch_bounds__(THREADS)
@@ -132,71 +86,18 @@ plain_gmax_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wq = warp & 3;   // 16-query slice of the tile
-  const int wd = warp >> 2;  // 64-doc slice of the tile
   const int qt = static_cast<int>(blockIdx.x % n_qt);
   const long long tile = blockIdx.x / n_qt;
   const int q0 = qt * TQ;
   const long long b0 = tile * NBT;                  // window-local block
   const long long gb0 = blk_lo + b0;                // global block
   const int seg = kSegmented ? seg_of(segs, gb0) : 0;
-  const __nv_bfloat16* __restrict__ body = segs.base[seg];
   // the first row in the segment, and the rows of the window and segment
   const long long row0 = (kSegmented ? gb0 - segs.blk0[seg] : gb0) * GROUP;
   const long long rows_left =
       ((kSegmented ? min(blk_lo + n_blk, segs.blk0[seg + 1]) : blk_lo + n_blk)
        - gb0) * GROUP;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  // a STAGES-deep ring: while the tensor cores work on chunk c, the
-  // copies of chunks c+1 .. c+STAGES-1 are in flight
-  const int n_chunks = (D + KC - 1) / KC;
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    if (c < n_chunks)
-      load_chunk(sm.ops[c], q, body, Q, D, q0, row0, rows_left, c * KC, tid);
-    cp_async_commit();
-  }
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (for this thread)
-    __syncthreads();              // ... for every thread; stage c-1 is free
-    const int next = c + STAGES - 1;
-    if (next < n_chunks)
-      load_chunk(sm.ops[next % STAGES], q, body, Q, D, q0, row0, rows_left,
-                 next * KC, tid);
-    cp_async_commit();
-    const Operands& st = sm.ops[c % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a;
-      wmma::load_matrix_sync(a, &st.q[wq * 16][kk], LDS);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // docs are stored [doc][depth]: as the K x N operand that is
-        // column-major with leading dimension LDS
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            b;
-        wmma::load_matrix_sync(b, &st.d[wd * 64 + j * 16][kk], LDS);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // the operand buffers are dead: the score tile reuses their memory
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(&sm.s[wq * 16][wd * 64 + j * 16], acc[j], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
+  compute(sm, q, Q, D, q0, BodyRows{segs.base[seg], row0, rows_left, D});
 
   const float neg = -FLT_MAX;
   for (int v = tid; v < TQ * NBT; v += THREADS) {
@@ -229,6 +130,25 @@ plain_gmax_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// launch the single-buffer (one segment) or segmented instantiation
+int launch_gmax(const void* q, const SegTable& segs, void* gmax, void* l1,
+                int Q, int D, long long blk_lo, long long n_blk,
+                long long nb_valid, int f, void* stream) {
+  const int n_qt = (Q + TQ - 1) / TQ;
+  const long long n_tiles = (n_blk + NBT - 1) / NBT;
+  const dim3 grid(static_cast<unsigned>(n_tiles * n_qt));
+  const auto kernel =
+      segs.n > 1 ? plain_gmax_kernel<true> : plain_gmax_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), segs, static_cast<float*>(gmax),
+      static_cast<float*>(l1), Q, D, blk_lo, n_blk, nb_valid, f, n_qt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(). The corpus is the
@@ -246,17 +166,18 @@ extern "C" int plain_gmax_launch(const void* q, const void* const* seg_base,
   SegTable segs;
   if (!make_seg_table(&segs, seg_base, seg_blk0, n_segs))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_qt = (Q + TQ - 1) / TQ;
-  const long long n_tiles = (n_blk + NBT - 1) / NBT;
-  const dim3 grid(static_cast<unsigned>(n_tiles * n_qt));
-  const auto kernel =
-      n_segs > 1 ? plain_gmax_kernel<true> : plain_gmax_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), segs, static_cast<float*>(gmax),
-      static_cast<float*>(l1), Q, D, blk_lo, n_blk, nb_valid, f, n_qt);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gmax(q, segs, gmax, l1, Q, D, blk_lo, n_blk, nb_valid, f,
+                     stream);
+}
+
+// K7: gmax [Q, NB] fp32 from the block rows cb [NB, 8*D] bf16, read as the
+// doc-major [NB*8, D] rows they are. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int block_gmax_launch(const void* q, const void* cb, void* gmax,
+                                 int Q, int D, long long NB, void* stream) {
+  const long long blk0[2] = {0, NB};
+  SegTable segs;
+  if (!make_seg_table(&segs, &cb, blk0, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_gmax(q, segs, gmax, nullptr, Q, D, 0, NB, NB, 0, stream);
 }

@@ -23,6 +23,27 @@ holds the whole index). A segmented body feeds one global selection:
 stay global. ``c_split`` instead searches a single buffer in sequential
 windows, each with its own selection, which shrinks the [Q, NB] gmax.
 
+Also here, the alternative exact-search layouts of ``pallas_mips.py``,
+as library functions with the JAX package's contracts (no ``Searcher``
+method reaches them there either):
+
+- the block-row layout (``prepare_block_corpus``, ``block_topk``,
+  ``block_topk_prepared``): block maxima from ``cb`` [NB, 8 * D]
+  (``fused_block_gmax``, K7), pyramid selection, then the selected block
+  rows rescored by framework ops (``rescore="xla"``) or by the
+  gather-rescore kernel (``rescore="dma"``, K3);
+- the score-materializing path (``block_score_topk_prepared``): K7 for
+  selection plus every score stored doc-major (``fused_scores``, K8),
+  the candidates read back as 8-score slices;
+- the strided hier2 paths (``hier2_search``, ``hier2_rescore``): group
+  maxima over strided groups of each ``tile`` of rows, with the scores
+  (``fused_score_gmax``, K9) or without them (``fused_gmax_only``, K10,
+  the candidates then rescored from their corpus rows).
+
+K8, K9 and K10 are ``csrc/score_tiles.cu``; K7 is ``csrc/plain_gmax.cu``
+behind its own entry point, since on the card ``cb`` and the doc-major
+body are the same bytes.
+
 Each kernel wrapper dispatches on where its tensors lie: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
 kernel or raises; nothing falls back from one to the other. Each wrapper
@@ -37,7 +58,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from ._build import check, load_library
-from .mips import FANOUT, NEG, _select_groups, exact_search, pyramid_fanouts
+from .mips import (FANOUT, NEG, _hier_topk, _select_groups, exact_search,
+                   gather_row_slices, pyramid_fanouts)
 
 GROUP = 8
 MAX_SMEM_D = 12288  # gather_rescore stages the query row (fp32) in 48 KB
@@ -47,16 +69,21 @@ RESCORE_Q_CHUNK = 16  # plain rescore: [16, k, 8, D] fp32 rows at a time
 SEG_TILE_BLOCKS = 256  # segments and c_split windows cut at JAX's tile_g
 GMAX_TILE_BLOCKS = 16  # blocks of one plain_gmax.cu tile
 MAX_SEGS = 64  # csrc/segments.cuh: the by-value segment table's capacity
+HIER2_Q_CHUNK = 32  # hier2_rescore: [32, k * 8, D] candidate rows at a time
 
 Body = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 class BlockCorpus(NamedTuple):
-    """The prepared doc-major layout: one corpus copy serves both kernels."""
+    """The prepared doc-major layout: one corpus copy serves every kernel.
+    ``cb`` is set by ``prepare_block_corpus`` only: the same rows viewed as
+    block rows."""
 
     tail: torch.Tensor  # [N % 8, D] the ragged tail docs
     n_docs: int         # true N
-    plain: Body  # [NB * 8, D] the first NB * 8 docs, or its segments
+    plain: Optional[Body]  # [NB * 8, D] the first NB * 8 docs, its segments,
+    # or None (prepare_block_corpus with_plain=False)
+    cb: Optional[torch.Tensor] = None  # [NB, 8 * D] block rows
 
 
 def split_tiles(total_tiles: int, n_segs: int) -> list:
@@ -487,3 +514,476 @@ def plain_topk_prepared(queries: torch.Tensor, prep: BlockCorpus,
         return exact_search(queries, corpus, k=k)
     return _plain_topk_core(queries, prep.plain, prep.tail, prep.n_docs, k,
                             pipeline, c_split)
+
+
+# ---------------------------------------------------------------------------
+# The alternative layouts: shared checks
+# ---------------------------------------------------------------------------
+
+
+def _check_matrices(name: str, queries: torch.Tensor, corpus, width: int):
+    """queries [Q, D] and a 2-D corpus tensor ``width`` wide."""
+    if not isinstance(corpus, torch.Tensor) or queries.dim() != 2 \
+            or corpus.dim() != 2 or corpus.shape[1] != width:
+        shape = tuple(corpus.shape) if isinstance(corpus, torch.Tensor) \
+            else type(corpus).__name__
+        raise ValueError(f"{name}: queries {tuple(queries.shape)} and corpus "
+                         f"{shape} must be [Q, D] and one [rows, {width}] "
+                         "tensor")
+
+
+def _check_kernel_operands(name: str, queries: torch.Tensor,
+                           corpus: torch.Tensor):
+    """What the CUDA kernels take: bf16, D % 8 == 0, one device, dense and
+    16-byte aligned."""
+    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+        raise ValueError(f"{name} takes bf16 queries and corpus, got "
+                         f"{queries.dtype} and {corpus.dtype}")
+    if queries.shape[1] % 8:
+        raise ValueError(f"{name} needs D % 8 == 0, got D={queries.shape[1]}")
+    _check_cuda_operands(name, queries, corpus)
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _chunk_scores(queries: torch.Tensor, corpus: torch.Tensor, lo: int,
+                  hi: int) -> torch.Tensor:
+    """fp32 scores of corpus rows [lo, hi): the plain versions' product."""
+    return queries.float() @ corpus[lo:hi].float().T
+
+
+def _padded_scores(queries: torch.Tensor, corpus: torch.Tensor, lo: int,
+                   width: int) -> torch.Tensor:
+    """fp32 scores of corpus rows [lo, lo + width), a chunk of rows at a
+    time; rows >= N score finfo(float32).min."""
+    hi = min(lo + width, corpus.shape[0])
+    out = torch.full((queries.shape[0], width), NEG, dtype=torch.float32,
+                     device=queries.device)
+    step = GMAX_CHUNK_BLOCKS * GROUP
+    for a in range(lo, hi, step):
+        b = min(a + step, hi)
+        out[:, a - lo:b - lo] = _chunk_scores(queries, corpus, a, b)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The block-row layout: K7, then the block paths
+# ---------------------------------------------------------------------------
+
+
+def prepare_block_corpus(corpus: torch.Tensor,
+                         with_plain: Optional[bool] = None) -> BlockCorpus:
+    """The block-row layout of [N, D]: ``cb`` [NB, 8 * D] holds the first
+    NB * 8 docs (block b = docs 8b .. 8b + 7), ``tail`` the ragged N % 8.
+
+    The block-row and the doc-major layout are the same bytes of a
+    row-major tensor, so ``cb`` and ``plain`` are views of ``corpus``: no
+    tile padding and no second copy, where the JAX package pads ``cb`` to
+    its tile and keeps ``plain`` as a second copy. ``with_plain`` keeps
+    JAX's rule all the same (by default ``plain`` is kept iff
+    N * D * 2 <= 4 GiB), so ``plain`` is None, and the paths that need it
+    refuse, in the same cases."""
+    if corpus.dim() != 2:
+        raise ValueError(f"corpus must be [N, D], got {tuple(corpus.shape)}")
+    if not corpus.is_contiguous():
+        raise ValueError("prepare_block_corpus takes a contiguous corpus: "
+                         "its block rows are a view, never a copy")
+    N, D = corpus.shape
+    NB = N // GROUP
+    body = corpus[:NB * GROUP]
+    if with_plain is None:
+        with_plain = N * D * 2 <= 4 * 2**30
+    return BlockCorpus(tail=corpus[NB * GROUP:], n_docs=N,
+                       plain=body if with_plain else None,
+                       cb=body.view(NB, GROUP * D))
+
+
+def block_gmax_reference(queries: torch.Tensor,
+                         cb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_block_gmax``, the TPU kernel's way:
+    the maximum of the 8 slab products q @ cb[:, m*D:(m+1)*D].T in fp32,
+    chunked over blocks."""
+    Q, D = queries.shape
+    NB = cb.shape[0]
+    q = queries.float()
+    gmax = torch.empty((Q, NB), dtype=torch.float32, device=queries.device)
+    for lo in range(0, NB, GMAX_CHUNK_BLOCKS):
+        rows = cb[lo:lo + GMAX_CHUNK_BLOCKS]
+        g = q @ rows[:, :D].float().T
+        for m in range(1, GROUP):
+            g = torch.maximum(g, q @ rows[:, m * D:(m + 1) * D].float().T)
+        gmax[:, lo:lo + rows.shape[0]] = g
+    return gmax
+
+
+def fused_block_gmax(queries: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
+    """Per-block score maxima [Q, NB] fp32 from block rows cb [NB, 8 * D].
+
+    CPU tensors run ``block_gmax_reference``; CUDA tensors (bf16) launch
+    ``csrc/plain_gmax.cu`` through ``block_gmax_launch``, over cb read as
+    the [NB * 8, D] doc-major rows it is."""
+    _check_matrices("fused_block_gmax", queries, cb,
+                    GROUP * queries.shape[-1])
+    if not queries.is_cuda:
+        return block_gmax_reference(queries, cb)
+    Q, D = queries.shape
+    NB = cb.shape[0]
+    _check_kernel_operands("fused_block_gmax", queries, cb)
+    gmax = torch.empty((Q, NB), dtype=torch.float32, device=queries.device)
+    if Q and NB:
+        rc = load_library().block_gmax_launch(
+            queries.data_ptr(), cb.data_ptr(), gmax.data_ptr(), Q, D, NB,
+            _stream(queries))
+        check(rc, "fused_block_gmax")
+        fused_block_gmax.launches += 1
+    return gmax
+
+
+fused_block_gmax.launches = 0
+
+
+def _block_ids(bid: torch.Tensor) -> torch.Tensor:
+    """Doc ids [Q, k * 8] of the members of blocks bid [Q, k]."""
+    return (bid[:, :, None] * GROUP
+            + torch.arange(GROUP, device=bid.device)).reshape(bid.shape[0],
+                                                              -1)
+
+
+def _with_tail(cand: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor,
+               tail_rows: torch.Tensor, first_id: int):
+    """Append the dense scores and ids of the ragged tail docs."""
+    n = tail_rows.shape[0]
+    if not n:
+        return cand, ids
+    tail_ids = first_id + torch.arange(n, device=ids.device)
+    return (torch.cat([cand, _chunk_scores(queries, tail_rows, 0, n)], 1),
+            torch.cat([ids, tail_ids.expand(ids.shape[0], n)], 1))
+
+
+def _block_topk_core(queries: torch.Tensor, cb: torch.Tensor,
+                     tail_rows: torch.Tensor, n_docs: int, k: int,
+                     qb: int = 0, rescore: str = "xla",
+                     plain: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score-free block path: K7 block maxima -> pyramid selection -> the
+    k selected blocks rescored exactly -> the ragged tail -> top-k.
+
+    ``rescore="xla"`` gathers the selected [8 * D] block rows of ``cb``
+    and takes an fp32 product, ``qb`` queries at a time (default 16; the
+    answers do not depend on it); ``rescore="dma"`` runs the gather-rescore
+    kernel over ``plain``."""
+    if rescore not in ("xla", "dma"):
+        raise ValueError(f"rescore must be 'xla' or 'dma', got {rescore!r}")
+    Q, D = queries.shape
+    NB = n_docs // GROUP
+    bid = _select_groups(fused_block_gmax(queries, cb[:NB]), k)
+    if rescore == "dma":
+        if plain is None:
+            raise ValueError("rescore='dma' needs the plain doc-major "
+                             "corpus (prepare with with_plain=True)")
+        cand = gather_rescore(queries, plain, bid.to(torch.int32))
+        cand, ids = _with_tail(cand, _block_ids(bid), queries, tail_rows,
+                               NB * GROUP)
+        s, pos = torch.topk(cand, k, dim=1)
+        return s, torch.gather(ids, 1, pos)
+
+    qb = qb if qb > 0 else RESCORE_Q_CHUNK
+    s_out = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
+    i_out = torch.empty((Q, k), dtype=torch.int64, device=queries.device)
+    for lo in range(0, Q, qb):
+        hi = min(lo + qb, Q)
+        b = bid[lo:hi]
+        # [qb * k, 8 * D] contiguous block rows, viewed as [qb, k * 8, D]
+        rows = cb[b.reshape(-1)].view(hi - lo, k * GROUP, D)
+        sc = torch.bmm(rows.float(),
+                       queries[lo:hi].float()[:, :, None])[:, :, 0]
+        sc, ids = _with_tail(sc, _block_ids(b), queries[lo:hi], tail_rows,
+                             NB * GROUP)
+        s_out[lo:hi], pos = torch.topk(sc, k, dim=1)
+        i_out[lo:hi] = torch.gather(ids, 1, pos)
+    return s_out, i_out
+
+
+def _need_cb(prep: BlockCorpus):
+    if prep.cb is None:
+        raise ValueError("the block paths need the block-row layout of "
+                         "prepare_block_corpus (cb is None)")
+
+
+def block_topk_prepared(queries: torch.Tensor, prep: BlockCorpus,
+                        k: int = 1000, qb: int = 0, rescore: str = "xla"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a ``prepare_block_corpus`` layout, score-free.
+
+    Returns (scores [Q, min(k, N)] fp32 descending, doc indices int64).
+    ``rescore="dma"`` rescores with the gather-rescore kernel and needs
+    ``prep.plain``. A corpus with ``NB // 2 <= k`` blocks is searched by
+    ``exact_search``."""
+    _need_cb(prep)
+    k = min(k, prep.n_docs)
+    NB = prep.n_docs // GROUP
+    if NB // 2 <= k:
+        body = prep.cb[:NB].reshape(-1, queries.shape[1])
+        corpus = torch.cat([body, prep.tail]) if prep.tail.shape[0] else body
+        return exact_search(queries, corpus, k=k)
+    return _block_topk_core(queries, prep.cb, prep.tail, prep.n_docs, k, qb,
+                            rescore, prep.plain)
+
+
+def block_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1000,
+               qb: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of [N, D] through the block-row layout, score-free: K7
+    block maxima, pyramid selection of the top-k blocks, their rows
+    rescored in fp32, the ragged N % 8 tail scored densely. The layout is
+    a view of ``corpus`` (contiguous), so nothing is copied per call."""
+    N = corpus.shape[0]
+    k = min(k, N)
+    if (N // GROUP) // 2 <= k:
+        return exact_search(queries, corpus, k=k)
+    prep = prepare_block_corpus(corpus, with_plain=False)
+    return _block_topk_core(queries, prep.cb, prep.tail, N, k, qb)
+
+
+# ---------------------------------------------------------------------------
+# The score-materializing block path: K8
+# ---------------------------------------------------------------------------
+
+
+def scores_reference(queries: torch.Tensor,
+                     plain: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_scores``: fp32 products chunked
+    over the corpus."""
+    return _padded_scores(queries, plain, 0, plain.shape[0])
+
+
+def fused_scores(queries: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
+    """Every score, doc-major: [Q, N] fp32 for plain [N, D].
+
+    CPU tensors run ``scores_reference``; CUDA tensors (bf16) launch
+    ``csrc/score_tiles.cu`` (``scores_launch``)."""
+    _check_matrices("fused_scores", queries, plain, queries.shape[-1])
+    if not queries.is_cuda:
+        return scores_reference(queries, plain)
+    Q, D = queries.shape
+    N = plain.shape[0]
+    _check_kernel_operands("fused_scores", queries, plain)
+    out = torch.empty((Q, N), dtype=torch.float32, device=queries.device)
+    if Q and N:
+        rc = load_library().scores_launch(
+            queries.data_ptr(), plain.data_ptr(), out.data_ptr(), Q, D, N,
+            _stream(queries))
+        check(rc, "fused_scores")
+        fused_scores.launches += 1
+    return out
+
+
+fused_scores.launches = 0
+
+
+def _block_score_topk_core(queries: torch.Tensor, cb: torch.Tensor,
+                           plain: torch.Tensor, tail_rows: torch.Tensor,
+                           n_docs: int, k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score-materializing block path: K7 block maxima for the selection,
+    K8 every score doc-major, so a selected block's 8 scores are one
+    contiguous slice of its query's row; then the tail and top-k."""
+    Q = queries.shape[0]
+    NB = n_docs // GROUP
+    bid = _select_groups(fused_block_gmax(queries, cb[:NB]), k)
+    scores = fused_scores(queries, plain)  # [Q, NB * 8]
+    cand = gather_row_slices(scores, bid * GROUP, GROUP).reshape(Q, -1)
+    cand, ids = _with_tail(cand, _block_ids(bid), queries, tail_rows,
+                           NB * GROUP)
+    s, pos = torch.topk(cand, k, dim=1)
+    return s, torch.gather(ids, 1, pos)
+
+
+def block_score_topk_prepared(queries: torch.Tensor, prep: BlockCorpus,
+                              k: int = 1000
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a ``prepare_block_corpus`` layout through the
+    stored [Q, NB * 8] fp32 score matrix. Needs ``prep.plain``; a corpus
+    with ``NB // 2 <= k`` blocks goes to ``block_topk_prepared``."""
+    _need_cb(prep)
+    k = min(k, prep.n_docs)
+    if prep.plain is None:
+        raise ValueError("BlockCorpus was prepared without the plain "
+                         "doc-major copy (with_plain=False)")
+    if (prep.n_docs // GROUP) // 2 <= k:
+        return block_topk_prepared(queries, prep, k)
+    return _block_score_topk_core(queries, prep.cb, prep.plain, prep.tail,
+                                  prep.n_docs, k)
+
+
+# ---------------------------------------------------------------------------
+# The strided hier2 paths: K9 and K10
+# ---------------------------------------------------------------------------
+
+
+def _check_tile(tile: int):
+    if tile <= 0 or tile % (GROUP * 128):
+        raise ValueError(f"tile must be a positive multiple of "
+                         f"{GROUP * 128}, got {tile}")
+
+
+def _slab_gmax(scores: torch.Tensor, tile: Optional[int] = None
+               ) -> torch.Tensor:
+    """Strided group maxima of whole tiles of scores [Q, n * tile]: group
+    t * gw + w is the max over m < 8 of column t * tile + m * gw + w,
+    gw = tile / 8. ``tile`` None takes the width as one tile."""
+    Q, W = scores.shape
+    tile = W if tile is None else tile
+    slabs = scores.reshape(Q, W // tile, GROUP, tile // GROUP)
+    return slabs.amax(2).reshape(Q, W // GROUP)
+
+
+def score_gmax_reference(queries: torch.Tensor, corpus: torch.Tensor,
+                         tile: int = 2048
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``fused_score_gmax``: the masked scores
+    [Q, Np], then their strided group maxima."""
+    Np = -(-corpus.shape[0] // tile) * tile
+    scores = _padded_scores(queries, corpus, 0, Np)
+    return scores, _slab_gmax(scores, tile)
+
+
+def fused_score_gmax(queries: torch.Tensor, corpus: torch.Tensor,
+                     tile: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores [Q, Np], gmax [Q, Np / 8]) fp32 with strided groups per
+    ``tile`` of rows, Np = ceil(N / tile) * tile: group t * gw + w
+    (gw = tile / 8) holds docs t * tile + m * gw + w, m < 8. Rows >= N
+    score finfo(float32).min in both outputs, so any N is taken; when
+    N % tile == 0 this is the JAX package's ``fused_score_gmax``.
+
+    CPU tensors run ``score_gmax_reference``; CUDA tensors (bf16) launch
+    ``csrc/score_tiles.cu`` (``score_gmax_launch``)."""
+    _check_tile(tile)
+    _check_matrices("fused_score_gmax", queries, corpus, queries.shape[-1])
+    if not queries.is_cuda:
+        return score_gmax_reference(queries, corpus, tile)
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    _check_kernel_operands("fused_score_gmax", queries, corpus)
+    Np = -(-N // tile) * tile
+    scores = torch.empty((Q, Np), dtype=torch.float32, device=queries.device)
+    gmax = torch.empty((Q, Np // GROUP), dtype=torch.float32,
+                       device=queries.device)
+    if Q and N:
+        rc = load_library().score_gmax_launch(
+            queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(),
+            gmax.data_ptr(), Q, D, N, tile, _stream(queries))
+        check(rc, "fused_score_gmax")
+        fused_score_gmax.launches += 1
+    return scores, gmax
+
+
+fused_score_gmax.launches = 0
+
+
+def gmax_only_reference(queries: torch.Tensor, corpus: torch.Tensor,
+                        tile: int = 2048) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_gmax_only``: ``score_gmax_
+    reference``'s gmax, a few tiles of scores at a time."""
+    n_tiles = -(-corpus.shape[0] // tile)
+    per = max(1, GMAX_CHUNK_BLOCKS * GROUP // tile)
+    gw = tile // GROUP
+    gmax = torch.empty((queries.shape[0], n_tiles * gw), dtype=torch.float32,
+                       device=queries.device)
+    for t in range(0, n_tiles, per):
+        nt = min(per, n_tiles - t)
+        gmax[:, t * gw:(t + nt) * gw] = _slab_gmax(
+            _padded_scores(queries, corpus, t * tile, nt * tile), tile)
+    return gmax
+
+
+def fused_gmax_only(queries: torch.Tensor, corpus: torch.Tensor,
+                    tile: int = 2048) -> torch.Tensor:
+    """``fused_score_gmax``'s gmax [Q, Np / 8] alone: the scores never
+    leave the kernel.
+
+    CPU tensors run ``gmax_only_reference``; CUDA tensors (bf16) launch
+    ``csrc/score_tiles.cu`` (``gmax_only_launch``)."""
+    _check_tile(tile)
+    _check_matrices("fused_gmax_only", queries, corpus, queries.shape[-1])
+    if not queries.is_cuda:
+        return gmax_only_reference(queries, corpus, tile)
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    _check_kernel_operands("fused_gmax_only", queries, corpus)
+    gmax = torch.empty((Q, -(-N // tile) * tile // GROUP),
+                       dtype=torch.float32, device=queries.device)
+    if Q and N:
+        rc = load_library().gmax_only_launch(
+            queries.data_ptr(), corpus.data_ptr(), gmax.data_ptr(), Q, D, N,
+            tile, _stream(queries))
+        check(rc, "fused_gmax_only")
+        fused_gmax_only.launches += 1
+    return gmax
+
+
+fused_gmax_only.launches = 0
+
+
+def _strided_members(gi: torch.Tensor, tile: int) -> torch.Tensor:
+    """Doc ids [Q, k * 8] of the members of strided groups gi [Q, k]."""
+    gw = tile // GROUP
+    base = gi // gw * tile + gi % gw
+    return (base[:, :, None] + torch.arange(GROUP, device=gi.device) * gw
+            ).reshape(gi.shape[0], -1)
+
+
+def hier2_search(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1000,
+                 tile: int = 2048, fanout: int = FANOUT
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k: K9 scores and strided group maxima, max-pyramid
+    selection of k groups, then the top-k of their 8 k stored scores.
+
+    ``tile`` defines the strided groups (so which doc ids form a group);
+    ``fanout`` the pyramid. Returns (scores [Q, min(k, N)] fp32
+    descending, doc indices int64). Small corpora (n_groups // 8 <= k)
+    take ``_hier_topk`` over the stored scores."""
+    _check_tile(tile)
+    k = min(k, corpus.shape[0])
+    scores, gmax = fused_score_gmax(queries, corpus, tile)
+    n_groups = gmax.shape[1]
+    if n_groups // 8 <= k or n_groups % 8:
+        return _hier_topk(scores, k)
+    cand_idx = _strided_members(_select_groups(gmax, k, fanout), tile)
+    s, pos = torch.topk(torch.gather(scores, 1, cand_idx), k, dim=1)
+    return s, torch.gather(cand_idx, 1, pos)
+
+
+def hier2_rescore(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1000,
+                  tile: int = 2048, fanout: int = FANOUT
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k without the [Q, N] score matrix: K10 strided group
+    maxima, max-pyramid selection of k groups, then the 8 k candidate rows
+    per query gathered and rescored in fp32, 32 queries at a time.
+
+    Candidate ids past N (the last tile's missing rows) are clamped for
+    the gather and score finfo(float32).min, so the corpus is never padded.
+    Corpora with ``n_groups // 8 <= k`` or less than one whole tile go to
+    ``exact_search``."""
+    _check_tile(tile)
+    Q, D = queries.shape
+    N = corpus.shape[0]
+    k = min(k, N)
+    n_groups = -(-N // tile) * tile // GROUP
+    if n_groups // 8 <= k or N < tile:
+        return exact_search(queries, corpus, k=k)
+    gmax = fused_gmax_only(queries, corpus, tile)
+    cand_idx = _strided_members(_select_groups(gmax, k, fanout), tile)
+    s_out = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
+    i_out = torch.empty((Q, k), dtype=torch.int64, device=queries.device)
+    for lo in range(0, Q, HIER2_Q_CHUNK):
+        hi = min(lo + HIER2_Q_CHUNK, Q)
+        cidx = cand_idx[lo:hi]
+        rows = corpus[cidx.clamp(max=N - 1).reshape(-1)].view(hi - lo, -1, D)
+        sc = torch.bmm(rows.float(),
+                       queries[lo:hi].float()[:, :, None])[:, :, 0]
+        sc = sc.masked_fill(cidx >= N, NEG)
+        s_out[lo:hi], pos = torch.topk(sc, k, dim=1)
+        i_out[lo:hi] = torch.gather(cidx, 1, pos)
+    return s_out, i_out

@@ -7,12 +7,15 @@ Port of ``openmatch_tpu/ops/mips.py`` for one device:
 - ``gather_row_slices`` and ``_select_groups``: the exact max-pyramid
   selection of the kernel path (``ops/cuda_mips.py``), on ``torch.topk``
   and ``torch.gather``.
+- ``_hier_topk``: exact two-level top-k over a score matrix, the
+  fallback of ``hier2_search`` for small corpora.
 - ``Searcher``: a fixed index answering repeated query batches.
 
-The pyramid uses a fixed fanout of 8 and adds a level while
-``width // 8 > k``. The TPU package's cost model that picked the depth
-(``_plan_pyramid``) was fitted on TPU timings and is not carried over;
-selection is exact at any depth.
+The pyramid uses a uniform fanout (8 unless the caller passes another,
+as the hier2 paths may) and adds a level while ``width // fanout > k``.
+The TPU package's cost model that picked the depth (``_plan_pyramid``)
+was fitted on TPU timings and is not carried over; selection is exact at
+any depth.
 """
 
 from __future__ import annotations
@@ -62,6 +65,26 @@ def exact_search(
     return best_s, best_i
 
 
+def _hier_topk(scores: torch.Tensor, k: int,
+               group: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of scores [Q, C] via two-level selection: top-k of the
+    maxima of ``group`` consecutive columns, then an exact re-rank of the
+    k * group member columns. Any top-k column lies in a group whose max
+    is >= the k-th score, and at most k groups have one, so the selected
+    groups cover the top k. Returns (scores [Q, k], column ids int64)."""
+    Q, C = scores.shape
+    n_groups = C // group
+    if C % group or n_groups <= k:
+        return torch.topk(scores, k, dim=1)
+    grouped = scores.view(Q, n_groups, group)
+    _, gi = torch.topk(grouped.amax(-1), k, dim=1)  # [Q, k] group ids
+    cand = torch.gather(grouped, 1, gi[:, :, None].expand(-1, -1, group))
+    cand_idx = gi[:, :, None] * group + torch.arange(group,
+                                                     device=scores.device)
+    s, pos = torch.topk(cand.reshape(Q, k * group), k, dim=1)
+    return s, torch.gather(cand_idx.reshape(Q, k * group), 1, pos)
+
+
 def gather_row_slices(arr: torch.Tensor, starts: torch.Tensor,
                       size: int) -> torch.Tensor:
     """out[q, j, :] = arr[q, starts[q, j] : starts[q, j] + size].
@@ -81,32 +104,37 @@ def gather_row_slices(arr: torch.Tensor, starts: torch.Tensor,
     return vals.view(idx.shape).masked_fill(idx >= W, NEG)
 
 
-def pyramid_fanouts(width: int, k: int) -> tuple:
-    """Finest-first fanouts of the max pyramid over ``width`` groups."""
+def pyramid_fanouts(width: int, k: int, fanout: int = FANOUT) -> tuple:
+    """Finest-first fanouts of the max pyramid over ``width`` groups: a
+    level is added while ``width // fanout > k``."""
+    if fanout < 2:
+        raise ValueError(f"fanout must be >= 2, got {fanout}")
     fanouts = []
-    while width // FANOUT > k:
-        fanouts.append(FANOUT)
-        width = -(-width // FANOUT)
+    while width // fanout > k:
+        fanouts.append(fanout)
+        width = -(-width // fanout)
     return tuple(fanouts)
 
 
-def _select_groups(gmax: torch.Tensor, k: int,
+def _select_groups(gmax: torch.Tensor, k: int, fanout: int = FANOUT,
                    l1: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact top-k group selection from per-group maxima [Q, W].
 
-    Builds coarser maxima levels until one more would hold <= k entries,
-    top-k's the coarsest, then expands level by level: gather the
-    8*k member maxima of the selected parents and keep the top k. Any
-    group of the true top-k has every ancestor's max >= the k-th best, and
-    at most k ancestors per level can, so nothing is lost at any depth.
+    Builds coarser maxima levels (``fanout`` groups each) until one more
+    would hold <= k entries, top-k's the coarsest, then expands level by
+    level: gather the fanout*k member maxima of the selected parents and
+    keep the top k. Any group of the true top-k has every ancestor's max
+    >= the k-th best, and at most k ancestors per level can, so nothing is
+    lost at any depth.
 
-    ``l1`` is the precomputed first level [Q, ceil(W / 8)] (the gmax
-    kernel emits it), which skips the widest build pass. Returns group ids
-    [Q, k] int64 (not sorted; the caller rescores the members)."""
+    ``l1`` is the precomputed first level [Q, ceil(W / fanout)] (the gmax
+    kernel emits it at fanout 8), which skips the widest build pass.
+    Returns group ids [Q, k] int64 (not sorted; the caller rescores the
+    members)."""
     Q, W = gmax.shape
-    fanouts = pyramid_fanouts(W, k)
+    fanouts = pyramid_fanouts(W, k, fanout)
     if l1 is not None:
-        if not fanouts or tuple(l1.shape) != (Q, -(-W // FANOUT)):
+        if not fanouts or tuple(l1.shape) != (Q, -(-W // fanout)):
             raise ValueError(f"l1 {tuple(l1.shape)} does not fit gmax "
                              f"{tuple(gmax.shape)} at k={k}")
         levels = [gmax, l1]

@@ -218,3 +218,51 @@ def test_cuda_gather_rescore_matches_plain(cuda_device):
     got = cm.gather_rescore(q, plain, bids)
     want = cm.gather_rescore_reference(q, plain, bids)
     assert (got - want).abs().max().item() <= REL * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [70, 128])
+def test_cuda_block_gmax_matches_plain(cuda_device, Q):
+    """K7 over a cb view of 4099 blocks (not a multiple of 16) against its
+    slab-wise plain version, and bit-equal to K2 over the same bytes."""
+    body = card_data(cuda_device, 30, 8 * 4099, 768)
+    prep = cm.prepare_block_corpus(body)
+    q = card_data(cuda_device, 31, Q, 768)
+    before = cm.fused_block_gmax.launches
+    got = cm.fused_block_gmax(q, prep.cb)
+    assert cm.fused_block_gmax.launches == before + 1
+    assert_kernel_close(got, cm.block_gmax_reference(q, prep.cb))
+    assert torch.equal(got, cm.fused_plain_gmax(q, prep.plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8 * 4099, 8 * 4099 + 5])
+def test_cuda_scores_matches_plain(cuda_device, N):
+    """K8: rows past the last 128-row tile; N % 4 != 0 takes the scalar
+    stores."""
+    c = card_data(cuda_device, 32, N, 768)
+    q = card_data(cuda_device, 33, 70, 768)
+    before = cm.fused_scores.launches
+    got = cm.fused_scores(q, c)
+    assert cm.fused_scores.launches == before + 1
+    assert_kernel_close(got, cm.scores_reference(q, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1024, 2048])
+@pytest.mark.parametrize("N", [16 * 2048, 16 * 2048 + 1029])
+def test_cuda_score_gmax_and_gmax_only_match_plain(cuda_device, tile, N):
+    """K9 and K10 with a whole and a ragged last tile: the scores and the
+    strided maxima against the plain version (masked entries bit-equal),
+    and K10's maxima bit-equal to K9's."""
+    c = card_data(cuda_device, 34, N, 768)
+    q = card_data(cuda_device, 35, 70, 768)
+    b9, b10 = cm.fused_score_gmax.launches, cm.fused_gmax_only.launches
+    s, g = cm.fused_score_gmax(q, c, tile=tile)
+    g10 = cm.fused_gmax_only(q, c, tile=tile)
+    assert (cm.fused_score_gmax.launches, cm.fused_gmax_only.launches) \
+        == (b9 + 1, b10 + 1)
+    rs, rg = cm.score_gmax_reference(q, c, tile=tile)
+    assert_kernel_close(s, rs)
+    assert_kernel_close(g, rg)
+    assert torch.equal(g10, g)

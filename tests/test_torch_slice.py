@@ -234,3 +234,52 @@ def test_build_service_takes_search_n_segs(workspace, jax_index):
                       InferenceArguments(encoded_save_path=str(emb),
                                          search_n_segs=2),
                       max_batch=4, device=cpu)
+
+
+def test_encoded_queries_search_the_alternative_layouts_as_jax(workspace):
+    """The JAX DRModel and the port's, on the same checkpoint, encode the
+    same queries; each package's hier2_rescore and dma-rescored block path
+    then searches one seeded corpus (2 whole 1024-row tiles plus a ragged
+    one, N % 8 = 5) with its own query reps: the same ids above the tie
+    band, scores within 1e-4."""
+    from openmatch_tpu.ops import pallas_mips as pm
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+
+    root, tok, queries = workspace
+    jm, jparams = JaxDRModel.load(str(root / "ckpt"))
+    pmodel = DRModel.load(str(root / "ckpt"), dtype="float32", device="cpu")
+    enc = tok(queries, padding="max_length", max_length=8, truncation=True,
+              return_tensors="np")
+    ids = enc["input_ids"].astype(np.int32)
+    mask = enc["attention_mask"].astype(np.int32)
+    q_j = jm.encode(jparams, jnp.asarray(ids), jnp.asarray(mask),
+                    is_query=True)
+    with torch.inference_mode():
+        q = pmodel.encode(torch.from_numpy(ids), torch.from_numpy(mask),
+                          is_query=True)
+    np.testing.assert_allclose(q.numpy(), np.asarray(q_j), atol=2e-4, rtol=0)
+
+    corpus = np.random.RandomState(6).randn(2 * 1024 + 77, 32).astype(
+        np.float32)
+    c, c_j = torch.from_numpy(corpus), jnp.asarray(corpus)
+    k = 10
+    runs = {
+        "hier2_rescore": (
+            pm.pallas_hier2_rescore(q_j, c_j, k=k, tile=1024),
+            cm.hier2_rescore(q, c, k, tile=1024)),
+        "block_topk_prepared(rescore='dma')": (
+            pm.pallas_block_topk_prepared(
+                q_j, pm.prepare_block_corpus(c_j, tile_g=128), k=k,
+                tile_g=128, tile_q=8, rescore="dma"),
+            cm.block_topk_prepared(q, cm.prepare_block_corpus(c), k,
+                                   rescore="dma")),
+    }
+    for name, ((s_want, i_want), (s_got, i_got)) in runs.items():
+        s_want, i_want = np.asarray(s_want), np.asarray(i_want)
+        s_got, i_got = s_got.numpy(), i_got.numpy()
+        np.testing.assert_allclose(s_got, s_want, atol=1e-4, rtol=0,
+                                   err_msg=name)
+        for r in range(len(queries)):
+            band = s_want[r, -1] + 1e-4
+            assert set(i_got[r][s_got[r] > band].tolist()) \
+                == set(i_want[r][s_want[r] > band].tolist()), name
