@@ -48,7 +48,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             band, launch its kernels (and no other layout's), and
             allocate less than 13 GB beyond what was resident; each of
             their kernels is compared with its plain version at the
-            shapes the paths gave it.
+            shapes the paths gave it. Each kernel's bound (the larger of
+            its bytes over the HBM rate and its operations over the bf16
+            tensor-core rate, from this run's inputs; the rescore kernels
+            count the distinct blocks selected) and, for K8, one
+            torch.mm computing the same scores (library_ms).
+5. perf     after the index is freed, the perf-script path at the scripts'
+            default sizes: the phase-ablation kernel K11's four variants
+            at Q=512 over 2,210,456 docs (276,480 blocks) against their
+            plain versions, a3base bit-equal to K2, a3notr to its
+            transpose, a3nomax to K8's every 8th score, a3mxutr within
+            2^-22 x |g| of a3base; every phase of
+            perf/score_path_phases.py and a set of perf/micro.py modes
+            (the library yardsticks, one per kernel, hier2_full and
+            xla_full_pyramid) through their main(argv), each launching
+            exactly the kernels it names; one K11 launch under
+            utils.profiling.trace, whose Chrome trace must be written and
+            parse.
 
 The second-to-last line is the kernel table as one JSON object, the last
 line {"ok": true, "device": {...}}. It needs CUDA: without a card it
@@ -60,7 +76,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -95,8 +110,13 @@ KERNELS = {
     "scores": (CSRC + "score_tiles.cu", TPU + "1591"),
     "score_gmax": (CSRC + "score_tiles.cu", TPU + "133"),
     "gmax_only": (CSRC + "score_tiles.cu", TPU + "254"),
+    "gmax_phase": (CSRC + "gmax_phases.cu",
+                   "scripts/perf/score_path_phases.py:164"),
 }
 CORPUS_COPY = 13e9  # bytes: a layout path allocating this much copied the index
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and dense bf16 tensor-core
+BF16_FLOPS = 989e12        # rate (NVIDIA's data sheet, 700 W)
+MXU_TR_REL = 2.0**-22  # a3mxutr vs a3base: the tf32 split is exact; 2 ulp
 
 
 def log(msg: str):
@@ -104,19 +124,11 @@ def log(msg: str):
 
 
 def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
-    """Median device time of ``fn`` in ms, one CUDA event pair per run."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    """Median device time of ``fn`` in ms, one CUDA event pair per run (the
+    perf twins' timer)."""
+    from openmatch_tpu_torch.perf import time_ms
+
+    return time_ms(fn, torch.device("cuda", 0), warmup, reps)
 
 
 def reset_launches(cm):
@@ -130,6 +142,7 @@ def reset_launches(cm):
     cm.fused_scores.launches = 0
     cm.fused_score_gmax.launches = 0
     cm.fused_gmax_only.launches = 0
+    cm.fused_gmax_phase.launches = 0
 
 
 def read_launches(cm) -> dict:
@@ -141,7 +154,8 @@ def read_launches(cm) -> dict:
             "block_gmax": cm.fused_block_gmax.launches,
             "scores": cm.fused_scores.launches,
             "score_gmax": cm.fused_score_gmax.launches,
-            "gmax_only": cm.fused_gmax_only.launches}
+            "gmax_only": cm.fused_gmax_only.launches,
+            "gmax_phase": cm.fused_gmax_phase.launches}
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -161,6 +175,62 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
         raise AssertionError(f"{name}: max abs err {err} > {REL_TOL} * {scale}")
     log(f"  {name}: max_abs_err={err:.3e} (max|score|={scale:.3e}, "
         f"masked={int(masked.sum())})")
+    return err
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``n_bytes`` (each input read once, each output written
+    once) and does ``n_ops`` bf16 tensor-core operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+    return (max(t_bytes, t_ops) * 1000,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gmax_bound(q: torch.Tensor, row_elems: int, out_elems: int) -> tuple:
+    """Bound of a kernel that scores ``row_elems`` bf16 corpus values once
+    against every query and writes ``out_elems`` fp32 values: 2 ops a
+    multiply-add."""
+    return bound(row_elems * 2 + q.numel() * 2 + out_elems * 4,
+                 2 * q.shape[0] * row_elems)
+
+
+def rescore_bound(q: torch.Tensor, bid: torch.Tensor) -> tuple:
+    """Bound of a gather-rescore: the distinct selected blocks' 8 rows read
+    once (counted on the card), queries and ids in, k * 8 fp32 scores out."""
+    D = q.shape[1]
+    distinct = torch.unique(bid).numel()
+    return bound(distinct * 8 * D * 2 + q.numel() * 2 + bid.numel() * 4
+                 + bid.numel() * 8 * 4, 2 * bid.numel() * 8 * D)
+
+
+def check_k11(cm, q: torch.Tensor, body: torch.Tensor, label: str) -> float:
+    """K11's four variants against their plain versions over the 8-doc
+    body: a3base bit-equal to K2, a3notr to a3base transposed, a3nomax to
+    K8's every 8th score, a3mxutr within MXU_TR_REL x |g| of a3base.
+    Returns the largest max abs error against the plain versions."""
+    err = 0.0
+    base = cm.fused_gmax_phase(q, body, "a3base")
+    if not torch.equal(base, cm.fused_plain_gmax(q, body)):
+        raise AssertionError(f"K11 a3base != K2 ({label})")
+    for phase in cm.GMAX_PHASES:
+        got = base if phase == "a3base" else cm.fused_gmax_phase(q, body,
+                                                                 phase)
+        err = max(err, compare(f"K11 {phase} {label}", got,
+                               cm.gmax_phase_reference(q, body, phase)))
+        if phase == "a3notr" and not torch.equal(got, base.T):
+            raise AssertionError(f"K11 a3notr != a3base.T ({label})")
+        if phase == "a3mxutr":
+            off = (got - base).abs() > MXU_TR_REL * base.abs()
+            if off.any():
+                raise AssertionError(f"K11 a3mxutr: {int(off.sum())} entries "
+                                     f"beyond 2^-22 x |a3base| ({label})")
+            log(f"  K11 a3mxutr {label}: {int((got != base).sum())} of "
+                f"{base.numel()} entries not bit-equal to a3base")
+        if phase == "a3nomax" and not torch.equal(
+                got, cm.fused_scores(q, body)[:, ::8]):
+            raise AssertionError(f"K11 a3nomax != K8[:, ::8] ({label})")
+        del got
     return err
 
 
@@ -275,6 +345,13 @@ def phase_kernels(dev):
                     q, prep.plain, bids))),
         }
         t.update(layout_kernels(cm, q, corpus, prep.plain, cb))
+        check_k11(cm, q, prep.plain, f"Q={Q}")
+        for phase in cm.GMAX_PHASES:
+            t[f"K11 {phase}"] = (
+                cuda_time_ms(lambda: cm.fused_gmax_phase(q, prep.plain,
+                                                         phase)),
+                cuda_time_ms(lambda: cm.gmax_phase_reference(
+                    q, prep.plain, phase), 1, 3))
         for key, (ms, plain_ms) in t.items():
             log(f"  {key} Q={Q} N={N}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
@@ -524,7 +601,7 @@ def answers_tensor(results, doc_pos, device):
     return s, i
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev) -> tuple:
     from openmatch_tpu_torch.drivers.serve import RetrievalService
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
@@ -644,9 +721,15 @@ def phase_serve(dev) -> dict:
         t3 = cuda_time_ms(lambda: cm.gather_rescore(reps, prep.plain, bid))
         t3p = cuda_time_ms(lambda: cm.gather_rescore_reference(
             reps, prep.plain, bid), 1, 5)
+        nb = prep.plain.shape[0] // 8
+        b1 = gmax_bound(reps, prep.plain.numel(),
+                        MAX_BATCH * (nb + -(-nb // 8)))
+        b3 = rescore_bound(reps, bid)
         log(f"serve: at Q={MAX_BATCH}, N={n_docs}: K1 {t1:.4f} ms "
-            f"(plain {t1p:.4f}), selection {t_sel:.4f} ms, K3 {t3:.4f} ms "
-            f"(plain {t3p:.4f}), whole search {search_ms:.4f} ms")
+            f"(plain {t1p:.4f}, bound {b1[0]:.4f}, {b1[1]}), selection "
+            f"{t_sel:.4f} ms, K3 {t3:.4f} ms (plain {t3p:.4f}, bound "
+            f"{b3[0]:.4f} over {torch.unique(bid).numel()} distinct blocks), "
+            f"whole search {search_ms:.4f} ms")
 
         # the pipelined rescore and the sequential corpus windows, at Q=64
         reset_launches(cm)
@@ -680,26 +763,26 @@ def phase_serve(dev) -> dict:
                                 requests, flat_res, reps, cm)
     del index
     torch.cuda.empty_cache()
-    row = {
-        "plain_gmax": (e1, t1, t1p), "gather_rescore": (e3, t3, t3p),
-        "gather_rescore_pipelined": (e6, t6, t6p), **seg_table["timing"],
-        **layout_table["timing"]}
+    rows = {
+        "plain_gmax": (e1, t1, t1p, b1, None),
+        "gather_rescore": (e3, t3, t3p, b3, None),
+        "gather_rescore_pipelined": (e6, t6, t6p, b3, None),
+        **seg_table["timing"], **layout_table["timing"]}
     launches.update(seg_table["launches"])
     launches.update(layout_table["launches"])
-    return {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": row[name][0],
-         "ms": row[name][1], "plain_ms": row[name][2]}
-        for name, (src, rep) in KERNELS.items()]}
+    return rows, launches
 
 
 def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
     """The alternative layout paths at Q=64, k=1000 over the single-buffer
     index, each run once with every launch count set to 0 just before and
     read just after; then each of their kernels against its plain version
-    at the shapes the paths gave it. Returns the layout kernels' launches
-    and (err, ms, plain ms)."""
+    at the shapes the paths gave it, with each kernel's bound, K8's
+    library call (one torch.mm) and the two-call gmax (torch.mm, then
+    amax) as context. Returns the layout kernels' launches and (err, ms,
+    plain ms, (bound ms, bound by), library ms)."""
     from openmatch_tpu_torch.ops.mips import _select_groups
+    from openmatch_tpu_torch.perf.micro import mm_f32
 
     prep = cm.prepare_block_corpus(index, with_plain=True)
     if not (prep.cb.data_ptr() == prep.plain.data_ptr() == index.data_ptr()):
@@ -772,23 +855,37 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
             raise AssertionError("K10 != K9's maxima over the index")
         del g9, rg, g10
         torch.cuda.empty_cache()
+        Q, nb = reps.shape[0], prep.cb.shape[0]
+        Np = -(-index.shape[0] // 2048) * 2048
+        mm, mm_note = mm_f32(reps.device)
+        lib8 = cuda_time_ms(lambda: mm(reps, prep.plain))
+        two_call = cuda_time_ms(lambda: mm(reps, prep.plain).view(
+            Q, nb, 8).amax(-1))
+        log(f"serve: library yardsticks at Q={Q}, N={nb * 8}: one torch.mm "
+            f"({mm_note}) {lib8:.4f} ms; two calls, torch.mm then amax over "
+            f"8 columns, {two_call:.4f} ms")
+        torch.cuda.empty_cache()
         t = {
             "block_gmax": (e7, cuda_time_ms(lambda: cm.fused_block_gmax(
                 reps, prep.cb)), cuda_time_ms(lambda: cm.block_gmax_reference(
-                    reps, prep.cb), 1, 2)),
+                    reps, prep.cb), 1, 2),
+                gmax_bound(reps, prep.cb.numel(), Q * nb), None),
             "scores": (e8, cuda_time_ms(lambda: cm.fused_scores(
                 reps, prep.plain)), cuda_time_ms(lambda: cm.scores_reference(
-                    reps, prep.plain), 1, 2)),
+                    reps, prep.plain), 1, 2),
+                gmax_bound(reps, prep.plain.numel(), Q * nb * 8), lib8),
             "score_gmax": (e9, cuda_time_ms(lambda: cm.fused_score_gmax(
                 reps, index, 2048)), cuda_time_ms(
-                    lambda: cm.score_gmax_reference(reps, index, 2048), 1, 2)),
+                    lambda: cm.score_gmax_reference(reps, index, 2048), 1, 2),
+                gmax_bound(reps, index.numel(), Q * (Np + Np // 8)), None),
             "gmax_only": (e10, cuda_time_ms(lambda: cm.fused_gmax_only(
                 reps, index, 2048)), cuda_time_ms(
-                    lambda: cm.gmax_only_reference(reps, index, 2048), 1, 2)),
+                    lambda: cm.gmax_only_reference(reps, index, 2048), 1, 2),
+                gmax_bound(reps, index.numel(), Q * Np // 8), None),
         }
         log(f"serve: layout kernels at Q={MAX_BATCH}, N={index.shape[0]}: "
-            + ", ".join(f"{n} {ms:.4f} ms (plain {p:.4f})"
-                        for n, (_, ms, p) in t.items()))
+            + ", ".join(f"{n} {ms:.4f} ms (plain {p:.4f}, bound {b[0]:.4f})"
+                        for n, (_, ms, p, b, _) in t.items()))
     del prep
     torch.cuda.empty_cache()
     return {"launches": launches, "timing": t}
@@ -799,7 +896,7 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
     """The same index as N_SEGS separately allocated segments behind a
     Searcher(n_segs) and its own RetrievalService, driven by the same
     requests; returns the segment kernels' launches and (err, ms, plain
-    ms)."""
+    ms, (bound ms, bound by), library ms)."""
     from openmatch_tpu_torch.drivers.serve import RetrievalService
     from openmatch_tpu_torch.ops.mips import Searcher, _select_groups
 
@@ -850,18 +947,116 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
         t5 = cuda_time_ms(lambda: cm.gather_rescore(reps, segs, bid))
         t5p = cuda_time_ms(lambda: cm.gather_rescore_reference(
             reps, segs, bid), 1, 5)
+        nb = sum(s.shape[0] for s in segs) // 8
+        b4 = gmax_bound(reps, sum(s.numel() for s in segs),
+                        MAX_BATCH * (nb + -(-nb // 8)))
+        b5 = rescore_bound(reps, bid)
         log(f"serve: segmented, at Q={MAX_BATCH}, N={n_docs}: K4 {t4:.4f} ms "
-            f"(plain {t4p:.4f}), K5 {t5:.4f} ms (plain {t5p:.4f}), whole "
-            f"search {search_ms:.4f} ms")
+            f"(plain {t4p:.4f}, bound {b4[0]:.4f}), K5 {t5:.4f} ms (plain "
+            f"{t5p:.4f}, bound {b5[0]:.4f}), whole search {search_ms:.4f} ms")
     del searcher, service, segs, g4, l4
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in ("plain_gmax_segs",
                                                   "gather_rescore_seg")},
-            "timing": {"plain_gmax_segs": (e4, t4, t4p),
-                       "gather_rescore_seg": (e5, t5, t5p)}}
+            "timing": {"plain_gmax_segs": (e4, t4, t4p, b4, None),
+                       "gather_rescore_seg": (e5, t5, t5p, b5, None)}}
 
 
-PHASES = ("device", "build", "kernels", "serve")
+# score_path_phases phase / micro mode -> the kernels it must launch (by
+# kernel-table name), and no other
+SPP_KERNELS = {
+    "a1": {"block_gmax"}, "a2": {"scores"}, "a3": {"plain_gmax"},
+    "a3l1": {"plain_gmax"}, "a3base": {"gmax_phase"},
+    "a3notr": {"gmax_phase"}, "a3mxutr": {"gmax_phase"},
+    "a3nomax": {"gmax_phase"}, "a3tile": {"plain_gmax"}, "sel": set(),
+    "sell1": set(), "cand": set(), "resc": {"gather_rescore_pipelined"},
+    "resc0": {"gather_rescore"}, "plain": {"plain_gmax", "gather_rescore"},
+    "rescseg": {"gather_rescore_seg"}, "a3seg": {"plain_gmax_segs"},
+}
+MICRO_KERNELS = {
+    "matmul_f32": set(), "matmul_bf16": set(), "gmax_xla": set(),
+    "gmax_pallas": {"gmax_only"}, "score_gmax_pallas": {"score_gmax"},
+    "block_gmax": {"block_gmax"}, "scores_kernel": {"scores"},
+    "hier2_full": set(), "xla_full_pyramid": set(),
+}
+PERF_N, PERF_Q = 2_210_456, 512  # score_path_phases.py's defaults
+
+
+def trace_k11(cm, q, plain, profiling):
+    """One K11 launch under utils.profiling.trace: the Chrome trace must be
+    written and parse; logs whether it names the kernel with device time."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            cm.fused_gmax_phase(q, plain, "a3base")
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    kernel_us = [e.get("dur", 0) for e in events
+                 if "gmax_phase_kernel" in str(e.get("name", ""))
+                 and e.get("cat") == "kernel"]
+    avg_us = [getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0)
+              for e in prof.key_averages() if "gmax_phase_kernel" in e.key]
+    log(f"perf: utils.profiling.trace wrote a Chrome trace of {len(events)} "
+        f"events; K11 kernel events with device time: {kernel_us} us; "
+        f"key_averages device time: {avg_us} us")
+
+
+def drive(name: str, fn, want: set, cm) -> dict:
+    """Run one twin phase or mode with every count set to 0 just before
+    and read just after; it must launch exactly ``want``."""
+    reset_launches(cm)
+    fn()
+    torch.cuda.synchronize()
+    got = read_launches(cm)
+    ran = {n for n, v in got.items() if v}
+    if ran != want:
+        raise AssertionError(f"perf: {name} launched {sorted(ran)}, expected "
+                             f"{sorted(want)}")
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_perf(dev) -> tuple:
+    """K11 at the script's default size against its plain versions and
+    K2/K8, timed; one launch traced; then every score_path_phases phase
+    and the MICRO_KERNELS modes through their main(argv). Returns K11's
+    row (err, ms, plain ms, (bound ms, bound by), library ms) and the
+    launches of the perf path's run."""
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.perf import micro, normal
+    from openmatch_tpu_torch.perf import score_path_phases as spp
+    from openmatch_tpu_torch.utils import profiling
+
+    nbp = -(-(PERF_N // 8) // 256) * 256
+    with torch.inference_mode():
+        plain = normal((nbp * 8, D), 0, dev)
+        q = normal((PERF_Q, D), 1, dev)
+        err = check_k11(cm, q, plain, f"Q={PERF_Q} NB={nbp}")
+        ms = {p: cuda_time_ms(lambda: cm.fused_gmax_phase(q, plain, p))
+              for p in cm.GMAX_PHASES}
+        plain_ms = cuda_time_ms(lambda: cm.gmax_phase_reference(
+            q, plain, "a3base"), 1, 3)
+        b11 = gmax_bound(q, plain.numel(), PERF_Q * nbp)
+        log(f"perf: K11 at Q={PERF_Q}, NB={nbp}: "
+            + ", ".join(f"{p} {t:.4f} ms" for p, t in ms.items())
+            + f"; plain {plain_ms:.4f} ms; bound {b11[0]:.4f} ms ({b11[1]})")
+        trace_k11(cm, q, plain, profiling)
+        del plain, q
+    torch.cuda.empty_cache()
+
+    launches = dict.fromkeys(read_launches(cm), 0)
+    for phase, want in SPP_KERNELS.items():
+        got = drive(f"score_path_phases {phase}", lambda: spp.main([phase]),
+                    want, cm)
+        launches = {n: launches[n] + got[n] for n in launches}
+    for mode, want in MICRO_KERNELS.items():
+        drive(f"micro {mode}", lambda: micro.main([mode]), want, cm)
+    return ({"gmax_phase": (err, ms["a3base"], plain_ms, b11, None)},
+            {"gmax_phase": launches["gmax_phase"]})
+
+
+PHASES = ("device", "build", "kernels", "serve", "perf")
 
 
 def main(argv=None) -> int:
@@ -884,11 +1079,20 @@ def main(argv=None) -> int:
         phase_build()
     if "kernels" in phases:
         phase_kernels(dev)
-    table = None
-    if "serve" in phases:
-        table = phase_serve(dev)
-    if table is not None:
-        print(json.dumps(table))
+    rows, launches = {}, {}
+    for name, run in (("serve", phase_serve), ("perf", phase_perf)):
+        if name in phases:
+            r, n = run(dev)
+            rows.update(r)
+            launches.update(n)
+    if rows:
+        print(json.dumps({"kernels": [
+            {"name": name, "route": "cuda", "source": src, "replaces": rep,
+             "launches": launches[name], "max_abs_err": rows[name][0],
+             "ms": rows[name][1], "plain_ms": rows[name][2],
+             "bound_ms": rows[name][3][0], "bound_by": rows[name][3][1],
+             "library_ms": rows[name][4]}
+            for name, (src, rep) in KERNELS.items() if name in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"],
         "count": torch.cuda.device_count()}}))

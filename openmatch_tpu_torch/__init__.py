@@ -9,10 +9,12 @@ same layout: ``openmatch_tpu/X/y.py`` has its counterpart at
   kernels (``ops/csrc``) for the block-max pass and the gather-rescore.
 - ``retriever``: encode to embedding shards, load them, search.
 - ``drivers``: ``build_index``, ``retrieve`` and the HTTP ``serve``.
+- ``perf``: twins of the JAX package's perf scripts
+  (``scripts/perf/score_path_phases.py``, ``scripts/perf/micro.py``).
 
-The JAX package's jax-free modules (``config``, ``data.collators``,
-``data.loader``, ``data.inference_dataset``, ``utils.trec``) are imported,
-not copied.
+``config``, ``templates``, ``data`` and ``utils.trec`` are the port's own
+copies of the JAX package's jax-free modules: the port imports nothing of
+``openmatch_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -8,10 +8,9 @@
 
 from __future__ import annotations
 
-from openmatch_tpu.config import (ArgumentParser, DataArguments,
-                                  InferenceArguments, ModelArguments)
-from openmatch_tpu.data.inference_dataset import InferenceDataset
-
+from ..config import (ArgumentParser, DataArguments, InferenceArguments,
+                      ModelArguments)
+from ..data.inference_dataset import InferenceDataset
 from ..models.dr_model import DRModel
 from ..retriever.retriever import Retriever
 from .common import load_tokenizer, setup_logging, split_device_flag

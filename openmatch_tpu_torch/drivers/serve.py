@@ -34,10 +34,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from openmatch_tpu.config import (ArgumentParser, DataArguments,
-                                  InferenceArguments, ModelArguments)
-from openmatch_tpu.data.collators import pad_ids
-
+from ..config import (ArgumentParser, DataArguments, InferenceArguments,
+                      ModelArguments)
+from ..data.collators import pad_ids
 from ..models.dr_model import DRModel
 from ..ops.mips import Searcher
 from .common import load_tokenizer, setup_logging, split_device_flag

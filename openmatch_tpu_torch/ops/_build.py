@@ -41,6 +41,7 @@ SIGNATURES = {
     "scores_launch": (_P, _P, _P, _I, _I, _LL, _P),
     "score_gmax_launch": (_P, _P, _P, _P, _I, _I, _LL, _I, _P),
     "gmax_only_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
+    "gmax_phase_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -44,6 +44,10 @@ K8, K9 and K10 are ``csrc/score_tiles.cu``; K7 is ``csrc/plain_gmax.cu``
 behind its own entry point, since on the card ``cb`` and the doc-major
 body are the same bytes.
 
+And the phase-ablation kernel of the perf scripts (``fused_gmax_phase``,
+K11, ``csrc/gmax_phases.cu``): K2's block maxima with one of four
+epilogues, so ``perf/score_path_phases.py`` can time each epilogue's share.
+
 Each kernel wrapper dispatches on where its tensors lie: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
 kernel or raises; nothing falls back from one to the other. Each wrapper
@@ -987,3 +991,69 @@ def hier2_rescore(queries: torch.Tensor, corpus: torch.Tensor, k: int = 1000,
         s_out[lo:hi], pos = torch.topk(sc, k, dim=1)
         i_out[lo:hi] = torch.gather(cidx, 1, pos)
     return s_out, i_out
+
+
+# ---------------------------------------------------------------------------
+# The phase-ablation kernel of the perf scripts: K11
+# ---------------------------------------------------------------------------
+
+# phase -> the entry point's phase id (csrc/gmax_phases.cu)
+GMAX_PHASES = {"a3base": 0, "a3notr": 1, "a3mxutr": 2, "a3nomax": 3}
+
+
+def _check_phase(phase: str):
+    if phase not in GMAX_PHASES:
+        raise ValueError(f"unknown gmax phase {phase!r} "
+                         f"({' | '.join(GMAX_PHASES)})")
+
+
+def gmax_phase_reference(queries: torch.Tensor, plain: torch.Tensor,
+                         phase: str) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_gmax_phase``: fp32 products chunked
+    over the corpus, then the phase's epilogue: the max over each block's
+    8 docs ("a3base", "a3mxutr", and "a3notr" transposed to [NB, Q]) or
+    the block's first doc alone ("a3nomax")."""
+    _check_phase(phase)
+    Q = queries.shape[0]
+    NB = plain.shape[0] // GROUP
+    q = queries.float()
+    out = torch.empty((Q, NB), dtype=torch.float32, device=queries.device)
+    for lo in range(0, NB, GMAX_CHUNK_BLOCKS):
+        hi = min(lo + GMAX_CHUNK_BLOCKS, NB)
+        s = (q @ plain[lo * GROUP:hi * GROUP].float().T).view(Q, hi - lo,
+                                                             GROUP)
+        out[:, lo:hi] = s[:, :, 0] if phase == "a3nomax" else s.amax(-1)
+    return out.T.contiguous() if phase == "a3notr" else out
+
+
+def fused_gmax_phase(queries: torch.Tensor, plain: torch.Tensor,
+                     phase: str) -> torch.Tensor:
+    """Block maxima of plain [NB * 8, D] for queries [Q, D] with the
+    epilogue of one of ``score_path_phases``' ablation phases:
+
+    - "a3base": gmax [Q, NB] fp32, the same values as ``fused_plain_gmax``;
+    - "a3notr": the same maxima doc-major, [NB, Q];
+    - "a3mxutr": a3base's values, moved through the tensor cores as a
+      product with an identity before the store;
+    - "a3nomax": [Q, NB], the score of each block's first doc (8b).
+
+    CPU tensors run ``gmax_phase_reference``; CUDA tensors (bf16) launch
+    ``csrc/gmax_phases.cu``, counted in ``launches``."""
+    _check_phase(phase)
+    NB = _check_body(queries, (plain,))
+    if not queries.is_cuda:
+        return gmax_phase_reference(queries, plain, phase)
+    Q, D = queries.shape
+    _check_kernel_operands("fused_gmax_phase", queries, plain)
+    shape = (NB, Q) if phase == "a3notr" else (Q, NB)
+    out = torch.empty(shape, dtype=torch.float32, device=queries.device)
+    if Q and NB:
+        rc = load_library().gmax_phase_launch(
+            queries.data_ptr(), plain.data_ptr(), out.data_ptr(), Q, D, NB,
+            GMAX_PHASES[phase], _stream(queries))
+        check(rc, "fused_gmax_phase")
+        fused_gmax_phase.launches += 1
+    return out
+
+
+fused_gmax_phase.launches = 0

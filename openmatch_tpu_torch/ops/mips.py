@@ -3,29 +3,47 @@
 Port of ``openmatch_tpu/ops/mips.py`` for one device:
 
 - ``exact_search``: chunked running top-k over [Q, D] x [N, D]; the plain
-  path, and the fallback of the kernel path for tiny corpora.
+  path, and the fallback of the kernel path for tiny corpora. ``method``
+  picks each chunk's top-k as the JAX package's ``_chunk_topk`` does.
 - ``gather_row_slices`` and ``_select_groups``: the exact max-pyramid
   selection of the kernel path (``ops/cuda_mips.py``), on ``torch.topk``
   and ``torch.gather``.
-- ``_hier_topk``: exact two-level top-k over a score matrix, the
-  fallback of ``hier2_search`` for small corpora.
+- ``_hier_topk``, ``_hier2_topk``, ``_pyramid_topk``: exact two-level,
+  three-level and max-pyramid top-k over a score matrix (``_hier_topk`` is
+  also the fallback of ``hier2_search`` for small corpora).
 - ``Searcher``: a fixed index answering repeated query batches.
 
 The pyramid uses a uniform fanout (8 unless the caller passes another,
-as the hier2 paths may) and adds a level while ``width // fanout > k``.
-The TPU package's cost model that picked the depth (``_plan_pyramid``)
-was fitted on TPU timings and is not carried over; selection is exact at
-any depth.
+as the hier2 paths may) and adds a level while ``width // fanout > k``; a
+caller may also force JAX's finest-first tuple of per-level fanouts. The
+TPU package's cost model that picked the depth (``_plan_pyramid``) was
+fitted on TPU timings and is not carried over; selection is exact at any
+depth.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG = torch.finfo(torch.float32).min  # pallas_mips masks with this, not -inf
 FANOUT = 8
+
+
+def _chunk_topk(scores: torch.Tensor, k: int,
+                method: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's top-k by JAX's ``_chunk_topk`` names: "hier", "hier2",
+    "pyramid", and ``torch.topk`` for any other name. "approx" (JAX's
+    ``approx_max_k`` at recall_target=0.99) is ``torch.topk`` too: exact,
+    which meets that recall contract."""
+    if method == "hier":
+        return _hier_topk(scores, k)
+    if method == "hier2":
+        return _hier2_topk(scores, k)
+    if method == "pyramid":
+        return _pyramid_topk(scores, k)
+    return torch.topk(scores, k, dim=1)
 
 
 def exact_search(
@@ -34,13 +52,20 @@ def exact_search(
     k: int = 100,
     chunk_size: int = 0,
     valid_rows: Optional[int] = None,
+    method: str = "topk",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k inner products. queries [Q, D], corpus [N, D] on one device.
 
     Returns (scores [Q, min(k, N)] fp32 sorted descending, indices int64).
     Products are taken in fp32 (both operands upcast), chunk by chunk, and
     merged into a running top-k, so the [Q, N] score matrix is never held.
-    Rows >= ``valid_rows`` score -inf."""
+    Rows >= ``valid_rows`` score -inf.
+
+    ``method`` selects each chunk's top-k (``_chunk_topk``): "hier",
+    "hier2", "pyramid", or ``torch.topk`` for "topk", "approx" and any other
+    name. Every method is exact, so the answers agree above the k-th
+    score's tie band; the default is the port's plain ``torch.topk`` where
+    the JAX package defaults to "hier2"."""
     Q, D = queries.shape
     N = corpus.shape[0]
     k = min(k, N)
@@ -57,7 +82,7 @@ def exact_search(
         s = q @ corpus[lo:hi].float().T
         if limit < hi:
             s[:, max(limit - lo, 0):] = float("-inf")
-        cs, ci = torch.topk(s, min(k, hi - lo), dim=1)
+        cs, ci = _chunk_topk(s, min(k, hi - lo), method)
         cat_s = torch.cat([best_s, cs], dim=1)
         cat_i = torch.cat([best_i, ci + lo], dim=1)
         best_s, pos = torch.topk(cat_s, k, dim=1)
@@ -78,11 +103,56 @@ def _hier_topk(scores: torch.Tensor, k: int,
         return torch.topk(scores, k, dim=1)
     grouped = scores.view(Q, n_groups, group)
     _, gi = torch.topk(grouped.amax(-1), k, dim=1)  # [Q, k] group ids
+    return _members(grouped, gi, k, group)
+
+
+def _members(grouped: torch.Tensor, gi: torch.Tensor, k: int,
+             group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of the member columns of groups gi [Q, k] of grouped
+    [Q, n_groups, group]: (scores [Q, k], column ids int64)."""
+    Q = grouped.shape[0]
     cand = torch.gather(grouped, 1, gi[:, :, None].expand(-1, -1, group))
     cand_idx = gi[:, :, None] * group + torch.arange(group,
-                                                     device=scores.device)
+                                                     device=gi.device)
     s, pos = torch.topk(cand.reshape(Q, k * group), k, dim=1)
     return s, torch.gather(cand_idx.reshape(Q, k * group), 1, pos)
+
+
+def _hier2_topk(scores: torch.Tensor, k: int,
+                group: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k via three-level selection: the maxima of ``group``
+    columns, then of 8 groups (supergroups); the top k supergroups, the
+    top k of their 8 k member groups, then the k * group member columns.
+    The covering argument of ``_hier_topk`` holds at each level. Widths
+    that no supergroup fits, or with <= k supergroups, take
+    ``_hier_topk``."""
+    Q, C = scores.shape
+    sg = 8 * group
+    n_super = C // sg
+    if C % sg or n_super <= k:
+        return _hier_topk(scores, k, group)
+    grouped = scores.view(Q, C // group, group)
+    gmax = grouped.amax(-1).view(Q, n_super, 8)  # [Q, C / sg, 8]
+    _, si = torch.topk(gmax.amax(-1), k, dim=1)  # supergroup ids
+    member_g = torch.gather(gmax, 1, si[:, :, None].expand(-1, -1, 8))
+    member_ids = si[:, :, None] * 8 + torch.arange(8, device=scores.device)
+    _, pos = torch.topk(member_g.reshape(Q, 8 * k), k, dim=1)
+    gi = torch.gather(member_ids.reshape(Q, 8 * k), 1, pos)  # group ids
+    return _members(grouped, gi, k, group)
+
+
+def _pyramid_topk(scores: torch.Tensor, k: int, group: int = 8,
+                  fanout: int = FANOUT) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k via group maxima, max-pyramid group selection
+    (``_select_groups``) and an exact re-rank of the k * group member
+    columns. Widths with ``n_groups // fanout <= k`` take ``_hier_topk``."""
+    Q, C = scores.shape
+    n_groups = C // group
+    if C % group or n_groups // fanout <= k:
+        return _hier_topk(scores, k, group)
+    grouped = scores.view(Q, n_groups, group)
+    gi = _select_groups(grouped.amax(-1), k, fanout)
+    return _members(grouped, gi, k, group)
 
 
 def gather_row_slices(arr: torch.Tensor, starts: torch.Tensor,
@@ -116,7 +186,8 @@ def pyramid_fanouts(width: int, k: int, fanout: int = FANOUT) -> tuple:
     return tuple(fanouts)
 
 
-def _select_groups(gmax: torch.Tensor, k: int, fanout: int = FANOUT,
+def _select_groups(gmax: torch.Tensor, k: int,
+                   fanout: Union[int, Tuple[int, ...], None] = FANOUT,
                    l1: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Exact top-k group selection from per-group maxima [Q, W].
 
@@ -127,14 +198,24 @@ def _select_groups(gmax: torch.Tensor, k: int, fanout: int = FANOUT,
     >= the k-th best, and at most k ancestors per level can, so nothing is
     lost at any depth.
 
-    ``l1`` is the precomputed first level [Q, ceil(W / fanout)] (the gmax
-    kernel emits it at fanout 8), which skips the widest build pass.
+    ``fanout``: an int (or None, which is 8) is a uniform fanout whose
+    level count follows from W and k; a tuple forces JAX's finest-first
+    per-level fanouts exactly (a level may then hold fewer than k entries:
+    every one is selected, and the ids are edge-padded to k as in JAX).
+
+    ``l1`` is the precomputed first level [Q, ceil(W / fanouts[0])] (the
+    gmax kernel emits it at fanout 8), which skips the widest build pass.
     Returns group ids [Q, k] int64 (not sorted; the caller rescores the
     members)."""
     Q, W = gmax.shape
-    fanouts = pyramid_fanouts(W, k, fanout)
+    if isinstance(fanout, (tuple, list)):
+        fanouts = tuple(int(f) for f in fanout)
+        if any(f < 2 for f in fanouts):
+            raise ValueError(f"fanouts must be >= 2, got {fanouts}")
+    else:
+        fanouts = pyramid_fanouts(W, k, FANOUT if fanout is None else fanout)
     if l1 is not None:
-        if not fanouts or tuple(l1.shape) != (Q, -(-W // fanout)):
+        if not fanouts or tuple(l1.shape) != (Q, -(-W // fanouts[0])):
             raise ValueError(f"l1 {tuple(l1.shape)} does not fit gmax "
                              f"{tuple(gmax.shape)} at k={k}")
         levels = [gmax, l1]

@@ -16,8 +16,8 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from openmatch_tpu.data.collators import InferenceCollator
-from openmatch_tpu.data.loader import batched, prefetch
+from ..data.collators import InferenceCollator
+from ..data.loader import batched, prefetch
 
 
 def encode_dataset(

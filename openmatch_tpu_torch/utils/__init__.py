@@ -1,0 +1,3 @@
+"""TREC run files and profiling: the port's own copies of the JAX package's
+``utils/trec.py`` and its torch twin of ``utils/profiling.py``. Import the
+modules themselves; this package imports nothing."""

@@ -169,3 +169,62 @@ def test_searcher_matches_jax_pallas_searcher(case):
 def test_searcher_rejects_unknown_method():
     with pytest.raises(ValueError, match="method"):
         mips.Searcher(torch.zeros(16, 4), method="approx")
+
+
+# ---- search methods (exact_search(method=...), hier2, pyramid) --------------
+
+
+@pytest.mark.parametrize("method", ["hier", "hier2", "pyramid", "topk",
+                                    "approx"])
+@pytest.mark.parametrize("chunk_size", [0, 1600])
+def test_exact_search_methods_match_jax(method, chunk_size):
+    """Each of JAX's _chunk_topk methods, in one chunk of 3200 rows and in
+    two of 1600 (both wide enough for hier2's supergroups and a pyramid
+    level at k=5); "approx" is exact torch.topk in the port."""
+    c, c_j = corpus_pair(8, 3200, 16)
+    q, q_j = corpus_pair(9, 4, 16)
+    want = jmips.exact_search(q_j, c_j, k=5, chunk_size=chunk_size,
+                              method=method)
+    got = mips.exact_search(q, c, k=5, chunk_size=chunk_size, method=method)
+    assert_same_topk(got[0], got[1], want[0], want[1])
+    assert_same_topk(got[0], got[1], *brute(q, c, 5))
+
+
+@pytest.mark.parametrize("name", ["_hier_topk", "_hier2_topk",
+                                  "_pyramid_topk"])
+@pytest.mark.parametrize("C,k", [(64 * 40, 7), (64 * 40, 100), (1000, 7),
+                                 (64 * 300, 16)])
+def test_grouped_topk_matches_jax(name, C, k):
+    """Two-level, three-level and pyramid top-k of a score matrix, with a
+    run of tied columns; widths that take each function's fallback too
+    (C % 64 != 0, too few supergroups or pyramid levels)."""
+    s = np.random.RandomState(10).randn(3, C).astype(np.float32)
+    s[:, 40:56] = s[:, 39:40]
+    want = getattr(jmips, name)(jnp.asarray(s), k)
+    got = getattr(mips, name)(torch.from_numpy(s), k)
+    top = -np.sort(-s, axis=1)[:, :k]
+    np.testing.assert_array_equal(got[0].numpy(), top)
+    assert_same_topk(got[0], got[1], want[0], want[1])
+    np.testing.assert_array_equal(
+        np.take_along_axis(s, got[1].numpy(), 1), got[0].numpy())
+
+
+@pytest.mark.parametrize("W,k,plan", [(70000, 37, (8, 8)), (70000, 37, (16,)),
+                                      (9000, 100, (4, 8)),
+                                      (70000, 37, (8, 8, 8))])
+def test_select_groups_tuple_fanouts_match_jax(W, k, plan):
+    """JAX's finest-first fanout tuples, self-built and with a precomputed
+    level 1: the same groups as the JAX pyramid, and the true top-k."""
+    g = np.random.RandomState(11).randn(3, W).astype(np.float32)
+    want = np.asarray(jmips._select_groups(jnp.asarray(g), k, fanout=plan))
+    got = mips._select_groups(torch.from_numpy(g), k, fanout=plan).numpy()
+    l1 = torch.from_numpy(g.reshape(3, -1, plan[0]).max(-1))
+    got_l1 = mips._select_groups(torch.from_numpy(g), k, fanout=plan,
+                                 l1=l1).numpy()
+    for r in range(3):
+        top = np.sort(g[r])[::-1][:k]
+        assert set(got[r].tolist()) == set(want[r].tolist())
+        np.testing.assert_array_equal(np.sort(g[r, got[r]])[::-1], top)
+        np.testing.assert_array_equal(np.sort(g[r, got_l1[r]])[::-1], top)
+    with pytest.raises(ValueError, match="fanouts"):
+        mips._select_groups(torch.from_numpy(g), k, fanout=(8, 1))
