@@ -56,9 +56,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. perf     after the index is freed, the perf-script path at the scripts'
             default sizes: the phase-ablation kernel K11's four variants
             at Q=512 over 2,210,456 docs (276,480 blocks) against their
-            plain versions, a3base bit-equal to K2, a3notr to its
-            transpose, a3nomax to K8's every 8th score, a3mxutr within
-            2^-22 x |g| of a3base; every phase of
+            plain versions, a3notr bit-equal to a3base's transpose,
+            a3mxutr within 2^-22 x |g| of a3base, and a3base against K2
+            and a3nomax against K8's every 8th score within REL_TOL (K11
+            keeps the wmma mainloop, K2 and K8 run on wgmma: the fp32
+            sums differ in order, so the entries that differ are counted
+            and logged); every phase of
             perf/score_path_phases.py and a set of perf/micro.py modes
             (the library yardsticks, one per kernel, hier2_full and
             xla_full_pyramid) through their main(argv), each launching
@@ -66,8 +69,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             utils.profiling.trace, whose Chrome trace must be written and
             parse.
 
-The second-to-last line is the kernel table as one JSON object, the last
-line {"ok": true, "device": {...}}. It needs CUDA: without a card it
+The second-to-last line is the kernel table as one JSON object (``ms``
+and ``library_ms`` are device time, each timed call queued behind an
+untimed one; ``plain_ms`` brackets the plain version's call with one CUDA
+event pair), the last line {"ok": true, "device": {...}}. It needs CUDA: without a card it
 raises before printing any result.
 """
 
@@ -107,7 +112,7 @@ KERNELS = {
     "gather_rescore_pipelined": (CSRC + "gather_rescore_pipelined.cu",
                                  TPU + "1114"),
     "block_gmax": (CSRC + "plain_gmax.cu", TPU + "469"),
-    "scores": (CSRC + "score_tiles.cu", TPU + "1591"),
+    "scores": (CSRC + "scores.cu", TPU + "1591"),
     "score_gmax": (CSRC + "score_tiles.cu", TPU + "133"),
     "gmax_only": (CSRC + "score_tiles.cu", TPU + "254"),
     "gmax_phase": (CSRC + "gmax_phases.cu",
@@ -129,6 +134,27 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
     from openmatch_tpu_torch.perf import time_ms
 
     return time_ms(fn, torch.device("cuda", 0), warmup, reps)
+
+
+def kernel_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+    """Median device time of one call of ``fn`` in ms, for the kernel
+    table's ``ms`` and ``library_ms``: each timed call is queued behind an
+    untimed one, so its CUDA event pair brackets the card's work and not
+    the host's time to reach the launch (up to 0.4 ms per call while the
+    serving threads run)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def reset_launches(cm):
@@ -204,15 +230,26 @@ def rescore_bound(q: torch.Tensor, bid: torch.Tensor) -> tuple:
                  + bid.numel() * 8 * 4, 2 * bid.numel() * 8 * D)
 
 
+def compare_mainloops(name: str, got: torch.Tensor, want: torch.Tensor):
+    """K11 (the wmma mainloop of score_tile.cuh) against a kernel of the
+    wgmma mainloop (score_tile_sm90.cuh) on the same inputs: the same
+    products, summed in fp32 in another order, so within REL_TOL and not
+    bit-equal; logs how many entries differ."""
+    compare(name, got, want)
+    log(f"  {name}: {int((got != want).sum())} of {got.numel()} entries "
+        "not bit-equal (allowed: the fp32 sums run in another order)")
+
+
 def check_k11(cm, q: torch.Tensor, body: torch.Tensor, label: str) -> float:
     """K11's four variants against their plain versions over the 8-doc
-    body: a3base bit-equal to K2, a3notr to a3base transposed, a3nomax to
-    K8's every 8th score, a3mxutr within MXU_TR_REL x |g| of a3base.
-    Returns the largest max abs error against the plain versions."""
+    body: a3notr bit-equal to a3base transposed, a3mxutr within
+    MXU_TR_REL x |g| of a3base, a3base against K2 and a3nomax against
+    K8's every 8th score within REL_TOL (``compare_mainloops``). Returns
+    the largest max abs error against the plain versions."""
     err = 0.0
     base = cm.fused_gmax_phase(q, body, "a3base")
-    if not torch.equal(base, cm.fused_plain_gmax(q, body)):
-        raise AssertionError(f"K11 a3base != K2 ({label})")
+    compare_mainloops(f"K11 a3base vs K2 {label}", base,
+                      cm.fused_plain_gmax(q, body))
     for phase in cm.GMAX_PHASES:
         got = base if phase == "a3base" else cm.fused_gmax_phase(q, body,
                                                                  phase)
@@ -227,9 +264,9 @@ def check_k11(cm, q: torch.Tensor, body: torch.Tensor, label: str) -> float:
                                      f"beyond 2^-22 x |a3base| ({label})")
             log(f"  K11 a3mxutr {label}: {int((got != base).sum())} of "
                 f"{base.numel()} entries not bit-equal to a3base")
-        if phase == "a3nomax" and not torch.equal(
-                got, cm.fused_scores(q, body)[:, ::8]):
-            raise AssertionError(f"K11 a3nomax != K8[:, ::8] ({label})")
+        if phase == "a3nomax":
+            compare_mainloops(f"K11 a3nomax vs K8[:, ::8] {label}", got,
+                              cm.fused_scores(q, body)[:, ::8])
         del got
     return err
 
@@ -321,25 +358,25 @@ def phase_kernels(dev):
         s6 = cm.gather_rescore(q, prep.plain, bids, pipeline=True)
         compare(f"K6 rescore Q={Q}", s6, r3)
         t = {
-            "K1": (cuda_time_ms(lambda: cm.fused_plain_gmax(
+            "K1": (kernel_ms(lambda: cm.fused_plain_gmax(
                 q, prep.plain, emit_l1=8, nb_valid=nb_valid)),
                 cuda_time_ms(lambda: cm.plain_gmax_reference(
                     q, prep.plain, emit_l1=8, nb_valid=nb_valid))),
-            "K2": (cuda_time_ms(lambda: cm.fused_plain_gmax(q, prep.plain)),
+            "K2": (kernel_ms(lambda: cm.fused_plain_gmax(q, prep.plain)),
                    cuda_time_ms(lambda: cm.plain_gmax_reference(
                        q, prep.plain))),
-            "K4": (cuda_time_ms(lambda: cm.fused_plain_gmax_segs(
+            "K4": (kernel_ms(lambda: cm.fused_plain_gmax_segs(
                 q, segs, emit_l1=8, nb_valid=nb_valid)),
                 cuda_time_ms(lambda: cm.plain_gmax_segs_reference(
                     q, segs, emit_l1=8, nb_valid=nb_valid))),
-            "K3": (cuda_time_ms(lambda: cm.gather_rescore(
+            "K3": (kernel_ms(lambda: cm.gather_rescore(
                 q, prep.plain, bids)),
                 cuda_time_ms(lambda: cm.gather_rescore_reference(
                     q, prep.plain, bids))),
-            "K5": (cuda_time_ms(lambda: cm.gather_rescore(q, segs, bids)),
+            "K5": (kernel_ms(lambda: cm.gather_rescore(q, segs, bids)),
                    cuda_time_ms(lambda: cm.gather_rescore_reference(
                        q, segs, bids))),
-            "K6": (cuda_time_ms(lambda: cm.gather_rescore(
+            "K6": (kernel_ms(lambda: cm.gather_rescore(
                 q, prep.plain, bids, pipeline=True)),
                 cuda_time_ms(lambda: cm.gather_rescore_reference(
                     q, prep.plain, bids))),
@@ -348,8 +385,8 @@ def phase_kernels(dev):
         check_k11(cm, q, prep.plain, f"Q={Q}")
         for phase in cm.GMAX_PHASES:
             t[f"K11 {phase}"] = (
-                cuda_time_ms(lambda: cm.fused_gmax_phase(q, prep.plain,
-                                                         phase)),
+                kernel_ms(lambda: cm.fused_gmax_phase(q, prep.plain,
+                                                      phase)),
                 cuda_time_ms(lambda: cm.gmax_phase_reference(
                     q, prep.plain, phase), 1, 3))
         for key, (ms, plain_ms) in t.items():
@@ -373,9 +410,9 @@ def layout_kernels(cm, q, corpus, body, cb) -> dict:
     del g7
     compare(f"K8 scores Q={Q}", cm.fused_scores(q, body),
             cm.scores_reference(q, body))
-    t = {"K7": (cuda_time_ms(lambda: cm.fused_block_gmax(q, cb)),
+    t = {"K7": (kernel_ms(lambda: cm.fused_block_gmax(q, cb)),
                 cuda_time_ms(lambda: cm.block_gmax_reference(q, cb), 1, 3)),
-         "K8": (cuda_time_ms(lambda: cm.fused_scores(q, body)),
+         "K8": (kernel_ms(lambda: cm.fused_scores(q, body)),
                 cuda_time_ms(lambda: cm.scores_reference(q, body), 1, 3))}
     for tile in (2048, 1024):
         s9, g9 = cm.fused_score_gmax(q, corpus, tile)
@@ -388,11 +425,11 @@ def layout_kernels(cm, q, corpus, body, cb) -> dict:
             raise AssertionError(f"K10 != K9's maxima at tile {tile}")
         del s9, g9, rs, rg, g10
         t[f"K9 tile={tile}"] = (
-            cuda_time_ms(lambda: cm.fused_score_gmax(q, corpus, tile)),
+            kernel_ms(lambda: cm.fused_score_gmax(q, corpus, tile)),
             cuda_time_ms(lambda: cm.score_gmax_reference(q, corpus, tile),
                          1, 3))
         t[f"K10 tile={tile}"] = (
-            cuda_time_ms(lambda: cm.fused_gmax_only(q, corpus, tile)),
+            kernel_ms(lambda: cm.fused_gmax_only(q, corpus, tile)),
             cuda_time_ms(lambda: cm.gmax_only_reference(q, corpus, tile),
                          1, 3))
     return t
@@ -713,12 +750,12 @@ def phase_serve(dev) -> tuple:
         s3 = cm.gather_rescore(reps, prep.plain, bid)
         e3 = compare("full-scale K3 rescore", s3,
                      cm.gather_rescore_reference(reps, prep.plain, bid))
-        t1 = cuda_time_ms(lambda: cm.fused_plain_gmax(reps, prep.plain,
-                                                      emit_l1=8))
+        t1 = kernel_ms(lambda: cm.fused_plain_gmax(reps, prep.plain,
+                                                   emit_l1=8))
         t1p = cuda_time_ms(lambda: cm.plain_gmax_reference(
             reps, prep.plain, emit_l1=8), 1, 3)
         t_sel = cuda_time_ms(lambda: _select_groups(g1, K, l1=l1))
-        t3 = cuda_time_ms(lambda: cm.gather_rescore(reps, prep.plain, bid))
+        t3 = kernel_ms(lambda: cm.gather_rescore(reps, prep.plain, bid))
         t3p = cuda_time_ms(lambda: cm.gather_rescore_reference(
             reps, prep.plain, bid), 1, 5)
         nb = prep.plain.shape[0] // 8
@@ -745,8 +782,8 @@ def phase_serve(dev) -> tuple:
         s6 = cm.gather_rescore(reps, prep.plain, bid, pipeline=True)
         e6 = compare("full-scale K6 rescore", s6,
                      cm.gather_rescore_reference(reps, prep.plain, bid))
-        t6 = cuda_time_ms(lambda: cm.gather_rescore(reps, prep.plain, bid,
-                                                    pipeline=True))
+        t6 = kernel_ms(lambda: cm.gather_rescore(reps, prep.plain, bid,
+                                                 pipeline=True))
         t6p = t3p  # K6's plain version is K3's
         search_p = cuda_time_ms(lambda: cm.plain_topk_prepared(
             reps, prep, K, pipeline=True), 2, 10)
@@ -858,7 +895,7 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
         Q, nb = reps.shape[0], prep.cb.shape[0]
         Np = -(-index.shape[0] // 2048) * 2048
         mm, mm_note = mm_f32(reps.device)
-        lib8 = cuda_time_ms(lambda: mm(reps, prep.plain))
+        lib8 = kernel_ms(lambda: mm(reps, prep.plain))
         two_call = cuda_time_ms(lambda: mm(reps, prep.plain).view(
             Q, nb, 8).amax(-1))
         log(f"serve: library yardsticks at Q={Q}, N={nb * 8}: one torch.mm "
@@ -866,19 +903,19 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
             f"8 columns, {two_call:.4f} ms")
         torch.cuda.empty_cache()
         t = {
-            "block_gmax": (e7, cuda_time_ms(lambda: cm.fused_block_gmax(
+            "block_gmax": (e7, kernel_ms(lambda: cm.fused_block_gmax(
                 reps, prep.cb)), cuda_time_ms(lambda: cm.block_gmax_reference(
                     reps, prep.cb), 1, 2),
                 gmax_bound(reps, prep.cb.numel(), Q * nb), None),
-            "scores": (e8, cuda_time_ms(lambda: cm.fused_scores(
+            "scores": (e8, kernel_ms(lambda: cm.fused_scores(
                 reps, prep.plain)), cuda_time_ms(lambda: cm.scores_reference(
                     reps, prep.plain), 1, 2),
                 gmax_bound(reps, prep.plain.numel(), Q * nb * 8), lib8),
-            "score_gmax": (e9, cuda_time_ms(lambda: cm.fused_score_gmax(
+            "score_gmax": (e9, kernel_ms(lambda: cm.fused_score_gmax(
                 reps, index, 2048)), cuda_time_ms(
                     lambda: cm.score_gmax_reference(reps, index, 2048), 1, 2),
                 gmax_bound(reps, index.numel(), Q * (Np + Np // 8)), None),
-            "gmax_only": (e10, cuda_time_ms(lambda: cm.fused_gmax_only(
+            "gmax_only": (e10, kernel_ms(lambda: cm.fused_gmax_only(
                 reps, index, 2048)), cuda_time_ms(
                     lambda: cm.gmax_only_reference(reps, index, 2048), 1, 2),
                 gmax_bound(reps, index.numel(), Q * Np // 8), None),
@@ -940,11 +977,11 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
         s5 = cm.gather_rescore(reps, segs, bid)
         e5 = compare("full-scale K5 rescore", s5,
                      cm.gather_rescore_reference(reps, segs, bid))
-        t4 = cuda_time_ms(lambda: cm.fused_plain_gmax_segs(reps, segs,
-                                                           emit_l1=8))
+        t4 = kernel_ms(lambda: cm.fused_plain_gmax_segs(reps, segs,
+                                                        emit_l1=8))
         t4p = cuda_time_ms(lambda: cm.plain_gmax_segs_reference(
             reps, segs, emit_l1=8), 1, 3)
-        t5 = cuda_time_ms(lambda: cm.gather_rescore(reps, segs, bid))
+        t5 = kernel_ms(lambda: cm.gather_rescore(reps, segs, bid))
         t5p = cuda_time_ms(lambda: cm.gather_rescore_reference(
             reps, segs, bid), 1, 5)
         nb = sum(s.shape[0] for s in segs) // 8
@@ -1033,7 +1070,7 @@ def phase_perf(dev) -> tuple:
         plain = normal((nbp * 8, D), 0, dev)
         q = normal((PERF_Q, D), 1, dev)
         err = check_k11(cm, q, plain, f"Q={PERF_Q} NB={nbp}")
-        ms = {p: cuda_time_ms(lambda: cm.fused_gmax_phase(q, plain, p))
+        ms = {p: kernel_ms(lambda: cm.fused_gmax_phase(q, plain, p))
               for p in cm.GMAX_PHASES}
         plain_ms = cuda_time_ms(lambda: cm.gmax_phase_reference(
             q, plain, "a3base"), 1, 3)

@@ -3,10 +3,13 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``), all of them at once, and the objects are linked into one
 shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library's file name carries a hash of the sources, the
-headers and the flags, so an edited kernel is rebuilt and a stale build is
-never loaded. Nothing here runs at import time: the CPU tests import every
-module of the package on machines without ``nvcc``.
+``ctypes``. Linking needs nothing but ``nvcc``: the kernels that load
+through TMA look ``cuTensorMapEncodeTiled`` up in the loaded ``libcuda`` at
+run time (``cudaGetDriverEntryPoint``), so ``libcuda`` is not linked. The
+library's file name carries a hash of the sources, the headers and the
+flags, so an edited kernel is rebuilt and a stale build is never loaded.
+Nothing here runs at import time: the CPU tests import every module of the
+package on machines without ``nvcc``.
 
 The build directory defaults to ``build/kernels`` at the root of the
 checkout (listed in ``.gitignore``); ``OPENMATCH_KERNEL_BUILD_DIR``
@@ -129,7 +132,14 @@ def _compile_and_link(srcs, lib_path: Path) -> str:
     return log
 
 
+ENCODE_FAILED = 10000  # csrc/score_tile_sm90.cuh: + the CUresult
+
+
 def check(rc: int, name: str):
-    """Raise if a launch entry point reported a CUDA error."""
+    """Raise if a launch entry point reported a CUDA error or a failed
+    tensor-map encode."""
+    if rc >= ENCODE_FAILED:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {rc - ENCODE_FAILED}")
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {rc}")

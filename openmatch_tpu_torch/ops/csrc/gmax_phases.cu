@@ -13,7 +13,8 @@
 //            for a query-major store. Here the score tile is query-major
 //            (score_tile.cuh, Smem::s[TQ][LDC]), so no transpose is needed:
 //            this is K2's epilogue (max over 8 consecutive tile columns,
-//            row-major store), bit-equal to plain_gmax.cu with emit_l1 = 0.
+//            row-major store): plain_gmax.cu's values with emit_l1 = 0, up
+//            to the order of the fp32 sums (wmma here, wgmma there).
 //   a3notr   the same maxima stored doc-major                    [NB, Q]
 //            On the TPU this skipped the transpose; here the doc-major
 //            store is the one that changes layout. The maxima are taken as

@@ -1,6 +1,7 @@
-// One 64-query x 128-row fp32 score tile: the mainloop that plain_gmax.cu
-// (K1, K2, K4, K7) and score_tiles.cu (K8, K9, K10) share. Only which
-// corpus rows a tile reads (a row map) and what the epilogue keeps differ.
+// One 64-query x 128-row fp32 score tile: the wmma mainloop of
+// score_tiles.cu (K9, K10) and gmax_phases.cu (K11), its only users. Only
+// which corpus rows a tile reads (a row map) and what the epilogue keeps
+// differ. (K1, K2, K4, K7 and K8 run on score_tile_sm90.cuh.)
 //
 // The tile is computed from queries q [Q, D] bf16 and 128 corpus rows of D
 // bf16 each, with fp32 accumulation. D is consumed in 64-wide chunks

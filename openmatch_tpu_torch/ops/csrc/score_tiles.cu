@@ -1,19 +1,18 @@
-// score_tiles: full score tiles of the doc-major corpus, stored whole or
-// reduced over strided groups of 8 rows.
+// score_tiles: full score tiles of the doc-major corpus reduced over strided
+// groups of 8 rows, with or without the scores.
 //
 // Replaces openmatch_tpu/ops/pallas_mips.py
-//   `_score_only_kernel` (K8, via `fused_scores`): every score, doc-major;
 //   `_score_gmax_kernel` (K9, via `fused_score_gmax`): every score plus the
 //       strided group maxima within each `tile` of corpus rows;
 //   `_gmax_only_kernel` (K10, via `fused_gmax_only`): K9's group maxima
 //       only; the scores never leave the SM.
+// (K8, every score, is scores.cu, on the Hopper mainloop.)
 //
-// What it computes, for q [Q, D] bf16 and corpus [N, D] bf16 (fp32 sums):
-//   K8:      scores[q, n] = <q, corpus[n]>                          [Q, N]
-//   K9, K10: with gw = tile / 8 and Np = ceil(N / tile) * tile,
-//            s(q, n) = <q, corpus[n]> for n < N, -FLT_MAX for N <= n < Np
-//            scores[q, n] = s(q, n)                          [Q, Np]  (K9)
-//            gmax[q, t*gw + w] = max_{m<8} s(q, t*tile + m*gw + w)  [Q, Np/8]
+// What it computes, for q [Q, D] bf16 and corpus [N, D] bf16 (fp32 sums),
+// with gw = tile / 8 and Np = ceil(N / tile) * tile:
+//   s(q, n) = <q, corpus[n]> for n < N, -FLT_MAX for N <= n < Np
+//   scores[q, n] = s(q, n)                                   [Q, Np]  (K9)
+//   gmax[q, t*gw + w] = max_{m<8} s(q, t*tile + m*gw + w)           [Q, Np/8]
 // The member layout (group w of tile t holds rows w, w + gw, ..., w + 7*gw
 // of the tile) is the TPU kernel's, which took the 8 members as 8 gw-wide
 // column slabs of its score tile; the group and candidate ids of the hier2
@@ -25,26 +24,21 @@
 //
 // What bounds it on an H100: at Q = 64 each corpus byte feeds 64
 // multiply-adds, below the bf16 ridge, so K10 is bound by one read of the
-// corpus (as K1 is), and K8/K9 also write 4 * Q bytes of scores per corpus
-// row (2.26 GB at Q = 64 over 8.84M rows, beside 13.6 GB read).
+// corpus (as K1 is), and K9 also writes 4 * Q * 9/8 bytes of scores and
+// maxima per corpus row.
 //
-// What the design does about it: the CUDA-block shape and the mainloop are
-// K1's, shared through score_tile.cuh: 64 queries x 128 corpus rows, D in
-// 64-wide chunks through a 3-stage cp.async ring, wmma bf16 16x16x16 with
-// fp32 accumulation. Only the row map and the epilogue differ. Tile row r
-// holds corpus row base + (r / 16) * stride + r % 16:
-//   K8: stride 16, base = 128 * (CUDA tile): contiguous rows; the 64 x 128
-//       fp32 tile leaves shared memory as coalesced 16-byte stores (scalar
-//       ones when N % 4 breaks the row alignment).
-//   K9/K10: stride gw. A CUDA block owns tile t and the window of 16 groups
-//       w0 .. w0 + 15 and loads 8 runs of 16 contiguous rows,
-//       t*tile + m*gw + w0 + i (m < 8, i < 16), into tile rows m*16 + i, so
-//       a group's 8 members sit 16 columns apart in the score tile and its
-//       max is 8 shared-memory reads; K9 stores each run of 16 scores as
-//       four 16-byte stores.
-// Offsets are 64-bit (8.84M x 768 passes 2^32); the grid is flattened (69k
-// tiles exceed gridDim.y), the query tiles of one corpus tile adjacent in
-// launch order so the second finds its rows in L2.
+// What the design does about it: score_tile.cuh's mainloop, 64 queries x
+// 128 corpus rows per CUDA block, D in 64-wide chunks through a 3-stage
+// cp.async ring, wmma bf16 16x16x16 with fp32 accumulation; only the row
+// map and the epilogue are these kernels'. Tile row r holds corpus row
+// base + (r / 16) * gw + r % 16: a CUDA block owns tile t and the window of
+// 16 groups w0 .. w0 + 15 and loads 8 runs of 16 contiguous rows,
+// t*tile + m*gw + w0 + i (m < 8, i < 16), into tile rows m*16 + i, so a
+// group's 8 members sit 16 columns apart in the score tile and its max is
+// 8 shared-memory reads; K9 stores each run of 16 scores as four 16-byte
+// stores. Offsets are 64-bit (8.84M x 768 passes 2^32); the grid is
+// flattened (69k tiles exceed gridDim.y), the query tiles of one corpus
+// tile adjacent in launch order so the second finds its rows in L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,7 +55,7 @@ using namespace score_tile;
 constexpr int GROUP = 8;         // members of a group
 constexpr int RUN = TD / GROUP;  // contiguous rows per member run
 
-enum Mode { kScores = 0, kScoreGmax = 1, kGmaxOnly = 2 };
+enum Mode { kScoreGmax = 1, kGmaxOnly = 2 };
 
 // the corpus row of tile row r
 __device__ __forceinline__ long long row_of(long long base, long long stride,
@@ -84,8 +78,7 @@ struct StridedRows {
   }
 };
 
-// gw: the group stride (tile / 8; RUN for K8, whose "tile" is one CUDA
-// tile of 128 contiguous rows)
+// gw: the group stride, tile / 8
 template <int kMode>
 __global__ void __launch_bounds__(THREADS)
 score_tile_kernel(const __nv_bfloat16* __restrict__ q,
@@ -103,25 +96,6 @@ score_tile_kernel(const __nv_bfloat16* __restrict__ q,
   const long long base = t * GROUP * gw + w0;  // corpus row of tile row 0
   const int q0 = qt * TQ;
   compute(sm, q, Q, D, q0, StridedRows{corpus, base, gw, N, D});
-
-  if (kMode == kScores) {
-    // contiguous rows base + c; rows past N are not stored
-    const bool aligned = N % 4 == 0;  // then a row's float4s are aligned
-    for (int v = tid; v < TQ * (TD / 4); v += THREADS) {
-      const int r = v / (TD / 4);
-      const int c = (v % (TD / 4)) * 4;
-      const long long n = base + c;
-      if (q0 + r >= Q || n >= N) continue;
-      float* dst = scores + static_cast<size_t>(q0 + r) * N + n;
-      if (aligned) {
-        *reinterpret_cast<float4*>(dst) =
-            *reinterpret_cast<const float4*>(&sm.s[r][c]);
-      } else {
-        for (int e = 0; e < 4 && n + e < N; ++e) dst[e] = sm.s[r][c + e];
-      }
-    }
-    return;
-  }
 
   // rows past N (only in the last tile): -FLT_MAX before the store and max
   const float neg = -FLT_MAX;
@@ -185,12 +159,6 @@ int launch(const void* q, const void* corpus, void* scores, void* gmax,
 // Each launches on `stream` and returns cudaGetLastError(). Q, N >= 1,
 // D % 8 == 0, all pointers 16-byte aligned; `tile` must be a multiple of
 // 128 (the JAX package asks 1024).
-
-// K8: scores [Q, N] fp32.
-extern "C" int scores_launch(const void* q, const void* corpus, void* scores,
-                             int Q, int D, long long N, void* stream) {
-  return launch<kScores>(q, corpus, scores, nullptr, Q, D, N, RUN, stream);
-}
 
 // K9: scores [Q, Np] and gmax [Q, Np / 8] fp32, Np = ceil(N / tile) * tile.
 extern "C" int score_gmax_launch(const void* q, const void* corpus,

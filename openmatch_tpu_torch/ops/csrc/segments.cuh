@@ -27,8 +27,10 @@ struct SegTable {
 };
 
 // the segment holding global block b (0 <= b < blk0[n]): the last s with
-// blk0[s] <= b
-__device__ __forceinline__ int seg_of(const SegTable& t, long long b) {
+// blk0[s] <= b, in any table with the fields blk0 and n (SegTable here,
+// plain_gmax.cu's table of tensor maps)
+template <class Table>
+__device__ __forceinline__ int seg_of(const Table& t, long long b) {
   int lo = 0, hi = t.n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;

@@ -40,9 +40,11 @@ method reaches them there either):
   (``fused_score_gmax``, K9) or without them (``fused_gmax_only``, K10,
   the candidates then rescored from their corpus rows).
 
-K8, K9 and K10 are ``csrc/score_tiles.cu``; K7 is ``csrc/plain_gmax.cu``
-behind its own entry point, since on the card ``cb`` and the doc-major
-body are the same bytes.
+K8 is ``csrc/scores.cu``, K9 and K10 ``csrc/score_tiles.cu``; K7 is
+``csrc/plain_gmax.cu`` behind its own entry point, since on the card ``cb``
+and the doc-major body are the same bytes. K1/K2/K4/K7 and K8 run on the
+Hopper mainloop of ``csrc/score_tile_sm90.cuh`` (TMA loads, ``wgmma``,
+persistent blocks); K9-K11 on the older ``csrc/score_tile.cuh``.
 
 And the phase-ablation kernel of the perf scripts (``fused_gmax_phase``,
 K11, ``csrc/gmax_phases.cu``): K2's block maxima with one of four
@@ -766,7 +768,7 @@ def fused_scores(queries: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
     """Every score, doc-major: [Q, N] fp32 for plain [N, D].
 
     CPU tensors run ``scores_reference``; CUDA tensors (bf16) launch
-    ``csrc/score_tiles.cu`` (``scores_launch``)."""
+    ``csrc/scores.cu`` (``scores_launch``)."""
     _check_matrices("fused_scores", queries, plain, queries.shape[-1])
     if not queries.is_cuda:
         return scores_reference(queries, plain)

@@ -1,0 +1,113 @@
+"""Time variants of the block-max kernel (``ops/csrc/plain_gmax.cu``), made
+from this checkout's sources by text edits, in turns in one process on one
+card.
+
+    python -m openmatch_tpu_torch.perf.ablate_gmax [--rounds R] [--out DIR]
+
+Each variant is a copy of the package under DIR/<name> (default
+``build/ablate``, git-ignored) with its edits applied, and builds its own
+kernel library; the raw entry points are then called in turns, one launch
+per variant per round, the order reversed every other round, each launch
+timed by its own CUDA event pair (``parent_vs_change.timed``). An edit
+whose text is not in the source raises, so the variants follow the source.
+
+- ``as_is``: the source as it is.
+- ``no_stores``: the storer warps take each staged run and store nothing.
+- ``no_epilogue``: the consumers stage nothing and the storers store
+  nothing: the mainloop alone.
+- ``run1``, ``run4``, ``run8``: 1, 4 or 8 tiles per run of stores at
+  QN = 64 instead of 16.
+
+Cases: K7 and K1 (level 1 at fanout 8) at Q=64 over 8,841,816 x 768, and
+K1 at Q=512 over 2,211,840 rows (``parent_vs_change``'s inputs). Prints
+one line per case and one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import statistics
+import sys
+from pathlib import Path
+
+import torch
+
+from .parent_vs_change import cases, load_build, timed
+
+PKG = Path(__file__).resolve().parents[1]
+SRC = "ops/csrc/plain_gmax.cu"
+RUN16 = "constexpr int kRunTiles = QN == QN_NARROW ? 16 : 1;"
+STAGED = "        mbar_wait(&hand.staged, i & 1);\n"
+STORER_TOP = "        if (j + 1 < n) return;"
+CONSUMER_STAGE = "      float* const gs = staging + j * NBT;\n"
+
+VARIANTS = {
+    "as_is": [],
+    "no_stores": [(STAGED, STAGED + "        if (Q > 0) {\n"
+                   "          __syncwarp();\n"
+                   "          if (st % 32 == 0) mbar_arrive(&hand.freed);\n"
+                   "          ++i;\n"
+                   "          return;\n"
+                   "        }\n")],
+    "no_epilogue": [(STORER_TOP, "        if (Q > 0) return;\n" + STORER_TOP),
+                    (CONSUMER_STAGE, "      if (Q > 0) return;\n"
+                     + CONSUMER_STAGE)],
+    **{f"run{n}": [(RUN16, RUN16.replace("? 16 :", f"? {n} :"))]
+       for n in (1, 4, 8)},
+}
+CASES = ("K7 Q=64 8.8M", "K1 Q=64 8.8M", "K1 Q=512 2.2M")
+
+
+def make_variant(root: Path, edits) -> Path:
+    """A copy of the package under ``root`` with ``edits`` applied to
+    plain_gmax.cu."""
+    dst = root / "openmatch_tpu_torch"
+    if dst.exists():
+        shutil.rmtree(dst)
+    shutil.copytree(PKG, dst, ignore=shutil.ignore_patterns("__pycache__"))
+    src = dst / SRC
+    text = src.read_text()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"ablate_gmax: edit not found in {SRC}: {old!r}")
+        text = text.replace(old, new, 1)
+    src.write_text(text)
+    return root
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--out", default=str(PKG.parent / "build" / "ablate"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate_gmax: needs an NVIDIA card")
+    libs = {name: load_build(make_variant(Path(args.out) / name,
+                                          edits)).load_library()
+            for name, edits in VARIANTS.items()}
+    runs, keep = cases(torch.device("cuda", 0))
+    names = list(libs)
+    out = {}
+    with torch.inference_mode():
+        for case in CASES:
+            fn = runs[case]
+            for n in names:  # warm up
+                timed(fn, libs[n], case)
+            t = {n: [] for n in names}
+            for r in range(args.rounds):
+                for n in names if r % 2 == 0 else names[::-1]:
+                    t[n].append(timed(fn, libs[n], case)[0])
+            out[case] = {n: statistics.median(v) for n, v in t.items()}
+            print(f"{case}: " + ", ".join(f"{n} {ms:.4f} ms"
+                                         for n, ms in out[case].items()),
+                  flush=True)
+    del keep
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "rounds": args.rounds, "cases": out}))
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

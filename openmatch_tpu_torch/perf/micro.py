@@ -48,7 +48,9 @@ from . import (add_device_arg, device_of, first_call_s, normal, randint,
 D = 768
 GATHER_COLS = 8000  # gather_minor_ / gather_rows: columns per query
 ROWS_QB = 32        # gather_rows: queries per block
-CUDA_TILE = "CUDA tile 64 queries x 128 rows"
+CUDA_TILE = "CUDA tile 64 queries x 128 rows"  # K9, K10: wmma mainloop
+HOPPER_TILE = ("CUDA tile 128 rows x 64 or 256 queries, "  # K7, K8: wgmma
+               "persistent blocks")
 
 
 def parse(argv: Optional[List[str]]):
@@ -189,7 +191,7 @@ def build(mode: str, q: torch.Tensor, corpus: torch.Tensor, K: int,
         if len(parts) not in (2, 4):
             raise SystemExit(f"unknown mode {mode}")
         tiling = (f", tile_g={parts[2]}, tile_q={parts[3]} not used: "
-                  f"{CUDA_TILE}") if len(parts) == 4 else f", {CUDA_TILE}"
+                  f"{HOPPER_TILE}") if len(parts) == 4 else f", {HOPPER_TILE}"
         if parts[1] == "full":
             return (lambda: cm.block_topk(q, corpus, K)[0]), \
                 "block_topk (K7)" + tiling
@@ -197,7 +199,7 @@ def build(mode: str, q: torch.Tensor, corpus: torch.Tensor, K: int,
         cb = corpus[:NB * 8].view(NB, 8 * D)  # a view: no padded copy
         return (lambda: cm.fused_block_gmax(q, cb)), "K7" + tiling
     if mode == "scores_kernel":
-        return (lambda: cm.fused_scores(q, corpus)), f"K8, {CUDA_TILE}"
+        return (lambda: cm.fused_scores(q, corpus)), f"K8, {HOPPER_TILE}"
     if mode in ("score_full", "block_prep_full"):
         with_plain = mode == "score_full"
         prep = cm.prepare_block_corpus(corpus, with_plain=with_plain)

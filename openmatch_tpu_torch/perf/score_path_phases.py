@@ -56,7 +56,7 @@ PHASES = ("a1", "a2", "a3", "a3l1", "a3base", "a3notr", "a3mxutr",
 # ARG5 on these phases sets a TPU tiling only: refused, with the reason
 TPU_TILING_ARG5 = {
     "a3tile": "tile_g (corpus blocks per TPU grid step); the CUDA kernel's "
-              "tile is fixed at 16 blocks x 64 queries",
+              "tile is fixed at 16 blocks x 64 or 256 queries",
     "resc": "kt (selected blocks per TPU grid step); the CUDA kernel takes "
             "one block per warp",
     "resc0": "kt (selected blocks per TPU grid step); the CUDA kernel takes "
@@ -124,7 +124,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                f"{ms:.3f} ms", ms)
             rate = plain.numel() * 2 / (ms / 1000)
             return _report(
-                f"a3tile (CUDA tile 16 blocks x 64 queries): {ms:.3f} ms, "
+                f"a3tile (CUDA tile 16 blocks x {64 if Q <= 64 else 256} "
+                f"queries): {ms:.3f} ms, "
                 f"corpus stream {rate / 1e9:.0f} GB/s "
                 f"({rate / HBM_BYTES_PER_S * 100:.0f}% of the H100's "
                 f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM peak)", ms,

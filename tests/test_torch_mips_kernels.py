@@ -9,10 +9,14 @@ compared with the plain versions in the ``cuda``-marked tests, which skip
 without a card. The card's machine has no JAX: there they run alone with
 ``python -m pytest --noconftest tests/test_torch_mips_kernels.py -m cuda``."""
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from openmatch_tpu_torch.ops import _build
 from openmatch_tpu_torch.ops import cuda_mips as cm
 
 try:
@@ -109,6 +113,30 @@ def test_wrappers_reject_bad_windows_and_shapes():
         cm.fused_plain_gmax(q, plain, emit_l1=3)
     with pytest.raises(ValueError, match="shapes"):
         cm.gather_rescore(q, plain, torch.zeros(3, 4, dtype=torch.int32))
+
+
+def _c_kind(param: str):
+    """The ctypes type an ``extern "C"`` parameter needs."""
+    if "*" in param:
+        return ctypes.c_void_p
+    if "long long" in param:
+        return ctypes.c_longlong
+    assert re.match(r"(const\s+)?int\s+\w+$", param.strip()), param
+    return ctypes.c_int
+
+
+def test_c_entry_points_match_signatures():
+    """Every ``extern "C"`` entry point of ops/csrc/*.cu has the number and
+    kinds of parameters (pointer / int / long long) that ``_build`` hands
+    ctypes: a drift shows on the card only as a truncated pointer."""
+    found = {}
+    for src in sorted(_build.SRC_DIR.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', text):
+            assert name not in found, f"{name} defined twice"
+            found[name] = tuple(_c_kind(p) for p in params.split(","))
+    assert found == dict(_build.SIGNATURES)
 
 
 # ---- on the card ----------------------------------------------------------
@@ -221,7 +249,7 @@ def test_cuda_gather_rescore_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q", [70, 128])
+@pytest.mark.parametrize("Q", [1, 70, 128, 512])
 def test_cuda_block_gmax_matches_plain(cuda_device, Q):
     """K7 over a cb view of 4099 blocks (not a multiple of 16) against its
     slab-wise plain version, and bit-equal to K2 over the same bytes."""
@@ -266,3 +294,126 @@ def test_cuda_score_gmax_and_gmax_only_match_plain(cuda_device, tile, N):
     assert_kernel_close(s, rs)
     assert_kernel_close(g, rg)
     assert torch.equal(g10, g)
+
+
+# The Hopper mainloop (csrc/score_tile_sm90.cuh): Q takes the resident
+# 64-query tile (1, 64), the streamed 256-query tile (70, 256) and two of
+# them (257, 512); D = 776 leaves the last 64-deep chunk partly past D.
+CARD_Q = [1, 64, 70, 256, 257, 512]
+CARD_D = [64, 768, 776]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", CARD_D)
+@pytest.mark.parametrize("Q", CARD_Q)
+def test_cuda_plain_gmax_query_and_depth_shapes(cuda_device, Q, D):
+    """K1 over 2051 blocks (the last tile holds 3) with l1 and pad blocks
+    masked, against the plain version; K2 and K7 over the same rows
+    bit-equal to each other."""
+    body = card_data(cuda_device, 40, 8 * 2051, D)
+    q = card_data(cuda_device, 41, Q, D)
+    g, l1 = cm.fused_plain_gmax(q, body, emit_l1=8, nb_valid=2040)
+    want, want_l1 = cm.plain_gmax_reference(q, body, emit_l1=8,
+                                            nb_valid=2040)
+    assert_kernel_close(g, want)
+    assert_kernel_close(l1, want_l1)
+    g2 = cm.fused_plain_gmax(q, body)
+    assert_kernel_close(g2, cm.plain_gmax_reference(q, body))
+    assert torch.equal(g2[:, :2040], g[:, :2040])
+    assert torch.equal(g2, cm.fused_block_gmax(
+        q, cm.prepare_block_corpus(body).cb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [64, 257])
+@pytest.mark.parametrize("f", [1, 2, 4, 8, 16])
+def test_cuda_plain_gmax_window_mid_tile(cuda_device, Q, f):
+    """A window [1001, 3054) that starts and ends mid-tile, with l1 and
+    nb_valid inside it. Every row outside the window scores far above the
+    rest: one read into a stored maximum or an l1 max shows."""
+    body = card_data(cuda_device, 42, 8 * 4099, 768)
+    q = card_data(cuda_device, 43, Q, 768).abs()
+    lo, n = 1001, 2053
+    body[:lo * 8] = 1.0
+    body[(lo + n) * 8:] = 1.0
+    g, l1 = cm.fused_plain_gmax(q, body, blk_lo=lo, n_blk=n, emit_l1=f,
+                                nb_valid=lo + n - 11)
+    want, want_l1 = cm.plain_gmax_reference(q, body, blk_lo=lo, n_blk=n,
+                                            emit_l1=f, nb_valid=lo + n - 11)
+    assert_kernel_close(g, want)
+    assert_kernel_close(l1, want_l1)
+    assert g.max().item() < q.float().sum(1).min().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [70, 512])
+@pytest.mark.parametrize("n_segs", [3, 64])
+def test_cuda_plain_gmax_segs_counts(cuda_device, Q, n_segs):
+    """K4 over 3 and MAX_SEGS = 64 segments of 16-256 blocks (the last
+    ragged, pads masked), against the plain version and bit-equal to K1
+    over the concatenated buffer."""
+    rng = np.random.RandomState(n_segs)
+    sizes = [16 * int(x) for x in rng.randint(1, 17, n_segs - 1)] + [37]
+    segs = tuple(card_data(cuda_device, 50 + i, 8 * nb, 768)
+                 for i, nb in enumerate(sizes))
+    q = card_data(cuda_device, 49, Q, 768)
+    nb_valid = sum(sizes) - 5
+    got = cm.fused_plain_gmax_segs(q, segs, emit_l1=8, nb_valid=nb_valid)
+    want = cm.plain_gmax_segs_reference(q, segs, emit_l1=8,
+                                        nb_valid=nb_valid)
+    one = cm.fused_plain_gmax(q, torch.cat(segs), emit_l1=8,
+                              nb_valid=nb_valid)
+    for a, b, c in zip(got, want, one):
+        assert_kernel_close(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [64, 70])
+def test_cuda_plain_gmax_all_negative(cuda_device, Q):
+    """Every real score below 0 and zero pad rows (score 0) masked: the
+    masked blocks are finfo.min in gmax and win no l1 maximum."""
+    body = card_data(cuda_device, 44, 8 * 1003, 768).abs().neg()
+    q = card_data(cuda_device, 45, Q, 768).abs()
+    body[8 * 990:] = 0
+    g, l1 = cm.fused_plain_gmax(q, body, emit_l1=8, nb_valid=990)
+    want, want_l1 = cm.plain_gmax_reference(q, body, emit_l1=8,
+                                            nb_valid=990)
+    assert_kernel_close(g, want)
+    assert_kernel_close(l1, want_l1)
+    assert (g[:, 990:] == cm.NEG).all() and (g[:, :990] < 0).all()
+    live = l1[:, :124]  # groups 124, 125 hold masked blocks only
+    assert ((live > cm.NEG) & (live < 0)).all()
+    assert (l1[:, 124:] == cm.NEG).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 776])
+@pytest.mark.parametrize("N", [8 * 2051, 8 * 2051 + 2, 8 * 2051 + 7])
+@pytest.mark.parametrize("Q", [1, 64, 257])
+def test_cuda_scores_shapes(cuda_device, Q, N, D):
+    """K8 with a ragged last tile, N % 4 in {0, 2, 3} (the 16-byte and the
+    4-byte stores), the resident and the streamed query tile, and D past
+    the last whole chunk."""
+    c = card_data(cuda_device, 46, N, D)
+    q = card_data(cuda_device, 47, Q, D)
+    assert_kernel_close(cm.fused_scores(q, c), cm.scores_reference(q, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 32, 2048])
+@pytest.mark.parametrize("Q", [64, 257])
+def test_cuda_depth_extremes(cuda_device, Q, D):
+    """D = 8 and 32: the 64-deep chunk lies mostly past D (zero-filled).
+    D = 2048: a 64-query tile of 256 KB does not fit shared memory, so the
+    query chunks stream with the corpus chunks. K1 and K8 against their
+    plain versions."""
+    body = card_data(cuda_device, 60, 8 * 611, D)
+    q = card_data(cuda_device, 61, Q, D)
+    g, l1 = cm.fused_plain_gmax(q, body, emit_l1=8, nb_valid=600)
+    want, want_l1 = cm.plain_gmax_reference(q, body, emit_l1=8,
+                                            nb_valid=600)
+    assert_kernel_close(g, want)
+    assert_kernel_close(l1, want_l1)
+    assert_kernel_close(cm.fused_scores(q, body),
+                        cm.scores_reference(q, body))

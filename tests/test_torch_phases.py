@@ -248,9 +248,11 @@ def cuda_device():
 @pytest.mark.parametrize("Qc,NB", [(70, 4099), (128, 512)])
 def test_cuda_gmax_phase_matches_plain(cuda_device, Qc, NB):
     """K11's four variants against the plain version (REL 1e-3 of the
-    largest score: bf16 inputs, fp32 sums in another order); a3base
-    bit-equal to K2, a3notr to its transpose, a3nomax to K8's every 8th
-    score, a3mxutr within 2^-22 of a3base."""
+    largest score: bf16 inputs, fp32 sums in another order); a3notr
+    bit-equal to a3base's transpose, a3mxutr within 2^-22 of a3base;
+    a3base against K2 and a3nomax against K8's every 8th score within the
+    same REL: K11 keeps the wmma mainloop while K2 and K8 run on wgmma, so
+    their fp32 sums run in another order."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     plain = torch.randn(8 * NB, 768, generator=g, device=cuda_device
                         ).to(torch.bfloat16)
@@ -259,12 +261,14 @@ def test_cuda_gmax_phase_matches_plain(cuda_device, Qc, NB):
     before = cm.fused_gmax_phase.launches
     got = {p: cm.fused_gmax_phase(q, plain, p) for p in cm.GMAX_PHASES}
     assert cm.fused_gmax_phase.launches == before + 4
-    for p, x in got.items():
-        want = cm.gmax_phase_reference(q, plain, p)
+    def close(x, want):
         err = (x - want).abs().max().item()
         assert err <= 1e-3 * want.abs().max().item()
-    assert torch.equal(got["a3base"], cm.fused_plain_gmax(q, plain))
+
+    for p, x in got.items():
+        close(x, cm.gmax_phase_reference(q, plain, p))
+    close(got["a3base"], cm.fused_plain_gmax(q, plain))
     assert torch.equal(got["a3notr"], got["a3base"].T)
-    assert torch.equal(got["a3nomax"], cm.fused_scores(q, plain)[:, ::8])
+    close(got["a3nomax"], cm.fused_scores(q, plain)[:, ::8])
     assert ((got["a3mxutr"] - got["a3base"]).abs()
             <= 2.0**-22 * got["a3base"].abs()).all()
