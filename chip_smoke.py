@@ -28,14 +28,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             exactness audit against a chunked fp32 top-k over the whole
             device index must pass. Then each kernel is compared with its
             plain version once more at the exact shapes the requests gave
-            it.
+            it; the rescore kernels K3 and K5 also at the all-distinct
+            selection (64 x 1,000 blocks of a seeded permutation of the
+            index's 1,105,227, none repeated: every one read from HBM),
+            each selection with its distinct count, queries per block,
+            kernel time (behind an untimed call, and behind a device spin:
+            the card's work alone), plain time and bound.
             The segmented index: the same rows rebuilt as 6 separately
             allocated segments behind a Searcher(k=1000, n_segs=6) and a
             second RetrievalService answer the same 8 concurrent requests;
             the segment kernels' counters must rise (and the single-buffer
             kernels' stay at 0), the answers must equal the single-buffer
             answers above the k-th score's tie band and pass the fp32
-            audit. At Q=64, plain_topk_prepared with pipeline=True (the
+            audit, and K5 must equal K3 bit for bit at both selections.
+            At Q=64, plain_topk_prepared with pipeline=True (the
             pipelined rescore kernel must launch) and with c_split=4 must
             equal the default above the tie band. Each segment kernel and
             the pipelined kernel are compared with their plain versions at
@@ -65,9 +71,14 @@ Phases, in order; any failure raises and the script exits non-zero:
             perf/score_path_phases.py and a set of perf/micro.py modes
             (the library yardsticks, one per kernel, hier2_full and
             xla_full_pyramid) through their main(argv), each launching
-            exactly the kernels it names; one K11 launch under
+            exactly the kernels it names; last, one K11 launch under
             utils.profiling.trace, whose Chrome trace must be written and
             parse.
+6. stages   after every timing (a profiler session can slow the host's
+            later launches), the rescore's device time by stage
+            (torch.profiler) for K3 and K5 at the selections the serve
+            phase timed, replayed over seeded rows of the index's shape
+            (the stages' work depends on the block ids, not the values).
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -109,6 +120,9 @@ KERNELS = {
     "gather_rescore": (CSRC + "gather_rescore.cu", TPU + "970"),
     "plain_gmax_segs": (CSRC + "plain_gmax.cu", TPU + "732"),
     "gather_rescore_seg": (CSRC + "gather_rescore.cu", TPU + "1013"),
+    # K3 and K5 again at the all-distinct selection (no block repeats)
+    "gather_rescore_distinct": (CSRC + "gather_rescore.cu", TPU + "970"),
+    "gather_rescore_seg_distinct": (CSRC + "gather_rescore.cu", TPU + "1013"),
     "gather_rescore_pipelined": (CSRC + "gather_rescore_pipelined.cu",
                                  TPU + "1114"),
     "block_gmax": (CSRC + "plain_gmax.cu", TPU + "469"),
@@ -136,25 +150,17 @@ def cuda_time_ms(fn, warmup: int = 3, reps: int = 15) -> float:
     return time_ms(fn, torch.device("cuda", 0), warmup, reps)
 
 
-def kernel_ms(fn, warmup: int = 3, reps: int = 15) -> float:
+def kernel_ms(fn, warmup: int = 3, reps: int = 15, queue: str = "call") -> float:
     """Median device time of one call of ``fn`` in ms, for the kernel
     table's ``ms`` and ``library_ms``: each timed call is queued behind an
-    untimed one, so its CUDA event pair brackets the card's work and not
+    untimed one (``perf.event_ms``), so its CUDA event pair does not hold
     the host's time to reach the launch (up to 0.4 ms per call while the
-    serving threads run)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        fn()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    serving threads run), but does hold the host's enqueue of the call
+    where that takes longer than the card's run of the call before.
+    ``queue="spin"`` leaves that out too: the card's work alone."""
+    from openmatch_tpu_torch.perf import time_ms
+
+    return time_ms(fn, torch.device("cuda", 0), warmup, reps, queue)
 
 
 def reset_launches(cm):
@@ -228,6 +234,87 @@ def rescore_bound(q: torch.Tensor, bid: torch.Tensor) -> tuple:
     distinct = torch.unique(bid).numel()
     return bound(distinct * 8 * D * 2 + q.numel() * 2 + bid.numel() * 4
                  + bid.numel() * 8 * 4, 2 * bid.numel() * 8 * D)
+
+
+def distinct_selection(nb: int, dev) -> torch.Tensor:
+    """[MAX_BATCH, K] int32 block ids from a seeded permutation of all nb
+    blocks: no block repeats, so the rescore must read every selected
+    block from HBM (its worst case; the serving selection repeats)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    perm = torch.randperm(nb, generator=g, device=dev)
+    return perm[:MAX_BATCH * K].view(MAX_BATCH, K).to(torch.int32)
+
+
+def rescore_row(cm, name: str, reps, body, bid, replay: list) -> tuple:
+    """K3 (single buffer) or K5 (segments) at one selection: compared with
+    the plain version, timed beside it, and bounded over the distinct
+    blocks; (name, queries, ids, segment count) joins ``replay`` for the
+    stage breakdown. Returns (err, ms, plain ms, (bound ms, bound by),
+    None)."""
+    err = compare(name, cm.gather_rescore(reps, body, bid),
+                  cm.gather_rescore_reference(reps, body, bid))
+    ms = kernel_ms(lambda: cm.gather_rescore(reps, body, bid))
+    spin = kernel_ms(lambda: cm.gather_rescore(reps, body, bid),
+                     queue="spin")
+    plain_ms = cuda_time_ms(lambda: cm.gather_rescore_reference(
+        reps, body, bid), 1, 5)
+    b = rescore_bound(reps, bid)
+    _, per_block = torch.unique(torch.cat([row.unique() for row in bid]),
+                                return_counts=True)  # queries per block
+    hist = torch.bincount(per_block, minlength=65)
+    log(f"serve: {name}: {per_block.numel()} distinct of {bid.numel()} "
+        f"selected blocks ({int(hist[1])} of 1 query, {int(hist[2])} of 2, "
+        f"{int(hist[3:].sum())} of 3 to {int(per_block.max())}; blocks by "
+        f"queries 1-64: {hist[1:].tolist()}), kernel {ms:.4f} ms behind an "
+        f"untimed call, {spin:.4f} ms behind a device spin, plain "
+        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    segs = len(body) if isinstance(body, tuple) else 1
+    replay.append((name, reps.clone(), bid.clone(), segs))
+    return err, ms, plain_ms, b, None
+
+
+def phase_stages(dev, replay: list):
+    """Each replayed rescore's device time by stage, over seeded rows of
+    the serving index's shape cut as the serve phase cut it."""
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.perf import normal
+
+    with torch.inference_mode():
+        rows = normal((N_MSMARCO, D), 3, dev)
+        bodies = {1: cm.prepare_plain_corpus(rows).plain}
+        for _, _, _, segs in replay:
+            if segs not in bodies:
+                bodies[segs] = cm.prepare_plain_corpus(rows, segs).plain
+        for name, reps, bid, segs in replay:
+            log(f"stages: {name}, device us per call by stage "
+                "(torch.profiler): " + stage_us(
+                    lambda: cm.gather_rescore(reps, bodies[segs], bid)))
+    del rows, bodies
+    torch.cuda.empty_cache()
+
+
+def stage_us(fn, calls: int = 5) -> str:
+    """The mean device time per call of ``fn`` of each kernel and memset
+    it launches, from ``torch.profiler``: the rescore's stages."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        name = re.search(r"\w+_kernel|Memset", e.key)
+        dt = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if name and dt:
+            parts.append(f"{name.group(0)} {dt / calls:.1f}")
+    return ", ".join(parts) or "no device time in the trace"
 
 
 def compare_mainloops(name: str, got: torch.Tensor, want: torch.Tensor):
@@ -638,7 +725,7 @@ def answers_tensor(results, doc_pos, device):
     return s, i
 
 
-def phase_serve(dev) -> tuple:
+def phase_serve(dev, replay: list) -> tuple:
     from openmatch_tpu_torch.drivers.serve import RetrievalService
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
@@ -747,26 +834,23 @@ def phase_serve(dev) -> tuple:
                  compare("full-scale K1 l1", l1, rl1))
         del r1, rl1
         bid = _select_groups(g1, K, l1=l1).to(torch.int32)
-        s3 = cm.gather_rescore(reps, prep.plain, bid)
-        e3 = compare("full-scale K3 rescore", s3,
-                     cm.gather_rescore_reference(reps, prep.plain, bid))
+        nb = prep.plain.shape[0] // 8
+        r3 = rescore_row(cm, "full-scale K3, serving selection", reps,
+                         prep.plain, bid, replay)
+        r3d = rescore_row(cm, "full-scale K3, all-distinct selection", reps,
+                          prep.plain, distinct_selection(nb, reps.device),
+                          replay)
         t1 = kernel_ms(lambda: cm.fused_plain_gmax(reps, prep.plain,
                                                    emit_l1=8))
         t1p = cuda_time_ms(lambda: cm.plain_gmax_reference(
             reps, prep.plain, emit_l1=8), 1, 3)
         t_sel = cuda_time_ms(lambda: _select_groups(g1, K, l1=l1))
-        t3 = kernel_ms(lambda: cm.gather_rescore(reps, prep.plain, bid))
-        t3p = cuda_time_ms(lambda: cm.gather_rescore_reference(
-            reps, prep.plain, bid), 1, 5)
-        nb = prep.plain.shape[0] // 8
         b1 = gmax_bound(reps, prep.plain.numel(),
                         MAX_BATCH * (nb + -(-nb // 8)))
-        b3 = rescore_bound(reps, bid)
         log(f"serve: at Q={MAX_BATCH}, N={n_docs}: K1 {t1:.4f} ms "
             f"(plain {t1p:.4f}, bound {b1[0]:.4f}, {b1[1]}), selection "
-            f"{t_sel:.4f} ms, K3 {t3:.4f} ms (plain {t3p:.4f}, bound "
-            f"{b3[0]:.4f} over {torch.unique(bid).numel()} distinct blocks), "
-            f"whole search {search_ms:.4f} ms")
+            f"{t_sel:.4f} ms, K3 {r3[1]:.4f} ms, whole search "
+            f"{search_ms:.4f} ms")
 
         # the pipelined rescore and the sequential corpus windows, at Q=64
         reset_launches(cm)
@@ -784,7 +868,7 @@ def phase_serve(dev) -> tuple:
                      cm.gather_rescore_reference(reps, prep.plain, bid))
         t6 = kernel_ms(lambda: cm.gather_rescore(reps, prep.plain, bid,
                                                  pipeline=True))
-        t6p = t3p  # K6's plain version is K3's
+        t6p = r3[2]  # K6's plain version is K3's
         search_p = cuda_time_ms(lambda: cm.plain_topk_prepared(
             reps, prep, K, pipeline=True), 2, 10)
         search_c = cuda_time_ms(lambda: cm.plain_topk_prepared(
@@ -797,16 +881,19 @@ def phase_serve(dev) -> tuple:
 
     layout_table = serve_layouts(index, reps, s_k, i_k, cm)
     seg_table = serve_segmented(dev, model, tok, index, doc_ids, doc_pos,
-                                requests, flat_res, reps, cm)
+                                requests, flat_res, reps, cm, replay)
     del index
     torch.cuda.empty_cache()
     rows = {
         "plain_gmax": (e1, t1, t1p, b1, None),
-        "gather_rescore": (e3, t3, t3p, b3, None),
-        "gather_rescore_pipelined": (e6, t6, t6p, b3, None),
+        "gather_rescore": r3, "gather_rescore_distinct": r3d,
+        "gather_rescore_pipelined": (e6, t6, t6p, r3[3], None),
         **seg_table["timing"], **layout_table["timing"]}
     launches.update(seg_table["launches"])
     launches.update(layout_table["launches"])
+    # the all-distinct rows time the main path's kernels at another selection
+    launches["gather_rescore_distinct"] = launches["gather_rescore"]
+    launches["gather_rescore_seg_distinct"] = launches["gather_rescore_seg"]
     return rows, launches
 
 
@@ -929,11 +1016,12 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
 
 
 def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
-                    flat_res, reps, cm) -> dict:
+                    flat_res, reps, cm, replay: list) -> dict:
     """The same index as N_SEGS separately allocated segments behind a
     Searcher(n_segs) and its own RetrievalService, driven by the same
     requests; returns the segment kernels' launches and (err, ms, plain
-    ms, (bound ms, bound by), library ms)."""
+    ms, (bound ms, bound by), library ms). K5's selections join
+    ``replay``."""
     from openmatch_tpu_torch.drivers.serve import RetrievalService
     from openmatch_tpu_torch.ops.mips import Searcher, _select_groups
 
@@ -974,29 +1062,35 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
                  compare("full-scale K4 l1", l4, rl4))
         del r4, rl4
         bid = _select_groups(g4, K, l1=l4).to(torch.int32)
-        s5 = cm.gather_rescore(reps, segs, bid)
-        e5 = compare("full-scale K5 rescore", s5,
-                     cm.gather_rescore_reference(reps, segs, bid))
+        nb = sum(s.shape[0] for s in segs) // 8
+        distinct = distinct_selection(nb, reps.device)
+        r5 = rescore_row(cm, "full-scale K5, serving selection", reps, segs,
+                         bid, replay)
+        r5d = rescore_row(cm, "full-scale K5, all-distinct selection", reps,
+                          segs, distinct, replay)
+        for sel, b in (("serving", bid), ("all-distinct", distinct)):
+            if not torch.equal(cm.gather_rescore(reps, segs, b),
+                               cm.gather_rescore(reps, index[:nb * 8], b)):
+                raise AssertionError(f"K5 over {N_SEGS} segments != K3 over "
+                                     f"one buffer at the {sel} selection")
+        log(f"serve: K5 over {N_SEGS} segments equals K3 over one buffer bit "
+            "for bit at both selections")
         t4 = kernel_ms(lambda: cm.fused_plain_gmax_segs(reps, segs,
                                                         emit_l1=8))
         t4p = cuda_time_ms(lambda: cm.plain_gmax_segs_reference(
             reps, segs, emit_l1=8), 1, 3)
-        t5 = kernel_ms(lambda: cm.gather_rescore(reps, segs, bid))
-        t5p = cuda_time_ms(lambda: cm.gather_rescore_reference(
-            reps, segs, bid), 1, 5)
-        nb = sum(s.shape[0] for s in segs) // 8
         b4 = gmax_bound(reps, sum(s.numel() for s in segs),
                         MAX_BATCH * (nb + -(-nb // 8)))
-        b5 = rescore_bound(reps, bid)
         log(f"serve: segmented, at Q={MAX_BATCH}, N={n_docs}: K4 {t4:.4f} ms "
-            f"(plain {t4p:.4f}, bound {b4[0]:.4f}), K5 {t5:.4f} ms (plain "
-            f"{t5p:.4f}, bound {b5[0]:.4f}), whole search {search_ms:.4f} ms")
+            f"(plain {t4p:.4f}, bound {b4[0]:.4f}), K5 {r5[1]:.4f} ms, whole "
+            f"search {search_ms:.4f} ms")
     del searcher, service, segs, g4, l4
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in ("plain_gmax_segs",
                                                   "gather_rescore_seg")},
             "timing": {"plain_gmax_segs": (e4, t4, t4p, b4, None),
-                       "gather_rescore_seg": (e5, t5, t5p, b5, None)}}
+                       "gather_rescore_seg": r5,
+                       "gather_rescore_seg_distinct": r5d}}
 
 
 # score_path_phases phase / micro mode -> the kernels it must launch (by
@@ -1056,8 +1150,9 @@ def drive(name: str, fn, want: set, cm) -> dict:
 
 def phase_perf(dev) -> tuple:
     """K11 at the script's default size against its plain versions and
-    K2/K8, timed; one launch traced; then every score_path_phases phase
-    and the MICRO_KERNELS modes through their main(argv). Returns K11's
+    K2/K8, timed; then every score_path_phases phase and the
+    MICRO_KERNELS modes through their main(argv); last, one K11 launch
+    traced. Returns K11's
     row (err, ms, plain ms, (bound ms, bound by), library ms) and the
     launches of the perf path's run."""
     from openmatch_tpu_torch.ops import cuda_mips as cm
@@ -1078,10 +1173,6 @@ def phase_perf(dev) -> tuple:
         log(f"perf: K11 at Q={PERF_Q}, NB={nbp}: "
             + ", ".join(f"{p} {t:.4f} ms" for p, t in ms.items())
             + f"; plain {plain_ms:.4f} ms; bound {b11[0]:.4f} ms ({b11[1]})")
-        trace_k11(cm, q, plain, profiling)
-        del plain, q
-    torch.cuda.empty_cache()
-
     launches = dict.fromkeys(read_launches(cm), 0)
     for phase, want in SPP_KERNELS.items():
         got = drive(f"score_path_phases {phase}", lambda: spp.main([phase]),
@@ -1089,11 +1180,15 @@ def phase_perf(dev) -> tuple:
         launches = {n: launches[n] + got[n] for n in launches}
     for mode, want in MICRO_KERNELS.items():
         drive(f"micro {mode}", lambda: micro.main([mode]), want, cm)
+    with torch.inference_mode():  # a profiler session last: after the times
+        trace_k11(cm, q, plain, profiling)
+        del plain, q
+    torch.cuda.empty_cache()
     return ({"gmax_phase": (err, ms["a3base"], plain_ms, b11, None)},
             {"gmax_phase": launches["gmax_phase"]})
 
 
-PHASES = ("device", "build", "kernels", "serve", "perf")
+PHASES = ("device", "build", "kernels", "serve", "perf", "stages")
 
 
 def main(argv=None) -> int:
@@ -1116,12 +1211,17 @@ def main(argv=None) -> int:
         phase_build()
     if "kernels" in phases:
         phase_kernels(dev)
-    rows, launches = {}, {}
-    for name, run in (("serve", phase_serve), ("perf", phase_perf)):
-        if name in phases:
-            r, n = run(dev)
-            rows.update(r)
-            launches.update(n)
+    rows, launches, replay = {}, {}, []
+    if "serve" in phases:
+        r, n = phase_serve(dev, replay)
+        rows.update(r)
+        launches.update(n)
+    if "perf" in phases:
+        r, n = phase_perf(dev)
+        rows.update(r)
+        launches.update(n)
+    if "stages" in phases and replay:
+        phase_stages(dev, replay)
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -38,7 +38,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "plain_gmax_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _LL, _I,
                           _P),
-    "gather_rescore_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _P),
+    "gather_rescore_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _P),
     "gather_rescore_pipelined_launch": (_P, _P, _P, _P, _I, _I, _I, _LL, _P),
     "block_gmax_launch": (_P, _P, _P, _I, _I, _LL, _P),
     "scores_launch": (_P, _P, _P, _I, _I, _LL, _P),

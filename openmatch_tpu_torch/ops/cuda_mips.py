@@ -59,6 +59,7 @@ counts its kernel launches in its ``launches`` attribute.
 from __future__ import annotations
 
 import ctypes
+import logging
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -67,11 +68,13 @@ from ._build import check, load_library
 from .mips import (FANOUT, NEG, _hier_topk, _select_groups, exact_search,
                    gather_row_slices, pyramid_fanouts)
 
+logger = logging.getLogger(__name__)
+
 GROUP = 8
-MAX_SMEM_D = 12288  # gather_rescore stages the query row (fp32) in 48 KB
 MAX_PIPELINED_D = 6144  # the pipelined rescore holds 34 * D bytes of smem
 GMAX_CHUNK_BLOCKS = 8192  # plain gmax: fp32 staging of 64k corpus rows
 RESCORE_Q_CHUNK = 16  # plain rescore: [16, k, 8, D] fp32 rows at a time
+DEDUP_Q_CHUNK = 64  # gather_rescore.cu: one bit of a uint64 mask per query
 SEG_TILE_BLOCKS = 256  # segments and c_split windows cut at JAX's tile_g
 GMAX_TILE_BLOCKS = 16  # blocks of one plain_gmax.cu tile
 MAX_SEGS = 64  # csrc/segments.cuh: the by-value segment table's capacity
@@ -110,20 +113,29 @@ def prepare_plain_corpus(corpus: torch.Tensor, n_segs: int = 1) -> BlockCorpus:
     With ``n_segs`` = 1 both are views of ``corpus``: nothing is copied or
     padded. With ``n_segs`` > 1 the body becomes a tuple of segments cut
     where the JAX package cuts them (``split_tiles`` over ceil(NB / 256)
-    tiles of 256 blocks); the last segment holds the remainder unpadded.
-    Every segment and the tail are copies, each its own allocation, so the
-    caller's ``corpus`` can be freed."""
+    tiles of 256 blocks, so at most one segment per tile); the last
+    segment holds the remainder unpadded. A count still above
+    ``MAX_SEGS`` (the kernels' segment table) is cut to ``MAX_SEGS`` with
+    a warning: the search is exact at any cut, so the answers do not
+    change. Every segment and the tail are copies, each its own
+    allocation, so the caller's ``corpus`` can be freed."""
     if corpus.dim() != 2:
         raise ValueError(f"corpus must be [N, D], got {tuple(corpus.shape)}")
-    if not 1 <= n_segs <= MAX_SEGS:
-        raise ValueError(f"n_segs={n_segs} outside [1, {MAX_SEGS}]")
+    if n_segs < 1:
+        raise ValueError(f"n_segs={n_segs} must be >= 1")
     N = corpus.shape[0]
     NB = N // GROUP
+    tiles = -(-NB // SEG_TILE_BLOCKS)
+    if min(n_segs, tiles) > MAX_SEGS:
+        logger.warning("n_segs=%d: holding the index as %d segments, the "
+                       "most the kernels' segment table takes", n_segs,
+                       MAX_SEGS)
+        n_segs = MAX_SEGS
     body, tail = corpus[:NB * GROUP], corpus[NB * GROUP:]
     if n_segs == 1:
         return BlockCorpus(tail=tail, n_docs=N, plain=body)
     segs, lo = [], 0
-    for nt in split_tiles(-(-NB // SEG_TILE_BLOCKS), n_segs):
+    for nt in split_tiles(tiles, n_segs):
         hi = min(lo + nt * SEG_TILE_BLOCKS, NB)
         segs.append(body[lo * GROUP:hi * GROUP].clone())
         lo = hi
@@ -357,6 +369,50 @@ def gather_rescore_reference(queries: torch.Tensor, plain: Body,
     return out
 
 
+def gather_rescore_dedup_reference(queries: torch.Tensor, plain: Body,
+                                   bids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/gather_rescore.cu``'s three stages,
+    64 queries at a time: claim the distinct selected blocks
+    (``torch.unique``, each (query, slot) pair's block by its inverse),
+    score each distinct block once against every query of the chunk, then
+    scatter each pair's 8 scores to its place. The same function as
+    ``gather_rescore_reference``; the tests hold the index logic of the
+    CUDA stages with it."""
+    segs = _segments(plain)
+    Q = queries.shape[0]
+    NB = sum(s.shape[0] for s in segs) // GROUP
+    k = bids.shape[1]
+    b = bids.long().clamp(0, NB - 1)
+    out = torch.empty((Q, k * GROUP), dtype=torch.float32,
+                      device=queries.device)
+    for lo in range(0, Q, DEDUP_Q_CHUNK):
+        hi = min(lo + DEDUP_Q_CHUNK, Q)
+        ulist, slot = torch.unique(b[lo:hi], return_inverse=True)
+        rows = _gather_blocks(segs, ulist[None])[0].float()  # [U, 8, D]
+        scores = torch.einsum("qd,umd->uqm", queries[lo:hi].float(), rows)
+        mine = torch.arange(hi - lo, device=queries.device)[:, None]
+        out[lo:hi] = scores[slot, mine].reshape(hi - lo, k * GROUP)
+    return out
+
+
+def _dedup_scratch(nb: int, q_chunk: int, k: int, device):
+    """One allocation for ``csrc/gather_rescore.cu``'s scratch: each
+    block's uint64 query mask plus the distinct-block count ((NB + 1) * 8
+    bytes), each block's slot (int32 [NB]), and for the U = min(NB,
+    q_chunk * k) distinct blocks a chunk can name, their ids (int32 [U])
+    and scores (fp32 [U, 64, 8], written only where a query selected the
+    block). Returns the buffer and the four pointers."""
+    slots = min(nb, q_chunk * k)
+    sizes = (8 * (nb + 1), 4 * nb, 4 * slots,
+             4 * slots * DEDUP_Q_CHUNK * GROUP)
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total)
+        total += -(-size // 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=device)
+    return buf, tuple(buf.data_ptr() + o for o in offsets)
+
+
 def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
                    pipeline: bool = False) -> torch.Tensor:
     """out[q, j*8 + m] = <queries[q], doc bids[q, j]*8 + m>, fp32 [Q, k*8].
@@ -368,8 +424,10 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
 
     CPU tensors run ``gather_rescore_reference``; CUDA tensors (bf16
     operands, int32 ids) launch ``csrc/gather_rescore.cu`` (counted in
-    ``launches``, or ``seg_launches`` over more than one segment) or
-    ``csrc/gather_rescore_pipelined.cu`` (``pipelined_launches``)."""
+    ``launches``, or ``seg_launches`` over more than one segment; it reads
+    each distinct selected block once per 64 queries, with scratch from
+    the caching allocator) or ``csrc/gather_rescore_pipelined.cu``
+    (``pipelined_launches``)."""
     segs = _segments(plain)
     NB = _check_body(queries, segs)
     if bids.dim() != 2 or bids.shape[0] != queries.shape[0]:
@@ -391,10 +449,9 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
                          f"got {queries.dtype} and {segs[0].dtype}")
     if bids.dtype != torch.int32:
         raise ValueError(f"block ids must be int32, got {bids.dtype}")
-    max_d = MAX_PIPELINED_D if pipeline else MAX_SMEM_D
-    if D % 8 or D > max_d:
-        raise ValueError(f"the rescore kernel needs D % 8 == 0 and "
-                         f"D <= {max_d}, got D={D}")
+    if D % 8 or (pipeline and D > MAX_PIPELINED_D):
+        raise ValueError(f"the rescore kernel needs D % 8 == 0 (and D <= "
+                         f"{MAX_PIPELINED_D} with pipeline=True), got D={D}")
     _check_cuda_operands("gather_rescore", queries, bids, *segs)
     out = torch.empty((Q, k * GROUP), dtype=torch.float32,
                       device=queries.device)
@@ -409,9 +466,13 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
             gather_rescore.pipelined_launches += 1
         else:
             base, blk0 = _seg_table(segs)
+            # freed on return: the caching allocator gives the block out
+            # again only to work queued after these launches on this stream
+            _scratch, (mask, slot, ulist, scores) = _dedup_scratch(
+                NB, min(Q, DEDUP_Q_CHUNK), k, queries.device)
             rc = lib.gather_rescore_launch(
                 queries.data_ptr(), base, blk0, len(segs), bids.data_ptr(),
-                out.data_ptr(), Q, D, k, stream)
+                out.data_ptr(), mask, slot, ulist, scores, Q, D, k, stream)
             check(rc, "gather_rescore")
             if len(segs) > 1:
                 gather_rescore.seg_launches += 1

@@ -256,8 +256,11 @@ class Searcher:
 
     ``n_segs`` > 1 holds the prepared index as that many segment
     allocations (``prepare_plain_corpus``): the same search, but no single
-    allocation holds more than about 1/n_segs of the index. It needs the
-    kernel path, as the JAX package's needs its Pallas path."""
+    allocation holds more than about 1/n_segs of the index. The count is
+    clamped to one segment per 256-block tile, as in the JAX package, and
+    then to the kernels' 64 with a logged warning; the answers are the
+    same at any count. It needs the kernel path, as the JAX package's
+    needs its Pallas path."""
 
     def __init__(self, corpus: torch.Tensor, k: int = 100,
                  chunk_size: int = 0, method: str = "auto", n_segs: int = 1):

@@ -8,7 +8,8 @@ Each variant is a copy of the package under DIR/<name> (default
 ``build/ablate``, git-ignored) with its edits applied, and builds its own
 kernel library; the raw entry points are then called in turns, one launch
 per variant per round, the order reversed every other round, each launch
-timed by its own CUDA event pair (``parent_vs_change.timed``). An edit
+timed by its own CUDA event pair behind an untimed call
+(``perf.event_ms``). An edit
 whose text is not in the source raises, so the variants follow the source.
 
 - ``as_is``: the source as it is.
@@ -19,7 +20,8 @@ whose text is not in the source raises, so the variants follow the source.
   QN = 64 instead of 16.
 
 Cases: K7 and K1 (level 1 at fanout 8) at Q=64 over 8,841,816 x 768, and
-K1 at Q=512 over 2,211,840 rows (``parent_vs_change``'s inputs). Prints
+K1 at Q=512 over 2,211,840 rows (``parent_vs_change``'s inputs and
+cases). Prints
 one line per case and one JSON object.
 """
 
@@ -34,7 +36,9 @@ from pathlib import Path
 
 import torch
 
-from .parent_vs_change import cases, load_build, timed
+from . import event_ms
+from ..ops._build import check
+from .parent_vs_change import kernel_cases, load_tree, mean_rows
 
 PKG = Path(__file__).resolve().parents[1]
 SRC = "ops/csrc/plain_gmax.cu"
@@ -84,13 +88,19 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gmax: needs an NVIDIA card")
-    libs = {name: load_build(make_variant(Path(args.out) / name,
-                                          edits)).load_library()
+    libs = {name: load_tree(make_variant(Path(args.out) / name, edits),
+                            f"ablate_{name}")[0].load_library()
             for name, edits in VARIANTS.items()}
-    runs, keep = cases(torch.device("cuda", 0))
     names = list(libs)
     out = {}
     with torch.inference_mode():
+        dev = torch.device("cuda", 0)
+        rows, q = mean_rows(dev)
+        runs, keep = kernel_cases(dev, rows, q, None)
+
+        def timed(fn, lib, case):
+            return event_ms(lambda: check(fn(lib), case), "call")
+
         for case in CASES:
             fn = runs[case]
             for n in names:  # warm up
@@ -98,12 +108,12 @@ def main(argv=None) -> dict:
             t = {n: [] for n in names}
             for r in range(args.rounds):
                 for n in names if r % 2 == 0 else names[::-1]:
-                    t[n].append(timed(fn, libs[n], case)[0])
+                    t[n].append(timed(fn, libs[n], case))
             out[case] = {n: statistics.median(v) for n, v in t.items()}
             print(f"{case}: " + ", ".join(f"{n} {ms:.4f} ms"
                                          for n, ms in out[case].items()),
                   flush=True)
-    del keep
+    del keep, rows, q
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "rounds": args.rounds, "cases": out}))
     return out

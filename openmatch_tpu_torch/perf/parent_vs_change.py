@@ -1,30 +1,51 @@
-"""Time this checkout's kernels against another checkout's on one card, in
-turns in one process.
+"""Time this checkout against another checkout on one card, in turns in one
+process.
 
     python -m openmatch_tpu_torch.perf.parent_vs_change PARENT [--rounds R]
 
 PARENT is a directory holding another checkout's ``openmatch_tpu_torch``
 (for example ``git archive <commit> openmatch_tpu_torch | tar -x -C
-build/parent``, a git-ignored directory). Both trees' ``ops/_build.py`` are
-loaded by path, each builds its own kernel library from its own sources,
-and the raw C entry points are called in turns, parent, change, change,
-parent in every round, each launch timed by its own CUDA event pair.
-Separate processes differ by about 0.05 ms at 6.8 ms; turns in one process
-on one card cancel that drift.
+build/parent``, a git-ignored directory). That tree's package is imported
+under another name, so each tree builds its own kernel library from its own
+sources and runs its own wrappers; every case runs parent, change, change,
+parent in every round. Separate processes differ by about 0.05 ms at 6.8
+ms; turns in one process on one card cancel that drift.
 
-The cases are the main path's shapes, made from a seed on the card: Q=64
-over 8,841,816 x 768 bf16 (the 8-doc body of the 8,841,823-row index) for
-K1 (l1 at fanout 8), K4 (the same rows as 6 segments), K7 and K8; K9 and
-K10 at tile 2048 over 8,841,823 rows; and Q=512 over 276,480 blocks
-(2,211,840 rows, the perf scripts' default) for K1 and K11 (a3base).
-Prints one line per case: the median device ms of parent and change and
-their ratio, and the median host microseconds of one call of the entry
-point (the enqueue, tensor-map encodes included), then one JSON object.
+The cases are the main path's shapes, made from a seed on the card:
+
+- the kernels' raw C entry points: Q=64 over the 8-doc body of 8,841,823
+  x 768 bf16 rows for K1 (l1 at fanout 8), K4 (the same rows as 6
+  segments), K7 and K8; K9 and K10 at tile 2048; K3 and K5 at k=1000 at
+  three selections: "serving" (the shape of the serving index's selection,
+  ``SERVING_QUERIES_PER_BLOCK``, replayed over seeded blocks by
+  ``replay_selection``), "uniform" (each query draws 1,000 of one seeded
+  pool of 5,010 blocks, so every block has about 13 queries) and
+  "all-distinct" (64,000 blocks of a seeded permutation); K3 at the perf
+  twin's ``resc0`` shape (Q=512, k=1000 seeded ids over 276,307 blocks);
+  K1 and K11 (a3base) at Q=512 over 276,480 blocks. Each tree's rescore
+  entry point is called with its own signature, as its
+  ``_build.SIGNATURES`` declares it.
+- the whole search through each tree's own code: ``Searcher.search`` and
+  ``plain_topk_prepared`` at Q=64, k=1000, over the single buffer and over
+  6 segments. The rows are a seeded mean vector plus N(0, 1) noise and the
+  queries the same mean plus ``QUERY_SPREAD`` times N(0, 1) noise, so that
+  the 64 queries pick overlapping blocks, as they do on the serving
+  index; the script prints the shape of that selection.
+
+Each kernel case is timed two ways (``perf.event_ms``): behind an untimed
+call ("call": where the host takes longer to enqueue the call than the
+card to run the one before, that time counts, as it does for calls made
+back to back) and behind a device spin ("spin": the card's work alone).
+The searches, which queue their kernels behind a 4.6 ms gmax pass, are
+timed behind an untimed call. Prints one line per case (the median device
+ms of parent and change and their ratio under each timer, and the median
+host microseconds of one call), then one JSON object.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import statistics
@@ -32,35 +53,92 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from . import event_ms, spin_ms
 from ..ops import _build, cuda_mips as cm
+from ..ops.mips import Searcher
 
 N_DOCS = 8_841_823
 D = 768
 PERF_BLOCKS = 276_480  # score_path_phases' 2,210,456 docs padded to 256
+PERF_NB = 2_210_456 // 8  # the blocks its resc0 phase draws ids from
+K = 1000
+N_SEGS = 6
+UNIFORM_POOL = 5_010  # the serving selection's distinct count
+# Blocks of the serving index's selection by the number of queries that
+# picked them (entry c - 1: blocks picked by c of the 64 queries), as
+# chip_smoke.py's serve phase logs it: 5,010 distinct blocks, 64,000 picks.
+SERVING_QUERIES_PER_BLOCK = (
+    1359, 559, 343, 244, 212, 162, 147, 112, 121, 84, 80, 78, 67, 63, 65, 49,
+    61, 46, 33, 41, 41, 39, 32, 39, 32, 35, 26, 31, 19, 23, 27, 24, 31, 21,
+    22, 22, 28, 21, 17, 20, 17, 19, 26, 23, 17, 13, 25, 16, 18, 16, 14, 23,
+    21, 22, 10, 23, 24, 15, 21, 22, 17, 22, 21, 89)
+# query noise against the shared mean: 1 / (1 + 0.22^2) = 0.954 of a
+# doc's score variance is common to all queries
+QUERY_SPREAD = 0.22
 
 
-def load_build(root: Path):
-    """The ``ops/_build`` module of the checkout at ``root``."""
-    path = root / "openmatch_tpu_torch" / "ops" / "_build.py"
-    spec = importlib.util.spec_from_file_location("parent_build", path)
+def replay_selection(hist, n_q: int, k: int, nb: int,
+                     seed: int) -> torch.Tensor:
+    """[n_q, k] int32 block ids in which ``hist[c - 1]`` distinct blocks
+    are picked by exactly c queries each, and no query repeats an id. The
+    blocks come from a seeded permutation of ``nb``; each, the most picked
+    first, goes to the c queries with the most room left (Ryser's
+    construction, which fills every row whenever the shape allows it);
+    then each row is shuffled."""
+    rng = np.random.default_rng(seed)
+    picks = np.repeat(np.arange(len(hist), 0, -1), np.asarray(hist)[::-1])
+    if picks.sum() != n_q * k or len(hist) > n_q or len(picks) > nb:
+        raise ValueError(f"a shape of {picks.sum()} picks of {len(picks)} "
+                         f"blocks does not fill {n_q} x {k} from {nb}")
+    room = np.full(n_q, k)
+    rows = [[] for _ in range(n_q)]
+    for block, c in zip(rng.permutation(nb)[:len(picks)], picks):
+        to = np.lexsort((rng.random(n_q), -room))[:c]
+        if room[to].min() == 0:
+            raise ValueError("the shape does not fit the rows")
+        room[to] -= 1
+        for q in to:
+            rows[q].append(block)
+    return torch.from_numpy(np.stack([rng.permutation(r) for r in rows])
+                            .astype(np.int32))
+
+
+def load_tree(root: Path, name: str) -> tuple:
+    """The ``ops._build``, ``ops.cuda_mips`` and ``ops.mips`` modules of
+    the checkout at ``root``, its ``openmatch_tpu_torch`` package imported
+    as ``name`` (its imports are relative, so its modules load from its
+    own tree, and its ``_build`` builds that tree's kernel library)."""
+    pkg = root / "openmatch_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return mod
+    return tuple(importlib.import_module(f"{name}.ops.{m}")
+                 for m in ("_build", "cuda_mips", "mips"))
 
 
-def cases(dev: torch.device):
+def shape_of(bid: torch.Tensor) -> str:
+    """Distinct blocks of a selection and how many queries picked each."""
+    _, per = torch.unique(torch.cat([r.unique() for r in bid]),
+                          return_counts=True)
+    h = torch.bincount(per, minlength=4)
+    return (f"{per.numel()} distinct of {bid.numel()} ({int(h[1])} of 1 "
+            f"query, {int(h[2])} of 2, {int(h[3:].sum())} of 3 to "
+            f"{int(per.max())})")
+
+
+def kernel_cases(dev: torch.device, corpus: torch.Tensor, q64, segs):
     """({name: fn(lib)}, tensors): each fn launches its case's kernel once
-    on the current stream through lib's raw entry point; the tensors must
-    outlive the calls."""
-    g = torch.Generator(device=dev).manual_seed(0)
-    corpus = torch.randn(N_DOCS, D, generator=g, device=dev,
-                         dtype=torch.bfloat16)
+    on the current stream through lib's raw entry point and returns its
+    code; the tensors must outlive the calls. ``segs``, the same rows as
+    6 segments, may be None: then no K4 or K5 case."""
+    g = torch.Generator(device=dev).manual_seed(1)
     body = corpus[:N_DOCS // 8 * 8]
     nb = body.shape[0] // 8
-    segs = cm.prepare_plain_corpus(corpus, n_segs=6).plain
-    q64 = torch.randn(64, D, generator=g, device=dev, dtype=torch.bfloat16)
     q512 = torch.randn(512, D, generator=g, device=dev, dtype=torch.bfloat16)
     perf = torch.randn(PERF_BLOCKS * 8, D, generator=g, device=dev,
                        dtype=torch.bfloat16)
@@ -75,18 +153,51 @@ def cases(dev: torch.device):
     l512 = torch.empty(512, PERF_BLOCKS // f, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     one = cm._seg_table((body,))
-    six = cm._seg_table(segs)
+    six = cm._seg_table(segs) if segs else None
     big = cm._seg_table((perf,))
-    keep = (corpus, body, segs, perf)  # alive as long as the closures
+    perm = torch.randperm(nb, generator=g, device=dev)
+    pick = torch.rand(64, UNIFORM_POOL, generator=g,
+                      device=dev).argsort(1)[:, :K]
+    selections = {
+        "serving": replay_selection(SERVING_QUERIES_PER_BLOCK, 64, K, nb,
+                                    2).to(dev),
+        "uniform": perm[:UNIFORM_POOL][pick].int(),
+        "all-distinct": perm[:64 * K].view(64, K).int()}
+    for sel, bids in selections.items():
+        print(f"selection {sel}: {shape_of(bids)}", flush=True)
+    resc0 = torch.randint(0, PERF_NB, (512, K), generator=g, device=dev,
+                          dtype=torch.int32)
+    rescored = torch.empty(512, K * 8, device=dev)
+    scratch, dedup = cm._dedup_scratch(nb, 64, K, dev)
+    keep = (body, perf, selections, resc0, scratch)
 
     def k1(lib, tab=one, n=1):
         return lib.plain_gmax_launch(q64.data_ptr(), tab[0], tab[1], n,
                                      gmax.data_ptr(), l1.data_ptr(), 64, D,
                                      0, nb, nb, f, stream)
 
+    def k3(lib, bids, tab=one, n=1, q=q64):
+        """The tree's own rescore signature: with the scratch pointers
+        (14 arguments) or without them (10)."""
+        scratch_args = dedup if len(lib.gather_rescore_launch.argtypes) \
+            == len(_build.SIGNATURES["gather_rescore_launch"]) else ()
+        return lib.gather_rescore_launch(
+            q.data_ptr(), tab[0], tab[1], n, bids.data_ptr(),
+            rescored.data_ptr(), *scratch_args, q.shape[0], D, K, stream)
+
+    rescore_cases = {}
+    for sel, bids in selections.items():
+        rescore_cases[f"K3 Q=64 8.8M {sel}"] = \
+            lambda lib, b=bids: k3(lib, b)
+        if six:
+            rescore_cases[f"K5 Q=64 8.8M 6 segments {sel}"] = \
+                lambda lib, b=bids: k3(lib, b, six, N_SEGS)
+    k4 = {"K4 Q=64 8.8M 6 segments": lambda lib: k1(lib, six, N_SEGS)} \
+        if six else {}
+
     return {
         "K1 Q=64 8.8M": k1,
-        "K4 Q=64 8.8M 6 segments": lambda lib: k1(lib, six, 6),
+        **k4,
         "K7 Q=64 8.8M": lambda lib: lib.block_gmax_launch(
             q64.data_ptr(), body.data_ptr(), gmax.data_ptr(), 64, D, nb,
             stream),
@@ -99,6 +210,8 @@ def cases(dev: torch.device):
         "K10 Q=64 8.8M tile 2048": lambda lib: lib.gmax_only_launch(
             q64.data_ptr(), corpus.data_ptr(), g9.data_ptr(), 64, D, N_DOCS,
             2048, stream),
+        **rescore_cases,
+        "K3 Q=512 2.2M resc0": lambda lib: k3(lib, resc0, big, 1, q512),
         "K1 Q=512 2.2M": lambda lib: lib.plain_gmax_launch(
             q512.data_ptr(), big[0], big[1], 1, g512.data_ptr(),
             l512.data_ptr(), 512, D, 0, PERF_BLOCKS, PERF_BLOCKS, f, stream),
@@ -108,21 +221,41 @@ def cases(dev: torch.device):
     }, keep
 
 
-def timed(fn, lib, name: str):
-    """(device ms, host us) of one launch. A launch just before it keeps
-    the card busy while the timed one is enqueued, so the host's time does
-    not enter the device time."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    _build.check(fn(lib), name)
-    a.record()
-    t0 = time.perf_counter()
-    rc = fn(lib)
-    host = (time.perf_counter() - t0) * 1e6
-    b.record()
-    _build.check(rc, name)
-    b.synchronize()
-    return a.elapsed_time(b), host
+def mean_rows(dev: torch.device) -> tuple:
+    """(rows [N_DOCS, D] bf16, queries [64, D] bf16): a seeded mean vector
+    plus N(0, 1) noise, and the same mean plus QUERY_SPREAD x N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    mean = torch.randn(D, generator=g, device=dev)
+    rows = torch.empty(N_DOCS, D, device=dev, dtype=torch.bfloat16)
+    for lo in range(0, N_DOCS, 1 << 20):
+        hi = min(lo + (1 << 20), N_DOCS)
+        rows[lo:hi] = torch.randn(hi - lo, D, generator=g, device=dev) + mean
+    q = mean + QUERY_SPREAD * torch.randn(64, D, generator=g, device=dev)
+    return rows, q.to(torch.bfloat16)
+
+
+def in_turns(run, rounds: int, queues) -> dict:
+    """run(who) in turns, parent, change, change, parent, under each
+    ``event_ms`` queue; {queue: {who: median ms}} and {who: median host
+    us of one call}."""
+    ms = {qu: {"parent": [], "change": []} for qu in queues}
+    host = {"parent": [], "change": []}
+
+    def call(who):
+        t0 = time.perf_counter()
+        run(who)
+        host[who].append((time.perf_counter() - t0) * 1e6)
+
+    for who in ("parent", "change"):  # warm up
+        for qu in queues:
+            event_ms(lambda: call(who), qu)
+    for _ in range(rounds):
+        for who in ("parent", "change", "change", "parent"):
+            for qu in queues:
+                ms[qu][who].append(event_ms(lambda: call(who), qu))
+    return ({qu: {w: statistics.median(v) for w, v in t.items()}
+             for qu, t in ms.items()},
+            {w: statistics.median(v) for w, v in host.items()})
 
 
 def main(argv=None) -> dict:
@@ -134,32 +267,52 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("parent_vs_change: needs an NVIDIA card")
     dev = torch.device("cuda", 0)
-    libs = {"parent": load_build(Path(args.parent)).load_library(),
-            "change": _build.load_library()}
-    runs, keep = cases(dev)
+    trees = {"parent": load_tree(Path(args.parent), "parent_tree"),
+             "change": (_build, cm, sys.modules[Searcher.__module__])}
+    libs = {who: t[0].load_library() for who, t in trees.items()}
     out = {}
+
+    def report(name, ms, host):
+        out[name] = {"host_us": host}
+        parts = []
+        for qu, m in ms.items():
+            ratio = m["change"] / m["parent"]
+            out[name][qu or "plain"] = {**m, "ratio": ratio}
+            parts.append(f"behind {qu or 'nothing'}: parent "
+                         f"{m['parent']:.4f} ms, change {m['change']:.4f} ms"
+                         f", change/parent {ratio:.4f}")
+        print(f"{name}: " + "; ".join(parts) + f"; host per call parent "
+              f"{host['parent']:.1f} us, change {host['change']:.1f} us",
+              flush=True)
+
     with torch.inference_mode():
+        rows, q64 = mean_rows(dev)
+        searchers = {who: (t[2].Searcher(rows, k=K),
+                           t[2].Searcher(rows, k=K, n_segs=N_SEGS))
+                     for who, t in trees.items()}
+        segs = searchers["change"][1]._prep.plain
+        runs, keep = kernel_cases(dev, rows, q64, segs)
+        print("spin before a timed call: %d cycles, %.4f ms" % spin_ms(),
+              flush=True)
         for name, fn in runs.items():
-            for who in ("parent", "change"):  # warm up
-                timed(fn, libs[who], name)
-            t = {"parent": [], "change": []}
-            for _ in range(args.rounds):
-                for who in ("parent", "change", "change", "parent"):
-                    t[who].append(timed(fn, libs[who], name))
-            med = {who: (statistics.median(x[0] for x in v),
-                         statistics.median(x[1] for x in v))
-                   for who, v in t.items()}
-            out[name] = {"parent_ms": med["parent"][0],
-                         "change_ms": med["change"][0],
-                         "ratio": med["change"][0] / med["parent"][0],
-                         "parent_host_us": med["parent"][1],
-                         "change_host_us": med["change"][1]}
-            print(f"{name}: parent {med['parent'][0]:.4f} ms, change "
-                  f"{med['change'][0]:.4f} ms, change/parent "
-                  f"{out[name]['ratio']:.4f}; host per call parent "
-                  f"{med['parent'][1]:.1f} us, change {med['change'][1]:.1f}"
-                  " us", flush=True)
-    del keep
+            report(name, *in_turns(
+                lambda who: _build.check(fn(libs[who]), name), args.rounds,
+                ("call", "spin")))
+        del keep
+        torch.cuda.empty_cache()
+        g1, l1 = cm.fused_plain_gmax(q64, rows[:N_DOCS // 8 * 8], emit_l1=8)
+        bid = sys.modules[Searcher.__module__]._select_groups(g1, K, l1=l1)
+        print(f"search selection: {shape_of(bid)}", flush=True)
+        del g1, l1, bid
+        for i, label in enumerate(("single buffer", f"{N_SEGS} segments")):
+            report(f"Searcher.search Q=64 8.8M {label}", *in_turns(
+                lambda who: searchers[who][i].search(q64), args.rounds,
+                ("call",)))
+            report(f"plain_topk_prepared Q=64 8.8M {label}", *in_turns(
+                lambda who: trees[who][1].plain_topk_prepared(
+                    q64, searchers[who][i]._prep, K), args.rounds,
+                ("call",)))
+    print("spin at the end: %d cycles, %.4f ms" % spin_ms(), flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "rounds": args.rounds, "cases": out}))
     return out

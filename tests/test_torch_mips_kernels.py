@@ -102,6 +102,63 @@ def test_gather_rescore_matches_jax():
     assert_match(got, np.asarray(want)[:, :k * 8])
 
 
+DEDUP_NB, DEDUP_D = 600, 32  # three segments at the 256-block tile cut
+
+
+def dedup_case(name):
+    """(Q, bids [Q, 12] int32) of a selection case of the rescore kernels'
+    three-stage form (claim the distinct blocks, score each once, scatter)."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    Q, k = {"q65": 65, "q130": 130}.get(name, 9), 12
+    if name in ("overlap", "q65", "q130"):  # a few blocks shared by all
+        bids = rng.choice(rng.permutation(DEDUP_NB)[:20], (Q, k))
+    elif name == "same":
+        bids = np.full((Q, k), 7)
+    elif name == "distinct":
+        bids = rng.permutation(DEDUP_NB)[:Q * k].reshape(Q, k)
+    elif name == "repeats":  # ids repeated within each query's row
+        bids = np.repeat(rng.randint(0, DEDUP_NB, (Q, 4)), 3, axis=1)
+    elif name == "out_of_range":
+        bids = rng.randint(0, DEDUP_NB, (Q, k))
+        bids[:, :4] = [-5, -1, DEDUP_NB, DEDUP_NB + 100]
+    else:  # "segments": the first and last block of each segment
+        bids = rng.randint(0, DEDUP_NB, (Q, k))
+        bids[:, :6] = [0, 255, 256, 511, 512, DEDUP_NB - 1]
+    return Q, bids.astype(np.int32)
+
+
+@pytest.mark.parametrize("name", ["overlap", "same", "distinct", "repeats",
+                                  "out_of_range", "segments", "q65", "q130"])
+def test_gather_rescore_dedup_reference_matches_jax(name):
+    """The plain three-stage form equals the plain version and JAX's
+    kernel within 1e-5 x max|score| (fp32 sums in another order); over
+    segments cut at 256-block tiles it equals itself over one buffer
+    bit for bit. JAX takes the ids clamped, as the port's contract does."""
+    Q, bids = dedup_case(name)
+    corpus, _ = bf16_data(9, DEDUP_NB * 8, DEDUP_D)
+    q, q_j = bf16_data(10, Q, DEDUP_D)
+    body = cm.prepare_plain_corpus(corpus, n_segs=3).plain \
+        if name == "segments" else corpus
+    if name == "segments":
+        assert [s.shape[0] // 8 for s in body] == [256, 256, 88]
+    b = torch.from_numpy(bids)
+    got = cm.gather_rescore_dedup_reference(q, body, b)
+    want = cm.gather_rescore_reference(q, body, b)
+    tol = 1e-5 * want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
+    plain_j = tuple(jnp.asarray(s.float().numpy()) for s in body) \
+        if isinstance(body, tuple) else jnp.asarray(corpus.float().numpy())
+    jax_out, _ = pm.pallas_gather_rescore(
+        q_j, plain_j, jnp.asarray(np.clip(bids, 0, DEDUP_NB - 1)))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_out)[:, :bids.shape[1] * 8],
+                               atol=tol, rtol=0)
+    if name == "segments":
+        np.testing.assert_array_equal(
+            got.numpy(),
+            cm.gather_rescore_dedup_reference(q, corpus, b).numpy())
+
+
 def test_wrappers_reject_bad_windows_and_shapes():
     plain, _ = bf16_data(7, 64, 16)
     q, _ = bf16_data(8, 2, 16)
@@ -231,6 +288,40 @@ def test_cuda_gather_rescore_segments_and_pipeline(cuda_device, pipeline):
         assert cm.gather_rescore.seg_launches == before + 1
         assert torch.equal(got, cm.gather_rescore(q, full, bids))
     assert_kernel_close(got, cm.gather_rescore_reference(q, segs, bids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [768, 776, 4096])
+@pytest.mark.parametrize("Q", [1, 64, 65, 512])
+@pytest.mark.parametrize("selection", ["distinct", "same", "random"])
+def test_cuda_gather_rescore_selections(cuda_device, selection, Q, D):
+    """K3 and K5 (3 segments) against the plain version: every (query,
+    slot) pair its own block, every pair the same block, and random ids
+    with repeats in a row and ids out of range; Q across the 64-query
+    chunks; D = 776 ends mid 32-deep step, D = 4096 takes three staged
+    query pieces. K5 bit-equal to K3."""
+    NB, k = 40_000, 64
+    corpus = card_data(cuda_device, 70, 8 * NB, D)
+    segs = cm.prepare_plain_corpus(corpus, n_segs=3).plain
+    q = card_data(cuda_device, 71, Q, D)
+    g = torch.Generator(device=cuda_device).manual_seed(72)
+    if selection == "distinct":
+        bids = torch.randperm(NB, generator=g, device=cuda_device)[:Q * k]
+        bids = bids.view(Q, k).to(torch.int32)
+    elif selection == "same":
+        bids = torch.full((Q, k), NB // 2, dtype=torch.int32,
+                          device=cuda_device)
+    else:
+        bids = torch.randint(0, NB, (Q, k), generator=g, device=cuda_device,
+                             dtype=torch.int32)
+        bids[:, 0], bids[:, 1], bids[:, 2] = -3, NB + 7, bids[:, 3]
+    before = (cm.gather_rescore.launches, cm.gather_rescore.seg_launches)
+    got = cm.gather_rescore(q, corpus, bids)
+    got5 = cm.gather_rescore(q, segs, bids)
+    assert (cm.gather_rescore.launches, cm.gather_rescore.seg_launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert_kernel_close(got, cm.gather_rescore_reference(q, corpus, bids))
+    assert torch.equal(got5, got)
 
 
 @pytest.mark.cuda

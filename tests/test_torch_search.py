@@ -166,6 +166,38 @@ def test_searcher_matches_jax_pallas_searcher(case):
     assert_same_topk(*plain.search(q), want[0], want[1])
 
 
+def jax_search_methods():
+    """The search_method names the JAX package's InferenceArguments lists
+    in its help text ("exact-MIPS engine: auto (...) | pallas | ...")."""
+    import dataclasses
+
+    from openmatch_tpu.config import InferenceArguments as JaxArgs
+
+    (field,) = [f for f in dataclasses.fields(JaxArgs)
+                if f.name == "search_method"]
+    listed = field.metadata["help"].split(":", 1)[1].split("|")
+    return [name.split()[0] for name in listed]
+
+
+def test_build_searcher_takes_every_jax_search_method():
+    """Every search_method of the JAX package builds a Searcher that
+    answers as brute force; "approx" (JAX: full scores, approx_max_k) is
+    the plain path's full scores with an exact top-k."""
+    from openmatch_tpu_torch.config import InferenceArguments
+    from openmatch_tpu_torch.retriever.retriever import build_searcher
+
+    names = jax_search_methods()
+    assert "approx" in names and len(names) == 7
+    c, _ = corpus_pair(12, 5003, 16)
+    q, _ = corpus_pair(13, 3, 16)
+    for name in names:
+        searcher = build_searcher(c, InferenceArguments(search_method=name),
+                                  k=12)
+        if name == "approx":
+            assert searcher.method == "plain"
+        assert_same_topk(*searcher.search(q), *brute(q, c, 12))
+
+
 def test_searcher_rejects_unknown_method():
     with pytest.raises(ValueError, match="method"):
         mips.Searcher(torch.zeros(16, 4), method="approx")

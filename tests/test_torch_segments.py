@@ -282,6 +282,60 @@ def test_retriever_search_builds_a_segmented_searcher(method):
         assert set(got[qid]) == {f"d{i}" for i in wi[row]}
 
 
+def test_retriever_search_takes_approx():
+    """search_method="approx" runs the plain path (full scores, exact
+    top-k), which meets JAX's 0.99-recall contract with recall 1."""
+    c, _ = corpus_pair(94, 8 * 640 + 5, 16)
+    q, _ = corpus_pair(95, 3, 16)
+    infer = InferenceArguments(search_method="approx", search_n_segs=1)
+    r = Retriever(None, DataArguments(), infer, 0, "cpu")
+    r.doc_embeddings = c.float().numpy()
+    r.doc_ids = [f"d{i}" for i in range(c.shape[0])]
+    got = r.search(q.float().numpy(), ["a", "b", "c"], topk=12)
+    assert r._searcher.method == "plain"
+    assert r._searcher.last_dispatch == "plain:cpu"
+    _, wi = brute(q, c, 12)
+    for row, qid in enumerate(["a", "b", "c"]):
+        assert set(got[qid]) == {f"d{i}" for i in wi[row]}
+
+
+@pytest.mark.parametrize("tiles,n_segs,want_segs", [(66, 65, 64),
+                                                    (10, 200, 10)])
+def test_retriever_clamps_the_segment_count(caplog, tiles, n_segs, want_segs):
+    """--search_n_segs past the tile count takes one segment per 256-block
+    tile, as JAX's split_tiles does; past the kernels' 64 it takes 64 with
+    one warning. The answers equal the JAX package's exact search."""
+    c, c_j = corpus_pair(96, tiles * 2048 + 5, 16)
+    q, q_j = corpus_pair(97, 3, 16)
+    infer = InferenceArguments(search_method="kernel", search_n_segs=n_segs)
+    r = Retriever(None, DataArguments(), infer, 0, "cpu")
+    r.doc_embeddings = c.float().numpy()
+    r.doc_ids = [str(i) for i in range(c.shape[0])]
+    with caplog.at_level("WARNING", logger=cm.__name__):
+        got = r.search(q.float().numpy(), ["a", "b", "c"], topk=10)
+    segs = r._searcher._prep.plain
+    assert len(segs) == want_segs
+    assert len({s.untyped_storage().data_ptr() for s in segs}) == want_segs
+    warnings = [rec for rec in caplog.records if rec.name == cm.__name__]
+    assert len(warnings) == (want_segs < min(tiles, n_segs))
+    if warnings:
+        assert f"n_segs={n_segs}" in warnings[0].getMessage()
+        assert f"{want_segs} segments" in warnings[0].getMessage()
+    ws, wi = jmips.exact_search(q_j, c_j, k=10)
+    for row, qid in enumerate(["a", "b", "c"]):
+        ids = sorted(got[qid], key=lambda d: -got[qid][d])
+        assert_same_topk(np.array([[got[qid][d] for d in ids]]),
+                         np.array([[int(d) for d in ids]]),
+                         np.asarray(ws)[row:row + 1],
+                         np.asarray(wi)[row:row + 1])
+
+
+def test_prepare_plain_corpus_refuses_no_segments():
+    c, _ = corpus_pair(98, 64, 8)
+    with pytest.raises(ValueError, match="n_segs"):
+        cm.prepare_plain_corpus(c, n_segs=0)
+
+
 def test_retriever_auto_on_cpu_refuses_segments():
     infer = InferenceArguments(search_n_segs=2)  # search_method="auto"
     r = Retriever(None, DataArguments(), infer, 0, "cpu")

@@ -236,6 +236,26 @@ def test_build_service_takes_search_n_segs(workspace, jax_index):
                       max_batch=4, device=cpu)
 
 
+def test_build_service_takes_approx(workspace, jax_index):
+    """--search_method approx serves from the plain path (full scores,
+    exact top-k) and answers as the default service does."""
+    from openmatch_tpu_torch.drivers.serve import build_service
+
+    root, _, queries = workspace
+    emb, _ = jax_index
+    model_args = ModelArguments(model_name_or_path=str(root / "ckpt"),
+                                dtype="float32")
+    answers = []
+    for method in ("auto", "approx"):
+        infer = InferenceArguments(encoded_save_path=str(emb),
+                                   retrieve_depth=10, search_method=method)
+        service = build_service(model_args, DataArguments(q_max_len=8), infer,
+                                max_batch=4, device=torch.device("cpu"))
+        assert service.searcher.method == "plain"
+        answers.append(service.search(queries, k=7))
+    assert answers[0] == answers[1]
+
+
 def test_encoded_queries_search_the_alternative_layouts_as_jax(workspace):
     """The JAX DRModel and the port's, on the same checkpoint, encode the
     same queries; each package's hier2_rescore and dma-rescored block path
