@@ -43,9 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             audit, and K5 must equal K3 bit for bit at both selections.
             At Q=64, plain_topk_prepared with pipeline=True (the
             pipelined rescore kernel must launch) and with c_split=4 must
-            equal the default above the tie band. Each segment kernel and
-            the pipelined kernel are compared with their plain versions at
-            the requests' shapes.
+            equal the default above the tie band. Each segment kernel is
+            compared with its plain version at the requests' shapes, and
+            the pipelined kernel K6 (one cooperative launch) at the
+            serving and the all-distinct selections, timed and bounded as
+            K3 is.
             The alternative layouts, at Q=64 and k=1000 over the same
             single-buffer index (a view, never a copy):
             block_topk_prepared with rescore "xla" and "dma",
@@ -62,12 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. perf     after the index is freed, the perf-script path at the scripts'
             default sizes: the phase-ablation kernel K11's four variants
             at Q=512 over 2,210,456 docs (276,480 blocks) against their
-            plain versions, a3notr bit-equal to a3base's transpose,
-            a3mxutr within 2^-22 x |g| of a3base, and a3base against K2
-            and a3nomax against K8's every 8th score within REL_TOL (K11
-            keeps the wmma mainloop, K2 and K8 run on wgmma: the fp32
-            sums differ in order, so the entries that differ are counted
-            and logged); every phase of
+            plain versions; K11 runs on the wgmma mainloop K2 and K8 run,
+            so a3base must be bit-equal to K2 and a3nomax to K8's every
+            8th score, a3notr bit-equal to a3base's transpose, and
+            a3mxutr within 2^-22 x |g| of a3base; every phase of
             perf/score_path_phases.py and a set of perf/micro.py modes
             (the library yardsticks, one per kernel, hier2_full and
             xla_full_pyramid) through their main(argv), each launching
@@ -76,9 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             parse.
 6. stages   after every timing (a profiler session can slow the host's
             later launches), the rescore's device time by stage
-            (torch.profiler) for K3 and K5 at the selections the serve
+            (torch.profiler) for K3, K5 and K6 at the selections the serve
             phase timed, replayed over seeded rows of the index's shape
-            (the stages' work depends on the block ids, not the values).
+            (the stages' work depends on the block ids, not the values);
+            K6 must show as exactly one device kernel per call and no
+            memset.
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -125,6 +127,9 @@ KERNELS = {
     "gather_rescore_seg_distinct": (CSRC + "gather_rescore.cu", TPU + "1013"),
     "gather_rescore_pipelined": (CSRC + "gather_rescore_pipelined.cu",
                                  TPU + "1114"),
+    # K6 again at the all-distinct selection
+    "gather_rescore_pipelined_distinct": (
+        CSRC + "gather_rescore_pipelined.cu", TPU + "1114"),
     "block_gmax": (CSRC + "plain_gmax.cu", TPU + "469"),
     "scores": (CSRC + "scores.cu", TPU + "1591"),
     "score_gmax": (CSRC + "score_tiles.cu", TPU + "133"),
@@ -245,17 +250,19 @@ def distinct_selection(nb: int, dev) -> torch.Tensor:
     return perm[:MAX_BATCH * K].view(MAX_BATCH, K).to(torch.int32)
 
 
-def rescore_row(cm, name: str, reps, body, bid, replay: list) -> tuple:
-    """K3 (single buffer) or K5 (segments) at one selection: compared with
-    the plain version, timed beside it, and bounded over the distinct
-    blocks; (name, queries, ids, segment count) joins ``replay`` for the
-    stage breakdown. Returns (err, ms, plain ms, (bound ms, bound by),
-    None)."""
-    err = compare(name, cm.gather_rescore(reps, body, bid),
-                  cm.gather_rescore_reference(reps, body, bid))
-    ms = kernel_ms(lambda: cm.gather_rescore(reps, body, bid))
-    spin = kernel_ms(lambda: cm.gather_rescore(reps, body, bid),
-                     queue="spin")
+def rescore_row(cm, name: str, reps, body, bid, replay: list,
+                pipeline: bool = False) -> tuple:
+    """K3 (single buffer), K5 (segments) or K6 (``pipeline``) at one
+    selection: compared with the plain version, timed beside it, and
+    bounded over the distinct blocks; (name, queries, ids, segment count,
+    pipeline) joins ``replay`` for the stage breakdown. Returns (err, ms,
+    plain ms, (bound ms, bound by), None)."""
+    def run():
+        return cm.gather_rescore(reps, body, bid, pipeline=pipeline)
+
+    err = compare(name, run(), cm.gather_rescore_reference(reps, body, bid))
+    ms = kernel_ms(run)
+    spin = kernel_ms(run, queue="spin")
     plain_ms = cuda_time_ms(lambda: cm.gather_rescore_reference(
         reps, body, bid), 1, 5)
     b = rescore_bound(reps, bid)
@@ -269,33 +276,42 @@ def rescore_row(cm, name: str, reps, body, bid, replay: list) -> tuple:
         f"untimed call, {spin:.4f} ms behind a device spin, plain "
         f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]})")
     segs = len(body) if isinstance(body, tuple) else 1
-    replay.append((name, reps.clone(), bid.clone(), segs))
+    replay.append((name, reps.clone(), bid.clone(), segs, pipeline))
     return err, ms, plain_ms, b, None
 
 
 def phase_stages(dev, replay: list):
     """Each replayed rescore's device time by stage, over seeded rows of
-    the serving index's shape cut as the serve phase cut it."""
+    the serving index's shape cut as the serve phase cut it. K6 must show
+    as one device kernel per call and no memset."""
     from openmatch_tpu_torch.ops import cuda_mips as cm
     from openmatch_tpu_torch.perf import normal
 
     with torch.inference_mode():
         rows = normal((N_MSMARCO, D), 3, dev)
         bodies = {1: cm.prepare_plain_corpus(rows).plain}
-        for _, _, _, segs in replay:
+        for _, _, _, segs, _ in replay:
             if segs not in bodies:
                 bodies[segs] = cm.prepare_plain_corpus(rows, segs).plain
-        for name, reps, bid, segs in replay:
-            log(f"stages: {name}, device us per call by stage "
-                "(torch.profiler): " + stage_us(
-                    lambda: cm.gather_rescore(reps, bodies[segs], bid)))
+        for name, reps, bid, segs, pipe in replay:
+            ops = device_ops(lambda: cm.gather_rescore(
+                reps, bodies[segs], bid, pipeline=pipe))
+            log(f"stages: {name}, device us (launches) per call by stage "
+                "(torch.profiler): " + (", ".join(
+                    f"{n} {us:.1f} ({c:g})" for n, (us, c) in ops.items())
+                    or "no device time in the trace"))
+            want = {"gather_rescore_pipelined_kernel": 1.0}
+            if pipe and {n: c for n, (_, c) in ops.items()} != want:
+                raise AssertionError(f"stages: {name} ran {ops}, expected "
+                                     "one K6 kernel a call and no memset")
     del rows, bodies
     torch.cuda.empty_cache()
 
 
-def stage_us(fn, calls: int = 5) -> str:
-    """The mean device time per call of ``fn`` of each kernel and memset
-    it launches, from ``torch.profiler``: the rescore's stages."""
+def device_ops(fn, calls: int = 5) -> dict:
+    """{kernel or memset: (mean device us per call, launches per call)} of
+    what ``fn`` runs on the card, from ``torch.profiler``: the rescore's
+    stages."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -307,36 +323,28 @@ def stage_us(fn, calls: int = 5) -> str:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    parts = []
+    ops = {}
     for e in prof.key_averages():
         name = re.search(r"\w+_kernel|Memset", e.key)
         dt = getattr(e, "device_time_total", 0) or getattr(
             e, "cuda_time_total", 0)
         if name and dt:
-            parts.append(f"{name.group(0)} {dt / calls:.1f}")
-    return ", ".join(parts) or "no device time in the trace"
-
-
-def compare_mainloops(name: str, got: torch.Tensor, want: torch.Tensor):
-    """K11 (the wmma mainloop of score_tile.cuh) against a kernel of the
-    wgmma mainloop (score_tile_sm90.cuh) on the same inputs: the same
-    products, summed in fp32 in another order, so within REL_TOL and not
-    bit-equal; logs how many entries differ."""
-    compare(name, got, want)
-    log(f"  {name}: {int((got != want).sum())} of {got.numel()} entries "
-        "not bit-equal (allowed: the fp32 sums run in another order)")
+            us, n = ops.get(name.group(0), (0.0, 0.0))
+            ops[name.group(0)] = (us + dt / calls, n + e.count / calls)
+    return ops
 
 
 def check_k11(cm, q: torch.Tensor, body: torch.Tensor, label: str) -> float:
     """K11's four variants against their plain versions over the 8-doc
-    body: a3notr bit-equal to a3base transposed, a3mxutr within
-    MXU_TR_REL x |g| of a3base, a3base against K2 and a3nomax against
-    K8's every 8th score within REL_TOL (``compare_mainloops``). Returns
-    the largest max abs error against the plain versions."""
+    body; on the wgmma mainloop K2 and K8 run, a3base bit-equal to K2 and
+    a3nomax to K8's every 8th score; a3notr bit-equal to a3base
+    transposed, a3mxutr within MXU_TR_REL x |g| of a3base (entries not
+    bit-equal are counted). Returns the largest max abs error against the
+    plain versions."""
     err = 0.0
     base = cm.fused_gmax_phase(q, body, "a3base")
-    compare_mainloops(f"K11 a3base vs K2 {label}", base,
-                      cm.fused_plain_gmax(q, body))
+    if not torch.equal(base, cm.fused_plain_gmax(q, body)):
+        raise AssertionError(f"K11 a3base != K2 ({label})")
     for phase in cm.GMAX_PHASES:
         got = base if phase == "a3base" else cm.fused_gmax_phase(q, body,
                                                                  phase)
@@ -351,10 +359,12 @@ def check_k11(cm, q: torch.Tensor, body: torch.Tensor, label: str) -> float:
                                      f"beyond 2^-22 x |a3base| ({label})")
             log(f"  K11 a3mxutr {label}: {int((got != base).sum())} of "
                 f"{base.numel()} entries not bit-equal to a3base")
-        if phase == "a3nomax":
-            compare_mainloops(f"K11 a3nomax vs K8[:, ::8] {label}", got,
-                              cm.fused_scores(q, body)[:, ::8])
+        if phase == "a3nomax" and not torch.equal(
+                got, cm.fused_scores(q, body)[:, ::8]):
+            raise AssertionError(f"K11 a3nomax != K8[:, ::8] ({label})")
         del got
+    log(f"  K11 {label}: a3base == K2, a3nomax == K8[:, ::8], a3notr == "
+        "a3base.T, bit for bit")
     return err
 
 
@@ -863,17 +873,16 @@ def phase_serve(dev, replay: list) -> tuple:
         same_above_band("pipeline=True vs the default", s_p, i_p, s_k, i_k)
         s_c, i_c = cm.plain_topk_prepared(reps, prep, K, c_split=4)
         same_above_band("c_split=4 vs the default", s_c, i_c, s_k, i_k)
-        s6 = cm.gather_rescore(reps, prep.plain, bid, pipeline=True)
-        e6 = compare("full-scale K6 rescore", s6,
-                     cm.gather_rescore_reference(reps, prep.plain, bid))
-        t6 = kernel_ms(lambda: cm.gather_rescore(reps, prep.plain, bid,
-                                                 pipeline=True))
-        t6p = r3[2]  # K6's plain version is K3's
+        r6 = rescore_row(cm, "full-scale K6, serving selection", reps,
+                         prep.plain, bid, replay, pipeline=True)
+        r6d = rescore_row(cm, "full-scale K6, all-distinct selection", reps,
+                          prep.plain, distinct_selection(nb, reps.device),
+                          replay, pipeline=True)
         search_p = cuda_time_ms(lambda: cm.plain_topk_prepared(
             reps, prep, K, pipeline=True), 2, 10)
         search_c = cuda_time_ms(lambda: cm.plain_topk_prepared(
             reps, prep, K, c_split=4), 2, 10)
-        log(f"serve: at Q={MAX_BATCH}: K6 {t6:.4f} ms (plain {t6p:.4f}); "
+        log(f"serve: at Q={MAX_BATCH}: K6 {r6[1]:.4f} ms (plain {r6[2]:.4f}); "
             f"search with pipeline=True {search_p:.4f} ms, with c_split=4 "
             f"{search_c:.4f} ms")
     del searcher, service, prep, g1, l1
@@ -887,13 +896,16 @@ def phase_serve(dev, replay: list) -> tuple:
     rows = {
         "plain_gmax": (e1, t1, t1p, b1, None),
         "gather_rescore": r3, "gather_rescore_distinct": r3d,
-        "gather_rescore_pipelined": (e6, t6, t6p, r3[3], None),
+        "gather_rescore_pipelined": r6,
+        "gather_rescore_pipelined_distinct": r6d,
         **seg_table["timing"], **layout_table["timing"]}
     launches.update(seg_table["launches"])
     launches.update(layout_table["launches"])
     # the all-distinct rows time the main path's kernels at another selection
     launches["gather_rescore_distinct"] = launches["gather_rescore"]
     launches["gather_rescore_seg_distinct"] = launches["gather_rescore_seg"]
+    launches["gather_rescore_pipelined_distinct"] = launches[
+        "gather_rescore_pipelined"]
     return rows, launches
 
 

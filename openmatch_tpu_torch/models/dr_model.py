@@ -124,19 +124,25 @@ class DRModel(nn.Module):
 
     @classmethod
     def load(cls, ckpt_dir: str, dtype=torch.float32,
-             device="cpu") -> "DRModel":
+             device="cuda") -> "DRModel":
         """Read a JAX-package checkpoint directory; weights stay fp32 and
-        ``dtype`` is the compute dtype. Returns the model in eval mode."""
+        ``dtype`` is the compute dtype. Returns the model in eval mode on
+        ``device``: the card unless the caller names the CPU. The device is
+        resolved first, so asking for a card that is not there raises before
+        anything is read."""
+        device = resolve_device(device)
         with open(os.path.join(ckpt_dir, OPENMATCH_CONFIG)) as f:
             cfg = json.load(f)
         model = cls.from_config_dict(cfg, resolve_dtype(dtype))
         tree = read_flax_msgpack(os.path.join(ckpt_dir, "params.msgpack"))
         model.load_state_dict(params_from_jax(tree), strict=True)
-        return model.to(resolve_device(device)).eval()
+        return model.to(device).eval()
 
     @classmethod
-    def build(cls, model_args, device="cpu") -> "DRModel":
-        """``ModelArguments`` -> a loaded model (the drivers' entry)."""
+    def build(cls, model_args, device="cuda") -> "DRModel":
+        """``ModelArguments`` -> a loaded model (the drivers' entry), on the
+        card unless the caller names the CPU."""
+        device = resolve_device(device)
         path = model_args.model_name_or_path
         if path and os.path.exists(os.path.join(path, OPENMATCH_CONFIG)):
             return cls.load(path, dtype=model_args.dtype, device=device)

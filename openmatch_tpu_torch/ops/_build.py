@@ -40,7 +40,8 @@ SIGNATURES = {
                           _P),
     "gather_rescore_launch": (_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _P),
-    "gather_rescore_pipelined_launch": (_P, _P, _P, _P, _I, _I, _I, _LL, _P),
+    "gather_rescore_pipelined_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _LL, _P),
     "block_gmax_launch": (_P, _P, _P, _I, _I, _LL, _P),
     "scores_launch": (_P, _P, _P, _I, _I, _LL, _P),
     "score_gmax_launch": (_P, _P, _P, _P, _I, _I, _LL, _I, _P),

@@ -42,9 +42,9 @@ method reaches them there either):
 
 K8 is ``csrc/scores.cu``, K9 and K10 ``csrc/score_tiles.cu``; K7 is
 ``csrc/plain_gmax.cu`` behind its own entry point, since on the card ``cb``
-and the doc-major body are the same bytes. K1/K2/K4/K7 and K8 run on the
-Hopper mainloop of ``csrc/score_tile_sm90.cuh`` (TMA loads, ``wgmma``,
-persistent blocks); K9-K11 on the older ``csrc/score_tile.cuh``.
+and the doc-major body are the same bytes. K1/K2/K4/K7, K8 and K11 run on
+the Hopper mainloop of ``csrc/score_tile_sm90.cuh`` (TMA loads, ``wgmma``,
+persistent blocks); K9 and K10 on the older ``csrc/score_tile.cuh``.
 
 And the phase-ablation kernel of the perf scripts (``fused_gmax_phase``,
 K11, ``csrc/gmax_phases.cu``): K2's block maxima with one of four
@@ -71,7 +71,8 @@ from .mips import (FANOUT, NEG, _hier_topk, _select_groups, exact_search,
 logger = logging.getLogger(__name__)
 
 GROUP = 8
-MAX_PIPELINED_D = 6144  # the pipelined rescore holds 34 * D bytes of smem
+MAX_PIPELINED_D = 6144  # the deepest D the pipelined rescore is held to on
+# the card (csrc/gather_rescore_pipelined.cu takes the depth in 768 pieces)
 GMAX_CHUNK_BLOCKS = 8192  # plain gmax: fp32 staging of 64k corpus rows
 RESCORE_Q_CHUNK = 16  # plain rescore: [16, k, 8, D] fp32 rows at a time
 DEDUP_Q_CHUNK = 64  # gather_rescore.cu: one bit of a uint64 mask per query
@@ -396,7 +397,8 @@ def gather_rescore_dedup_reference(queries: torch.Tensor, plain: Body,
 
 
 def _dedup_scratch(nb: int, q_chunk: int, k: int, device):
-    """One allocation for ``csrc/gather_rescore.cu``'s scratch: each
+    """One allocation for the rescore kernels' scratch
+    (``csrc/gather_rescore.cu`` and ``gather_rescore_pipelined.cu``): each
     block's uint64 query mask plus the distinct-block count ((NB + 1) * 8
     bytes), each block's slot (int32 [NB]), and for the U = min(NB,
     q_chunk * k) distinct blocks a chunk can name, their ids (int32 [U])
@@ -413,21 +415,47 @@ def _dedup_scratch(nb: int, q_chunk: int, k: int, device):
     return buf, tuple(buf.data_ptr() + o for o in offsets)
 
 
+def _rescore_scratch(Q: int, nb: int, k: int, device):
+    """The scratch of one rescore call of Q queries: both kernels work in
+    rounds of at most 64 queries and reuse it from round to round, so it
+    is sized for one round (``_dedup_scratch``)."""
+    return _dedup_scratch(nb, min(Q, DEDUP_Q_CHUNK), k, device)
+
+
+def _check_rescore_operands(queries: torch.Tensor, segs: tuple,
+                            bids: torch.Tensor, pipeline: bool):
+    """What the rescore kernels take: bf16 queries and corpus, int32 ids,
+    D % 8 == 0 (and D <= MAX_PIPELINED_D with ``pipeline``), one device,
+    dense and 16-byte aligned."""
+    D = queries.shape[1]
+    if queries.dtype != torch.bfloat16 or any(
+            s.dtype != torch.bfloat16 for s in segs):
+        raise ValueError("the rescore kernel takes bf16 queries and corpus, "
+                         f"got {queries.dtype} and {segs[0].dtype}")
+    if bids.dtype != torch.int32:
+        raise ValueError(f"block ids must be int32, got {bids.dtype}")
+    if D % 8 or (pipeline and D > MAX_PIPELINED_D):
+        raise ValueError(f"the rescore kernel needs D % 8 == 0 (and D <= "
+                         f"{MAX_PIPELINED_D} with pipeline=True), got D={D}")
+    _check_cuda_operands("gather_rescore", queries, bids, *segs)
+
+
 def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
                    pipeline: bool = False) -> torch.Tensor:
     """out[q, j*8 + m] = <queries[q], doc bids[q, j]*8 + m>, fp32 [Q, k*8].
 
     ``plain`` is the doc-major body or its tuple of segments; block ids
     are global, and ids outside [0, NB) are clamped. ``pipeline=True``
-    selects the software-pipelined kernel, which takes a single buffer
-    only (as in the JAX package).
+    selects the pipelined kernel, which takes a single buffer only (as in
+    the JAX package).
 
     CPU tensors run ``gather_rescore_reference``; CUDA tensors (bf16
     operands, int32 ids) launch ``csrc/gather_rescore.cu`` (counted in
-    ``launches``, or ``seg_launches`` over more than one segment; it reads
+    ``launches``, or ``seg_launches`` over more than one segment: a memset
+    and four kernels per 64 queries) or ``csrc/gather_rescore_pipelined.cu``
+    (``pipelined_launches``: one cooperative kernel per call). Both read
     each distinct selected block once per 64 queries, with scratch from
-    the caching allocator) or ``csrc/gather_rescore_pipelined.cu``
-    (``pipelined_launches``)."""
+    the caching allocator (``_rescore_scratch``)."""
     segs = _segments(plain)
     NB = _check_body(queries, segs)
     if bids.dim() != 2 or bids.shape[0] != queries.shape[0]:
@@ -443,33 +471,25 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
 
     Q, D = queries.shape
     k = bids.shape[1]
-    if queries.dtype != torch.bfloat16 or any(
-            s.dtype != torch.bfloat16 for s in segs):
-        raise ValueError("the rescore kernel takes bf16 queries and corpus, "
-                         f"got {queries.dtype} and {segs[0].dtype}")
-    if bids.dtype != torch.int32:
-        raise ValueError(f"block ids must be int32, got {bids.dtype}")
-    if D % 8 or (pipeline and D > MAX_PIPELINED_D):
-        raise ValueError(f"the rescore kernel needs D % 8 == 0 (and D <= "
-                         f"{MAX_PIPELINED_D} with pipeline=True), got D={D}")
-    _check_cuda_operands("gather_rescore", queries, bids, *segs)
+    _check_rescore_operands(queries, segs, bids, pipeline)
     out = torch.empty((Q, k * GROUP), dtype=torch.float32,
                       device=queries.device)
     if Q and k:
         lib = load_library()
         stream = torch.cuda.current_stream(queries.device).cuda_stream
+        # freed on return: the caching allocator gives the block out again
+        # only to work queued after this launch on this stream
+        _scratch, (mask, slot, ulist, scores) = _rescore_scratch(
+            Q, NB, k, queries.device)
         if pipeline:
             rc = lib.gather_rescore_pipelined_launch(
                 queries.data_ptr(), segs[0].data_ptr(), bids.data_ptr(),
-                out.data_ptr(), Q, D, k, NB, stream)
+                out.data_ptr(), mask, slot, ulist, scores, Q, D, k, NB,
+                stream)
             check(rc, "gather_rescore_pipelined")
             gather_rescore.pipelined_launches += 1
         else:
             base, blk0 = _seg_table(segs)
-            # freed on return: the caching allocator gives the block out
-            # again only to work queued after these launches on this stream
-            _scratch, (mask, slot, ulist, scores) = _dedup_scratch(
-                NB, min(Q, DEDUP_Q_CHUNK), k, queries.device)
             rc = lib.gather_rescore_launch(
                 queries.data_ptr(), base, blk0, len(segs), bids.data_ptr(),
                 out.data_ptr(), mask, slot, ulist, scores, Q, D, k, stream)

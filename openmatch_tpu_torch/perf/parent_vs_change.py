@@ -20,11 +20,12 @@ The cases are the main path's shapes, made from a seed on the card:
   ``SERVING_QUERIES_PER_BLOCK``, replayed over seeded blocks by
   ``replay_selection``), "uniform" (each query draws 1,000 of one seeded
   pool of 5,010 blocks, so every block has about 13 queries) and
-  "all-distinct" (64,000 blocks of a seeded permutation); K3 at the perf
-  twin's ``resc0`` shape (Q=512, k=1000 seeded ids over 276,307 blocks);
-  K1 and K11 (a3base) at Q=512 over 276,480 blocks. Each tree's rescore
-  entry point is called with its own signature, as its
-  ``_build.SIGNATURES`` declares it.
+  "all-distinct" (64,000 blocks of a seeded permutation); K6, the
+  pipelined rescore, at the same three selections; K3 and K6 at the perf
+  twins' ``resc0``/``resc`` shape (Q=512, k=1000 seeded ids over 276,307
+  blocks); K1 and K11's four phases at Q=512 over 276,480 blocks. Each
+  tree's rescore entry points are called with their own signatures, as
+  its ``_build.SIGNATURES`` declares them.
 - the whole search through each tree's own code: ``Searcher.search`` and
   ``plain_topk_prepared`` at Q=64, k=1000, over the single buffer and over
   6 segments. The rows are a seeded mean vector plus N(0, 1) noise and the
@@ -176,14 +177,29 @@ def kernel_cases(dev: torch.device, corpus: torch.Tensor, q64, segs):
                                      gmax.data_ptr(), l1.data_ptr(), 64, D,
                                      0, nb, nb, f, stream)
 
+    def scratch_args(fn, name):
+        """The scratch pointers where the tree's entry point takes them
+        (this tree's signature), else none (an older tree's)."""
+        return dedup if len(fn.argtypes) == len(_build.SIGNATURES[name]) \
+            else ()
+
     def k3(lib, bids, tab=one, n=1, q=q64):
         """The tree's own rescore signature: with the scratch pointers
         (14 arguments) or without them (10)."""
-        scratch_args = dedup if len(lib.gather_rescore_launch.argtypes) \
-            == len(_build.SIGNATURES["gather_rescore_launch"]) else ()
-        return lib.gather_rescore_launch(
-            q.data_ptr(), tab[0], tab[1], n, bids.data_ptr(),
-            rescored.data_ptr(), *scratch_args, q.shape[0], D, K, stream)
+        fn = lib.gather_rescore_launch
+        return fn(q.data_ptr(), tab[0], tab[1], n, bids.data_ptr(),
+                  rescored.data_ptr(),
+                  *scratch_args(fn, "gather_rescore_launch"), q.shape[0], D,
+                  K, stream)
+
+    def k6(lib, bids, rows=body, q=q64):
+        """The tree's own pipelined-rescore signature: with the scratch
+        pointers (13 arguments) or without them (9)."""
+        fn = lib.gather_rescore_pipelined_launch
+        return fn(q.data_ptr(), rows.data_ptr(), bids.data_ptr(),
+                  rescored.data_ptr(),
+                  *scratch_args(fn, "gather_rescore_pipelined_launch"),
+                  q.shape[0], D, K, rows.shape[0] // 8, stream)
 
     rescore_cases = {}
     for sel, bids in selections.items():
@@ -192,6 +208,8 @@ def kernel_cases(dev: torch.device, corpus: torch.Tensor, q64, segs):
         if six:
             rescore_cases[f"K5 Q=64 8.8M 6 segments {sel}"] = \
                 lambda lib, b=bids: k3(lib, b, six, N_SEGS)
+        rescore_cases[f"K6 Q=64 8.8M {sel}"] = \
+            lambda lib, b=bids: k6(lib, b)
     k4 = {"K4 Q=64 8.8M 6 segments": lambda lib: k1(lib, six, N_SEGS)} \
         if six else {}
 
@@ -212,12 +230,15 @@ def kernel_cases(dev: torch.device, corpus: torch.Tensor, q64, segs):
             2048, stream),
         **rescore_cases,
         "K3 Q=512 2.2M resc0": lambda lib: k3(lib, resc0, big, 1, q512),
+        "K6 Q=512 2.2M resc": lambda lib: k6(lib, resc0, perf, q512),
         "K1 Q=512 2.2M": lambda lib: lib.plain_gmax_launch(
             q512.data_ptr(), big[0], big[1], 1, g512.data_ptr(),
             l512.data_ptr(), 512, D, 0, PERF_BLOCKS, PERF_BLOCKS, f, stream),
-        "K11 a3base Q=512 2.2M": lambda lib: lib.gmax_phase_launch(
-            q512.data_ptr(), perf.data_ptr(), g512.data_ptr(), 512, D,
-            PERF_BLOCKS, cm.GMAX_PHASES["a3base"], stream),
+        **{f"K11 {phase} Q=512 2.2M": (
+            lambda lib, i=i: lib.gmax_phase_launch(
+                q512.data_ptr(), perf.data_ptr(), g512.data_ptr(), 512, D,
+                PERF_BLOCKS, i, stream))
+           for phase, i in cm.GMAX_PHASES.items()},
     }, keep
 
 

@@ -172,6 +172,62 @@ def test_wrappers_reject_bad_windows_and_shapes():
         cm.gather_rescore(q, plain, torch.zeros(3, 4, dtype=torch.int32))
 
 
+def rescore_operands(D=16, Q=2, **kw):
+    """CPU stand-ins for the rescore kernel's operands, one of them made
+    wrong by ``kw``."""
+    ops = dict(q=torch.zeros(Q, D, dtype=torch.bfloat16),
+               body=torch.zeros(8 * 4, D, dtype=torch.bfloat16),
+               bids=torch.zeros(Q, 3, dtype=torch.int32))
+    ops.update(kw)
+    return ops["q"], (ops["body"],), ops["bids"]
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+@pytest.mark.parametrize("case,match", [
+    (dict(q=torch.zeros(2, 16)), "bf16"),
+    (dict(body=torch.zeros(32, 16)), "bf16"),
+    (dict(bids=torch.zeros(2, 3, dtype=torch.int64)), "int32"),
+    (dict(D=12, q=torch.zeros(2, 12, dtype=torch.bfloat16)), "D % 8"),
+    (dict(bids=torch.zeros(3, 2, dtype=torch.int32).T), "contiguous"),
+])
+def test_rescore_kernels_refuse_what_they_do_not_take(case, match, pipeline):
+    """What a CUDA tensor must be for K3/K5 and for K6 (the checks run
+    before either launch; on the CPU the wrapper takes the plain path)."""
+    case = dict(case)
+    D = case.pop("D", 16)
+    q, segs, bids = rescore_operands(D, **case)
+    with pytest.raises(ValueError, match=match):
+        cm._check_rescore_operands(q, segs, bids, pipeline)
+
+
+def test_pipelined_rescore_depth_limit():
+    """K6 takes D up to MAX_PIPELINED_D; K3 any D % 8 == 0."""
+    for D in (cm.MAX_PIPELINED_D, cm.MAX_PIPELINED_D + 8):
+        q, segs, bids = rescore_operands(D)
+        cm._check_rescore_operands(q, segs, bids, False)
+        if D > cm.MAX_PIPELINED_D:
+            with pytest.raises(ValueError, match="pipeline=True"):
+                cm._check_rescore_operands(q, segs, bids, True)
+        else:
+            cm._check_rescore_operands(q, segs, bids, True)
+
+
+@pytest.mark.parametrize("Q,nb,k,slots", [
+    (512, 1_105_227, 1000, 64_000),  # eight rounds share one round's slots
+    (1, 1_105_227, 1000, 1000),  # one query names at most k blocks
+    (65, 100, 1000, 100),  # a small corpus: its blocks bound the slots
+])
+def test_rescore_scratch_holds_one_round(Q, nb, k, slots):
+    """Both rescore kernels get mask + count, slot, ulist and scores sized
+    for one round of min(Q, 64) queries, each part 256-byte aligned (the
+    kernels move scores as float4)."""
+    buf, ptrs = cm._rescore_scratch(Q, nb, k, torch.device("cpu"))
+    sizes = (8 * (nb + 1), 4 * nb, 4 * slots, 4 * slots * 64 * 8)
+    ends = np.cumsum([-(-s // 256) * 256 for s in sizes])
+    assert buf.numel() == ends[-1]
+    assert [p - buf.data_ptr() for p in ptrs] == [0, *ends[:-1]]
+
+
 def _c_kind(param: str):
     """The ctypes type an ``extern "C"`` parameter needs."""
     if "*" in param:
@@ -290,6 +346,22 @@ def test_cuda_gather_rescore_segments_and_pipeline(cuda_device, pipeline):
     assert_kernel_close(got, cm.gather_rescore_reference(q, segs, bids))
 
 
+def card_selection(device, selection: str, Q: int, k: int, NB: int):
+    """[Q, k] int32 block ids: every (query, slot) pair its own block
+    ("distinct"), every pair the same block ("same"), or random ids with a
+    repeat in each row and ids out of range ("random")."""
+    g = torch.Generator(device=device).manual_seed(72)
+    if selection == "distinct":
+        bids = torch.randperm(NB, generator=g, device=device)[:Q * k]
+        return bids.view(Q, k).to(torch.int32)
+    if selection == "same":
+        return torch.full((Q, k), NB // 2, dtype=torch.int32, device=device)
+    bids = torch.randint(0, NB, (Q, k), generator=g, device=device,
+                         dtype=torch.int32)
+    bids[:, 0], bids[:, 1], bids[:, 2] = -3, NB + 7, bids[:, 3]
+    return bids
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [768, 776, 4096])
 @pytest.mark.parametrize("Q", [1, 64, 65, 512])
@@ -304,17 +376,7 @@ def test_cuda_gather_rescore_selections(cuda_device, selection, Q, D):
     corpus = card_data(cuda_device, 70, 8 * NB, D)
     segs = cm.prepare_plain_corpus(corpus, n_segs=3).plain
     q = card_data(cuda_device, 71, Q, D)
-    g = torch.Generator(device=cuda_device).manual_seed(72)
-    if selection == "distinct":
-        bids = torch.randperm(NB, generator=g, device=cuda_device)[:Q * k]
-        bids = bids.view(Q, k).to(torch.int32)
-    elif selection == "same":
-        bids = torch.full((Q, k), NB // 2, dtype=torch.int32,
-                          device=cuda_device)
-    else:
-        bids = torch.randint(0, NB, (Q, k), generator=g, device=cuda_device,
-                             dtype=torch.int32)
-        bids[:, 0], bids[:, 1], bids[:, 2] = -3, NB + 7, bids[:, 3]
+    bids = card_selection(cuda_device, selection, Q, k, NB)
     before = (cm.gather_rescore.launches, cm.gather_rescore.seg_launches)
     got = cm.gather_rescore(q, corpus, bids)
     got5 = cm.gather_rescore(q, segs, bids)
@@ -322,6 +384,29 @@ def test_cuda_gather_rescore_selections(cuda_device, selection, Q, D):
         == (before[0] + 1, before[1] + 1)
     assert_kernel_close(got, cm.gather_rescore_reference(q, corpus, bids))
     assert torch.equal(got5, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [768, 776, 4096, 6144])
+@pytest.mark.parametrize("Q", [1, 64, 65, 512])
+@pytest.mark.parametrize("selection", ["distinct", "same", "random"])
+def test_cuda_gather_rescore_pipelined_selections(cuda_device, selection, Q,
+                                                  D):
+    """K6 (one cooperative launch) against the plain version at the same
+    selections as K3: Q across the 64-query rounds; D = 776 leaves a
+    second 768-deep piece of 8, D = 4096 and 6144 walk the blocks in 6 and
+    8 pieces. Two calls give the same bits (the quarters' sums meet in a
+    fixed order, whatever slot the claim gives a block)."""
+    NB, k = 40_000, 64
+    corpus = card_data(cuda_device, 70, 8 * NB, D)
+    q = card_data(cuda_device, 71, Q, D)
+    bids = card_selection(cuda_device, selection, Q, k, NB)
+    before = cm.gather_rescore.pipelined_launches
+    got = cm.gather_rescore(q, corpus, bids, pipeline=True)
+    again = cm.gather_rescore(q, corpus, bids, pipeline=True)
+    assert cm.gather_rescore.pipelined_launches == before + 2
+    assert_kernel_close(got, cm.gather_rescore_reference(q, corpus, bids))
+    assert torch.equal(again, got)
 
 
 @pytest.mark.cuda

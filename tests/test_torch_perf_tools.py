@@ -14,6 +14,7 @@ import torch
 from openmatch_tpu_torch.ops import cuda_mips as cm
 from openmatch_tpu_torch.ops.mips import Searcher
 from openmatch_tpu_torch.perf import event_ms, spin_ms, time_ms
+from openmatch_tpu_torch.perf import ablate
 from openmatch_tpu_torch.perf import parent_vs_change as pvc
 
 REPO = Path(__file__).resolve().parents[1]
@@ -100,6 +101,23 @@ def test_dedup_scratch_holds_the_distinct_blocks_a_chunk_can_name(nb, k,
     ends = np.cumsum([-(-s // 256) * 256 for s in sizes])
     assert buf.numel() == ends[-1]
     assert [p - buf.data_ptr() for p in ptrs] == [0, *ends[:-1]]
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    (kernel, variant) for kernel, (_, variants, _) in ablate.KERNELS.items()
+    for variant in variants])
+def test_ablate_variants_follow_the_source(tmp_path, kernel, variant):
+    """Every ablation's text edits are found in its kernel's source and
+    applied to the copy (a variant whose edit no longer matches would
+    raise on the card), and the package itself is left as it is."""
+    src, variants, _ = ablate.KERNELS[kernel]
+    before = (ablate.PKG / src).read_text()
+    root = ablate.make_variant(tmp_path, src, variants[variant])
+    text = (root / "openmatch_tpu_torch" / src).read_text()
+    for old, new in variants[variant]:
+        assert old in before and new in text
+    assert (text == before) == (not variants[variant])
+    assert (ablate.PKG / src).read_text() == before
 
 
 @pytest.mark.cuda

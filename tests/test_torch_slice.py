@@ -118,6 +118,32 @@ def test_checkpoint_from_jax_encodes_the_same(tmp_path):
         np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
 
 
+@pytest.mark.parametrize("entry", ["load", "build"])
+def test_dr_model_defaults_to_the_card(tmp_path, monkeypatch, entry):
+    """``DRModel.load`` and ``DRModel.build`` with no device ask for the
+    card: on a host without one they raise, and only a caller that names
+    the CPU gets a CPU model."""
+    from openmatch_tpu_torch.config import ModelArguments as PortModelArguments
+
+    jm = JaxDRModel(encoder_config=JaxBertConfig(**CFG), dtype=jnp.float32)
+    jm.save(jm.init_params(jax.random.PRNGKey(6)), str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = PortModelArguments(model_name_or_path=str(tmp_path),
+                              dtype="float32")
+
+    def call(**kw):
+        if entry == "load":
+            return DRModel.load(str(tmp_path), dtype="float32", **kw)
+        return DRModel.build(args, **kw)
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call(device="cuda")
+    model = call(device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_port_retrieve_driver_reproduces_jax_run(workspace, jax_index):
     from openmatch_tpu_torch.drivers import retrieve
 
