@@ -81,6 +81,27 @@ Phases, in order; any failure raises and the script exits non-zero:
             (the stages' work depends on the block ids, not the values);
             K6 must show as exactly one device kernel per call and no
             memset.
+7. train    the training chain through the drivers' main functions, on
+            inputs written from a seeded generator into a temporary
+            directory: a raw HuggingFace-layout BERT-base checkpoint
+            (config.json, pytorch_model.bin; dropout 0.1), 32,768
+            pre-tokenized passages of 128 tokens, 512 training queries of
+            32 tokens (each a sample of its positive's tokens, with 7
+            negatives) and 256 dev queries with qrels. train_dr (mean
+            pooling, bf16 compute, 8 queries x 8 passages a step, 30
+            steps, checkpoints at 15 and 30) must log finite losses; its median step time,
+            tokens/s and peak memory are printed. The saved model must
+            load (DRModel.load, the port's own msgpack codec) and encode
+            bit-equal to the trainer's. At BERT-base width in fp32, a
+            GradCache step (4 query x 8 passage chunks) must give the
+            plain step's loss and gradients (GC_REL), both timed, and 20
+            steps on one batch must lower the loss. Then build_index (4
+            shards), retrieve at depth 100 (K1 and K3 must launch),
+            successive_retrieve (equal to retrieve above the tie band) and
+            evaluate (MRR@10), which must equal an fp32 audit over the
+            saved shards, ranks read with the serve audit's tie band.
+            Last, three train_steps under torch.profiler: device time by
+            kernel and the device-busy share of the host's time.
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -92,6 +113,7 @@ raises before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -553,7 +575,14 @@ class WhitespaceTokenizer:
                for w in text.split()]
         if max_length is not None:
             ids = ids[:max_length - 2]
-        return {"input_ids": [self.cls_token_id] + ids + [self.sep_token_id]}
+        return {"input_ids": self.build_inputs_with_special_tokens(ids)}
+
+    def num_special_tokens_to_add(self, pair: bool = False) -> int:
+        return 3 if pair else 2
+
+    def build_inputs_with_special_tokens(self, a, b=None):
+        out = [self.cls_token_id] + list(a) + [self.sep_token_id]
+        return out if b is None else out + list(b) + [self.sep_token_id]
 
 
 class SyntheticDocIds:
@@ -655,7 +684,7 @@ def audit(reps: torch.Tensor, index: torch.Tensor, results, doc_pos) -> float:
     return worst
 
 
-def same_above_band(name: str, s_a, i_a, s_b, i_b):
+def same_above_band(name: str, s_a, i_a, s_b, i_b, phase: str = "serve"):
     """Two top-k answers [Q, K] agree: scores within AUDIT_REL x max|score|,
     and each answer holds every doc the other scores above the k-th score's
     tie band of ``s_b``. (Two paths that sum a doc's score in another order
@@ -672,7 +701,7 @@ def same_above_band(name: str, s_a, i_a, s_b, i_b):
                     i_a[r].tolist()):
             raise AssertionError(f"{name}: row {r} differs above the tie "
                                  f"band (score err {err}, tolerance {tol})")
-    log(f"serve: {name}: equal above the tie band for {s_b.shape[0]} rows")
+    log(f"{phase}: {name}: equal above the tie band for {s_b.shape[0]} rows")
 
 
 def serve_http(service, requests, cm) -> tuple:
@@ -1200,7 +1229,467 @@ def phase_perf(dev) -> tuple:
             {"gmax_phase": launches["gmax_phase"]})
 
 
-PHASES = ("device", "build", "kernels", "serve", "perf", "stages")
+
+# ---- train: the training chain through the drivers ------------------------
+
+TRAIN_PASSAGES, TRAIN_QUERIES, DEV_QUERIES = 32_768, 512, 256
+Q_LEN, P_LEN, N_PSG, TRAIN_BATCH = 32, 128, 8, 8
+TRAIN_LR = 1e-5
+GC_REL = 1e-2  # GradCache vs plain in fp32: |gc - plain| <= GC_REL x max|plain|
+# per gradient tensor: the same sums in another order, which cancel where
+# random-init reps are alike; a chunk replayed wrongly is off by O(1)
+GC_LOSS_REL = 1e-4  # the loss: a logsumexp over scores of ~|700| at this
+# init, each summed over 768 products in another order
+
+
+def hf_bert_base(rng: np.random.Generator, cfg, path: str):
+    """A raw HuggingFace-layout BERT-base checkpoint from seeded weights:
+    config.json and pytorch_model.bin under HF's key names."""
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+
+    def n(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * 0.02)
+
+    def ln(prefix):
+        return {f"{prefix}.weight": torch.ones(d),
+                f"{prefix}.bias": torch.zeros(d)}
+
+    # unit-variance word embeddings: after embeddings_ln a token's identity,
+    # not its position, dominates its hidden state (as in a pretrained
+    # model), so mean-pooled reps tell passages apart from the first step
+    sd = {"embeddings.word_embeddings.weight": n(cfg.vocab_size, d) / 0.02,
+          "embeddings.position_embeddings.weight":
+              n(cfg.max_position_embeddings, d),
+          "embeddings.token_type_embeddings.weight":
+              n(cfg.type_vocab_size, d),
+          **ln("embeddings.LayerNorm")}
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}"
+        for name in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense"):
+            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = n(d, d), n(d)
+        sd.update(ln(f"{p}.attention.output.LayerNorm"))
+        sd[f"{p}.intermediate.dense.weight"] = n(ff, d)
+        sd[f"{p}.intermediate.dense.bias"] = n(ff)
+        sd[f"{p}.output.dense.weight"] = n(d, ff)
+        sd[f"{p}.output.dense.bias"] = n(d)
+        sd.update(ln(f"{p}.output.LayerNorm"))
+    sd["pooler.dense.weight"], sd["pooler.dense.bias"] = n(d, d), n(d)
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "bert", "vocab_size": cfg.vocab_size,
+                   "hidden_size": d, "num_hidden_layers":
+                   cfg.num_hidden_layers, "num_attention_heads":
+                   cfg.num_attention_heads, "intermediate_size": ff,
+                   "hidden_act": "gelu", "max_position_embeddings":
+                   cfg.max_position_embeddings, "type_vocab_size":
+                   cfg.type_vocab_size, "layer_norm_eps": 1e-12,
+                   "pad_token_id": 0, "hidden_dropout_prob": 0.1,
+                   "attention_probs_dropout_prob": 0.1}, f)
+
+
+def write_train_data(rng: np.random.Generator, vocab: int, root: str):
+    """Pre-tokenized corpus, train.jsonl, dev queries and qrels: each query
+    is a sample of its positive passage's tokens."""
+    body = P_LEN - 2
+    corpus = rng.integers(1000, vocab, (TRAIN_PASSAGES, body))
+    picks = rng.permutation(TRAIN_PASSAGES)[:TRAIN_QUERIES + DEV_QUERIES]
+
+    def query(pos):
+        cols = rng.choice(body, Q_LEN - 2, replace=False)
+        return corpus[pos, np.sort(cols)].tolist()
+
+    with open(os.path.join(root, "corpus.jsonl"), "w") as f:
+        for i, row in enumerate(corpus):
+            f.write(json.dumps({"id": f"d{i}", "text": row.tolist()}) + "\n")
+    with open(os.path.join(root, "train.jsonl"), "w") as f:
+        for pos in picks[:TRAIN_QUERIES]:
+            negs = rng.integers(0, TRAIN_PASSAGES, N_PSG - 1)
+            f.write(json.dumps({
+                "query": query(pos), "positives": [corpus[pos].tolist()],
+                "negatives": [corpus[j].tolist() for j in negs]}) + "\n")
+    with open(os.path.join(root, "dev.jsonl"), "w") as f, \
+            open(os.path.join(root, "dev.qrels"), "w") as g:
+        for i, pos in enumerate(picks[TRAIN_QUERIES:]):
+            f.write(json.dumps({"id": f"q{i}", "text": query(pos)}) + "\n")
+            g.write(f"q{i} 0 d{pos} 1\n")
+
+
+def fixed_batch(root: str, tok, rows: int = TRAIN_BATCH) -> dict:
+    """The first ``rows`` training examples, collated as the driver does."""
+    from openmatch_tpu_torch.config import DataArguments
+    from openmatch_tpu_torch.data.collators import QPCollator
+    from openmatch_tpu_torch.data.train_dataset import DRTrainDataset
+
+    ds = DRTrainDataset(tok, DataArguments(
+        train_path=os.path.join(root, "train.jsonl"), q_max_len=Q_LEN,
+        p_max_len=P_LEN, train_n_passages=N_PSG))
+    it = ds.epoch_iterator(0, None)
+    return QPCollator(0, Q_LEN, P_LEN)([next(it) for _ in range(rows)])
+
+
+def step_ms(trainer, batch, reps: int = 3) -> float:
+    """Median host time of ``trainer.train_step`` ending in a sync, ms."""
+    times = []
+    for _ in range(reps + 1):
+        sync(trainer.device)
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        sync(trainer.device)
+        times.append((time.perf_counter() - t0) * 1000)
+    return float(np.median(times[1:]))
+
+
+def check_grad_cache(dev, model_fp32, batch) -> None:
+    """At BERT-base width in fp32 (dropout off): a GradCache step with 4
+    query chunks and 8 passage chunks gives the plain step's loss and
+    gradients; both steps are timed."""
+    from openmatch_tpu_torch.config import TrainingArguments
+    from openmatch_tpu_torch.train.dr_trainer import DRTrainer
+
+    args = dict(learning_rate=1e-5, warmup_steps=0, warmup_ratio=0.0,
+                per_device_train_batch_size=TRAIN_BATCH)
+    plain = DRTrainer(model_fp32, TrainingArguments(**args), 100, dev)
+    gc = DRTrainer(model_fp32, TrainingArguments(
+        grad_cache=True, gc_q_chunk_size=TRAIN_BATCH // 4,
+        gc_p_chunk_size=TRAIN_BATCH * N_PSG // 8, **args), 100, dev)
+    loss_p = plain.loss_and_grads(batch).item()
+    grads = {n: p.grad.clone() for n, p in model_fp32.named_parameters()
+             if p.grad is not None}
+    loss_g = gc.loss_and_grads(batch).item()
+    worst = 0.0
+    for n, p in model_fp32.named_parameters():
+        if n not in grads:
+            continue
+        scale = grads[n].abs().max().item()
+        err = (p.grad - grads[n]).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if not err <= GC_REL * scale:
+            raise AssertionError(f"train: GradCache gradient of {n} off by "
+                                 f"{err} > {GC_REL} x {scale}")
+    if not abs(loss_g - loss_p) <= GC_LOSS_REL * abs(loss_p):
+        raise AssertionError(f"train: GradCache loss {loss_g} != plain "
+                             f"{loss_p}")
+    model_fp32.zero_grad(set_to_none=True)
+    log(f"train: GradCache (4 query x 8 passage chunks) vs plain at "
+        f"BERT-base fp32: loss {loss_g!r} vs {loss_p!r} (tolerance "
+        f"{GC_LOSS_REL} relative); worst gradient tensor max|diff| / "
+        f"max|plain| {worst:.3e} (tolerance {GC_REL})")
+    log(f"train: fp32 step time, {TRAIN_BATCH} queries x {N_PSG} passages: "
+        f"plain {step_ms(plain, batch):.2f} ms, GradCache "
+        f"{step_ms(gc, batch):.2f} ms")
+
+
+def check_learns(dev, model_fp32, batch) -> None:
+    """20 train_steps on one fixed batch (warmup 0): the loss must fall."""
+    from openmatch_tpu_torch.config import TrainingArguments
+    from openmatch_tpu_torch.train.dr_trainer import DRTrainer
+
+    trainer = DRTrainer(model_fp32, TrainingArguments(
+        learning_rate=1e-4, warmup_steps=0, warmup_ratio=0.0), 20, dev)
+    losses = [trainer.train_step(batch).item() for _ in range(20)]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train: overfitting one batch did not lower "
+                             f"the loss: {losses}")
+    log(f"train: 20 steps on one batch: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+
+
+def run_ranks(path: str, doc_pos, dev) -> tuple:
+    """A TREC run -> (qids, scores [Q, K], doc positions [Q, K]) on
+    ``dev``, rows in the run's score order."""
+    from openmatch_tpu_torch.utils.trec import load_from_trec
+
+    run = load_from_trec(path)
+    qids = sorted(run, key=lambda q: int(q[1:]))
+    rows = [sorted(run[q].items(), key=lambda x: -x[1]) for q in qids]
+    s = torch.tensor([[v for _, v in r] for r in rows], device=dev)
+    i = torch.tensor([[doc_pos[d] for d, _ in r] for r in rows], device=dev)
+    return qids, s, i
+
+
+def audit_mrr(dev, root, ckpt, emb_dir, tok, mrr, per_query) -> None:
+    """MRR@10 from fp32 scores of the re-encoded dev queries against every
+    saved passage (as the index holds them, in bf16): each query's
+    reciprocal rank must be the one evaluate gave it, where the relevant
+    doc's rank is read off with the audit's tie band (AUDIT_REL x
+    max|score|): docs within the band of its score may rank either side.
+    The mean, summed in evaluate's order, must equal evaluate's figure."""
+    from openmatch_tpu_torch.config import DataArguments
+    from openmatch_tpu_torch.data.inference_dataset import InferenceDataset
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.retriever.encoder import (encode_dataset,
+                                                       list_shards,
+                                                       load_embeddings)
+
+    embs, ids = [], []
+    for path in list_shards(emb_dir, "corpus"):
+        e, i = load_embeddings(path)
+        embs.append(e)
+        ids.extend(i)
+    pos_of = {d: i for i, d in enumerate(ids)}
+    index = torch.from_numpy(np.concatenate(embs)).to(torch.bfloat16).to(dev)
+    model = DRModel.load(ckpt, dtype="bfloat16", device=dev)
+    queries = InferenceDataset.load(tok, DataArguments(
+        query_path=os.path.join(root, "dev.jsonl"), q_max_len=Q_LEN),
+        is_query=True)
+    q_emb, q_ids = encode_dataset(model, queries, 256, Q_LEN, 0,
+                                  is_query=True, device=dev)
+    q = torch.from_numpy(q_emb).to(torch.bfloat16).to(dev)
+    qrels = {}
+    with open(os.path.join(root, "dev.qrels")) as f:
+        for line in f:
+            qid, _, doc, _ = line.split()
+            qrels[qid] = doc
+    if q_ids != [x for x in per_query if x != "all"]:
+        raise AssertionError("train: the run's queries are not the dev set")
+    pos = torch.tensor([pos_of[qrels[x]] for x in q_ids], device=dev)
+    scores = q.float() @ index.float().T
+    exact = scores.gather(1, pos[:, None])[:, 0]
+    tol = AUDIT_REL * scores.abs().amax(1)
+    best = (scores > (exact + tol)[:, None]).sum(1) + 1
+    worst = (scores >= (exact - tol)[:, None]).sum(1)
+    banded, total = 0, 0.0
+    for r, qid in enumerate(q_ids):
+        lo, hi = int(best[r]), int(worst[r])
+        allowed = {1.0 / k if k <= 10 else 0.0 for k in range(lo, hi + 1)}
+        banded += lo != hi
+        if per_query[qid] not in allowed:
+            raise AssertionError(f"train: audit of {qid}: evaluate gave RR "
+                                 f"{per_query[qid]}, the fp32 ranks "
+                                 f"{lo}-{hi} allow {sorted(allowed)}")
+        total += per_query[qid]
+    audit = total / len(q_ids)
+    if audit != mrr:
+        raise AssertionError(f"train: audited MRR@10 {audit} != evaluate's "
+                             f"{mrr}")
+    log(f"train: fp32 audit over {len(ids)} docs: MRR@10 {audit:.6f} equals "
+        f"evaluate's; {banded} of {len(q_ids)} queries had another doc "
+        "within the tie band of their relevant doc")
+
+
+def profile_steps(trainer, batch, step_ms: float, steps: int = 3):
+    """The card's work in a few ``train_step``s (torch.profiler, after every
+    timing): device time by kernel, the matmuls' share and launches a
+    step, and the device-busy share of ``step_ms``, the step's median
+    time without the profiler (whose own host cost slows the steps it
+    records). The GPU ranges of torch's ``Optimizer.step#...`` annotations
+    span kernels already counted and are left out."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and dev_us(e)
+           and not e.key.startswith("Optimizer.")]
+    busy = sum(dev_us(e) for e in ops)
+    if not busy:
+        log("train: profile of train_step: no device time in the trace")
+        return
+    mm = sum(dev_us(e) for e in ops
+             if re.search(r"gemm|nvjet|xmma|cutlass", e.key, re.I))
+    top = sorted(ops, key=dev_us, reverse=True)[:6]
+    log(f"train: profile of {steps} train_steps (torch.profiler): device "
+        f"{busy / steps / 1000:.2f} ms a step in "
+        f"{sum(e.count for e in ops) / steps:.0f} launches, of which "
+        f"matmul kernels {mm / steps / 1000:.2f} ms; device busy "
+        f"{busy / steps / 1000 / step_ms:.1%} of the {step_ms:.2f} ms median "
+        f"step (host {wall_us / steps / 1000:.2f} ms a step under the "
+        "profiler); top kernels (ms a step, launches a step): "
+        + "; ".join(
+            f"{re.sub(r'void |at::native::|<.*', '', e.key)[:60]} "
+            f"{dev_us(e) / steps / 1000:.2f} "
+            f"({e.count / steps:g})" for e in top))
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_train(dev, cfg=None) -> dict:
+    """train_dr -> build_index -> retrieve -> successive_retrieve ->
+    evaluate through the drivers' main functions on ``dev`` at BERT-base
+    width (``cfg``), with the checks of the training step between. Returns
+    the retrieve step's kernel launches."""
+    from openmatch_tpu_torch.config import ModelArguments
+    from openmatch_tpu_torch.drivers import (build_index, evaluate, retrieve,
+                                             successive_retrieve, train_dr)
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.train import dr_trainer
+    from openmatch_tpu_torch.utils.metrics import (eval_mrr, load_qrels,
+                                                   load_run)
+
+    cfg = cfg or BertConfig()
+    tok = WhitespaceTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(9)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        hf_dir, out = os.path.join(root, "hf"), os.path.join(root, "model")
+        hf_bert_base(rng, cfg, hf_dir)
+        write_train_data(rng, cfg.vocab_size, root)
+        log(f"train: HF BERT-base checkpoint, {TRAIN_PASSAGES} passages, "
+            f"{TRAIN_QUERIES} train and {DEV_QUERIES} dev queries written in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # 1. train through the driver, each step timed behind a sync
+        real_step, seen, times = dr_trainer.DRTrainer.train_step, [], []
+
+        def timed_step(self, batch):
+            seen[:] = [self]
+            sync(dev)
+            t = time.perf_counter()
+            loss = real_step(self, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t)
+            return loss
+
+        dr_trainer.DRTrainer.train_step = timed_step
+        resident = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            result = train_dr.main([
+                "--model_name_or_path", hf_dir, "--output_dir", out,
+                "--train_path", os.path.join(root, "train.jsonl"),
+                "--pooling", "mean", "--dtype", "bfloat16",
+                "--per_device_train_batch_size",
+                str(TRAIN_BATCH), "--train_n_passages", str(N_PSG),
+                "--q_max_len", str(Q_LEN), "--p_max_len", str(P_LEN),
+                "--max_steps", "30", "--save_steps", "15",
+                "--logging_steps", "5", "--learning_rate", str(TRAIN_LR),
+                "--device", str(dev)], tokenizer=tok)
+        finally:
+            dr_trainer.DRTrainer.train_step = real_step
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        losses = result["losses"]
+        if result["final_step"] != 30 or len(losses) != 6 \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"train: driver run {result}")
+        tokens = TRAIN_BATCH * Q_LEN + TRAIN_BATCH * N_PSG * P_LEN
+        med = float(np.median(times[1:]))
+        log(f"train: train_dr ran {len(times)} steps (mean pooling, bf16 "
+            f"compute, dropout 0.1, lr {TRAIN_LR}, {TRAIN_BATCH} queries x "
+            f"{N_PSG} passages, "
+            f"{tokens} tokens a step); logged losses {losses}; median step "
+            f"{med * 1000:.2f} ms (first {times[0] * 1000:.1f} ms) = "
+            f"{tokens / med:.0f} query+passage tokens/s; peak "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB, of which "
+            f"{resident / 2**30:.2f} GiB were allocated before train_dr")
+        for d in ("checkpoint-15", "checkpoint-30"):
+            if not os.path.exists(os.path.join(out, d, "train_state.pt")):
+                raise AssertionError(f"train: {d} was not written")
+
+        # 7 (first, while the trainer's model is at hand): the saved
+        # checkpoint loads to the same encodings
+        trainer = seen[0]
+        trained = trainer.model.eval()
+        batch = fixed_batch(root, tok)
+        ids = torch.from_numpy(batch["passage"]["input_ids"]).to(dev)
+        mask = torch.from_numpy(batch["passage"]["attention_mask"]).to(dev)
+        loaded = DRModel.load(out, dtype="bfloat16", device=dev)
+        with torch.inference_mode():
+            same = torch.equal(loaded.encode(ids, mask),
+                               trained.encode(ids, mask))
+        if not same:
+            raise AssertionError("train: the saved checkpoint does not "
+                                 "encode as the trained model")
+        log(f"train: DRModel.load of {os.path.basename(out)} encodes "
+            f"{ids.shape[0]} passages bit-equal to the trained model")
+        del trained, loaded, seen[:]
+
+        # 3-4. GradCache against plain, and learning, at full width in fp32
+        model = DRModel.build(ModelArguments(
+            model_name_or_path=hf_dir, dtype="float32"), device=dev)
+        no_drop = DRModel(dataclasses.replace(
+            model.encoder_config, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0)).to(dev)
+        no_drop.load_state_dict(model.state_dict())
+        del model
+        init = {k: v.clone() for k, v in no_drop.state_dict().items()}
+        check_grad_cache(dev, no_drop, batch)
+        no_drop.load_state_dict(init)  # the timed steps above trained it
+        check_learns(dev, no_drop, batch)
+        del no_drop, init
+
+        # 5. the rest of the main path on the trained checkpoint
+        emb = os.path.join(root, "emb")
+        common = ["--model_name_or_path", out, "--device", str(dev),
+                  "--q_max_len", str(Q_LEN), "--p_max_len", str(P_LEN),
+                  "--encoded_save_path", emb,
+                  "--per_device_eval_batch_size", "256"]
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(4):
+            build_index.main(common + [
+                "--corpus_path", os.path.join(root, "corpus.jsonl"),
+                "--encode_num_shard", "4", "--encode_shard_index", str(i)],
+                tokenizer=tok)
+        log(f"train: build_index wrote 4 shards of {TRAIN_PASSAGES} "
+            f"passages in {time.perf_counter() - t0:.2f} s (4 driver calls, "
+            "model loads included)")
+        runs = {n: os.path.join(root, f"{n}.trec")
+                for n in ("retrieve", "successive")}
+        search = ["--query_path", os.path.join(root, "dev.jsonl"),
+                  "--retrieve_depth", "100"]
+        reset_launches(cm)
+        retrieve.main(common + search + ["--trec_save_path",
+                                         runs["retrieve"]], tokenizer=tok)
+        sync(dev)
+        launches = read_launches(cm)
+        log(f"train: launches during retrieve {launches}")
+        if cuda and (launches["plain_gmax"] < 1
+                     or launches["gather_rescore"] < 1):
+            raise AssertionError("train: retrieve did not launch K1 and K3")
+        successive_retrieve.main(common + search + [
+            "--trec_save_path", runs["successive"]], tokenizer=tok)
+        doc_pos = {f"d{i}": i for i in range(TRAIN_PASSAGES)}
+        qa, s_a, i_a = run_ranks(runs["successive"], doc_pos, dev)
+        qb, s_b, i_b = run_ranks(runs["retrieve"], doc_pos, dev)
+        if qa != qb or s_b.shape != (DEV_QUERIES, 100):
+            raise AssertionError(f"train: runs hold {s_a.shape} and "
+                                 f"{s_b.shape} answers")
+        same_above_band("successive_retrieve vs retrieve", s_a, i_a, s_b,
+                        i_b, phase="train")
+        qrels = os.path.join(root, "dev.qrels")
+        mrr = evaluate.main(["-m", "mrr_cut.10", qrels, runs["retrieve"]])
+        per_query = eval_mrr(load_qrels(qrels), load_run(runs["retrieve"]),
+                             10)
+        if per_query["all"] != mrr:
+            raise AssertionError("train: evaluate's MRR is not eval_mrr's")
+        log(f"train: evaluate MRR@10 {mrr:.6f} over {DEV_QUERIES} queries")
+
+        # 6. the audit
+        audit_mrr(dev, root, out, emb, tok, mrr, per_query)
+        if cuda:  # a profiler session last, after every timing
+            profile_steps(trainer, batch, med * 1000)
+        del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"plain_gmax": launches["plain_gmax"],
+            "gather_rescore": launches["gather_rescore"]}
+
+
+PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train")
 
 
 def main(argv=None) -> int:
@@ -1234,6 +1723,8 @@ def main(argv=None) -> int:
         launches.update(n)
     if "stages" in phases and replay:
         phase_stages(dev, replay)
+    if "train" in phases:
+        phase_train(dev)
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

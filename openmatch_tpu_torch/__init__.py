@@ -1,20 +1,25 @@
-"""OpenMatch-TPU in PyTorch: the dense-retrieval serving path on CUDA.
+"""OpenMatch-TPU in PyTorch: dense-retrieval training and serving on CUDA.
 
 A second package beside ``openmatch_tpu`` (the JAX reference), with the
 same layout: ``openmatch_tpu/X/y.py`` has its counterpart at
 ``openmatch_tpu_torch/X/y.py``. It imports ``torch`` and never JAX.
 
-- ``models``: BERT-family encoders and the bi-encoder ``DRModel``.
+- ``models``: BERT-family encoders and the bi-encoder ``DRModel``, the
+  flax-msgpack checkpoint codec and the HuggingFace checkpoint reader.
+- ``losses``, ``train``, ``parallel.grad_cache``: DR training on one
+  device (optax's AdamW / LAMB chain, GradCache, checkpoints and resume).
 - ``ops.mips`` / ``ops.cuda_mips``: exact MIPS, with hand-written CUDA
   kernels (``ops/csrc``) for the block-max pass and the gather-rescore.
-- ``retriever``: encode to embedding shards, load them, search.
-- ``drivers``: ``build_index``, ``retrieve`` and the HTTP ``serve``.
+- ``retriever``: encode to embedding shards, load them, search (resident
+  or one shard at a time).
+- ``drivers``: ``train_dr``, ``build_index``, ``retrieve``,
+  ``successive_retrieve``, ``evaluate`` and the HTTP ``serve``.
 - ``perf``: twins of the JAX package's perf scripts
   (``scripts/perf/score_path_phases.py``, ``scripts/perf/micro.py``).
 
-``config``, ``templates``, ``data`` and ``utils.trec`` are the port's own
-copies of the JAX package's jax-free modules: the port imports nothing of
-``openmatch_tpu``.
+``config``, ``templates``, ``data``, ``utils.trec`` and ``utils.metrics``
+are the port's own copies of the JAX package's jax-free modules: the port
+imports nothing of ``openmatch_tpu``.
 """
 
 __version__ = "0.1.0"

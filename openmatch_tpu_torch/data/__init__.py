@@ -1,3 +1,3 @@
 """Host-side data feeding: the port's own copies of the jax-free modules of
-``openmatch_tpu/data`` that the retrieval path needs. Import the modules
+``openmatch_tpu/data`` that retrieval and training need. Import the modules
 themselves; this package imports nothing."""

@@ -16,13 +16,15 @@ from ..retriever.retriever import Retriever
 from .common import load_tokenizer, setup_logging, split_device_flag
 
 
-def main(argv=None):
+def main(argv=None, tokenizer=None):
+    """``tokenizer``: used as given; by default ``load_tokenizer``."""
     setup_logging()
     device, rest = split_device_flag(argv)
     parser = ArgumentParser((ModelArguments, DataArguments, InferenceArguments))
     model_args, data_args, infer_args = parser.parse(rest)
 
-    tokenizer = load_tokenizer(model_args)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(model_args)
     model = DRModel.build(model_args, device=device)
     corpus = InferenceDataset.load(
         tokenizer, data_args,

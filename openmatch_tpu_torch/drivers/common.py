@@ -1,4 +1,5 @@
-"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag."""
+"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag and the
+trainers' epoch loop."""
 
 from __future__ import annotations
 
@@ -42,3 +43,16 @@ def split_device_flag(argv: Optional[List[str]]) -> Tuple[object, List[str]]:
     args, rest = extra.parse_known_args(
         list(argv) if argv is not None else sys.argv[1:])
     return resolve_device(args.device), rest
+
+
+def epochs_iterator(dataset, collator, batch_size: int, num_epochs: int,
+                    seed: int):
+    """Epoch-looped batched stream for trainers (JAX ``epochs_iterator``);
+    the hashed seed mirrors the reference's per-epoch sampling."""
+    from ..data.loader import batched, prefetch
+
+    hashed_seed = hash(seed) % (2**31)
+    for epoch in range(max(num_epochs, 1)):
+        stream = batched(dataset.epoch_iterator(epoch, hashed_seed),
+                         batch_size, collator, drop_last=True)
+        yield from prefetch(stream, depth=4)

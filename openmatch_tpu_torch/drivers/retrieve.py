@@ -17,16 +17,20 @@ from ..utils.trec import save_as_trec
 from .common import load_tokenizer, setup_logging, split_device_flag
 
 
-def main(argv=None):
+def main(argv=None, retriever_cls=Retriever, tokenizer=None):
+    """``retriever_cls``: ``Retriever`` (the whole index resident) or
+    ``SuccessiveRetriever``; ``tokenizer``: used as given, by default
+    ``load_tokenizer``."""
     setup_logging()
     device, rest = split_device_flag(argv)
     parser = ArgumentParser((ModelArguments, DataArguments, InferenceArguments))
     model_args, data_args, infer_args = parser.parse(rest)
 
-    tokenizer = load_tokenizer(model_args)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(model_args)
     model = DRModel.build(model_args, device=device)
     queries = InferenceDataset.load(tokenizer, data_args, is_query=True)
-    retriever = Retriever.from_embeddings(
+    retriever = retriever_cls.from_embeddings(
         model, data_args, infer_args, tokenizer.pad_token_id or 0, device)
     result = retriever.retrieve(queries, topk=infer_args.retrieve_depth)
     save_as_trec(result, infer_args.trec_save_path)

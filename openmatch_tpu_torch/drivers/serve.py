@@ -274,10 +274,13 @@ def make_handler(service, default_k: int):
 
 
 def build_service(model_args, data_args, infer_args, max_batch: int,
-                  device) -> RetrievalService:
+                  device, tokenizer=None) -> RetrievalService:
+    """The service over ``--encoded_save_path``; ``tokenizer`` defaults to
+    ``load_tokenizer(model_args)``."""
     from ..retriever.retriever import Retriever, build_searcher
 
-    tokenizer = load_tokenizer(model_args)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(model_args)
     model = DRModel.build(model_args, device=device)
     retriever = Retriever.from_embeddings(
         model, data_args, infer_args, tokenizer.pad_token_id or 0, device)
@@ -297,7 +300,7 @@ class ServingHTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def main(argv=None):
+def main(argv=None, tokenizer=None):
     setup_logging()
     device, rest = split_device_flag(argv)
     extra = argparse.ArgumentParser(allow_abbrev=False)
@@ -313,7 +316,7 @@ def main(argv=None):
     if not infer_args.encoded_save_path:
         raise ValueError("nothing to serve: pass --encoded_save_path")
     service = build_service(model_args, data_args, infer_args,
-                            extra_args.max_batch, device)
+                            extra_args.max_batch, device, tokenizer)
     service.warmup()
     server = ServingHTTPServer(("0.0.0.0", extra_args.port),
                                make_handler(service, infer_args.retrieve_depth))

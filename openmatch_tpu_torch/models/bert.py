@@ -7,6 +7,15 @@ cast back to ``dtype``; LayerNorm statistics are fp32; the additive
 attention mask is finfo(float32).min. Attention is plain matmul and
 softmax, as the JAX version is plain einsums (no kernel there either).
 
+Dropout sits where the JAX version puts it: on the embeddings after
+``embeddings_ln``, on the attention probabilities, on the attention output
+before ``attention_ln`` and on the FFN output before ``output_ln``. It runs
+only in training mode and only when ``forward`` is given a
+``torch.Generator``: masks are drawn from that generator alone (never the
+global RNG), so GradCache can replay a chunk with the same masks by
+restoring the generator's state. Without one the graph is the
+dropout-free serving graph.
+
 Parameter layout follows PyTorch (``nn.Linear.weight`` is [out, in]); the
 fused QKV projection is one [3*d, d] linear whose rows are q, k, v, each
 head-major. ``models/jax_convert.py`` maps the Flax tree onto it.
@@ -57,6 +66,19 @@ class BertConfig:
         return dataclasses.asdict(self)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+    1 / (1 - rate), masks drawn from ``generator``; identity without one."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask.bool(), x / keep, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm computed in fp32, output in the input's dtype."""
 
@@ -74,13 +96,14 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
+        self.probs_rate = cfg.attention_probs_dropout_prob
         self.n_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
         self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, hidden: torch.Tensor,
-                attention_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, d = hidden.shape
         dtype = hidden.dtype
         qkv = linear(hidden, self.qkv).view(B, S, 3, self.n_heads,
@@ -93,6 +116,7 @@ class BertSelfAttention(nn.Module):
         logits = (q * scale).float() @ k.float().transpose(-1, -2)
         logits = logits + attention_bias  # [B, 1, 1, S] fp32
         probs = torch.softmax(logits, dim=-1).to(dtype)
+        probs = dropout(probs, self.probs_rate, generator)
         ctx = (probs.float() @ v.float()).to(dtype)  # [B, H, S, hd]
         ctx = ctx.transpose(1, 2).reshape(B, S, d)
         return linear(ctx, self.out)
@@ -107,11 +131,14 @@ class BertLayer(nn.Module):
         self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.output_ln = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.act = ACT2FN[cfg.hidden_act]
+        self.hidden_rate = cfg.hidden_dropout_prob
 
-    def forward(self, hidden, attention_bias):
-        hidden = self.attention_ln(hidden + self.attention(hidden,
-                                                           attention_bias))
+    def forward(self, hidden, attention_bias, generator=None):
+        attn = self.attention(hidden, attention_bias, generator)
+        attn = dropout(attn, self.hidden_rate, generator)
+        hidden = self.attention_ln(hidden + attn)
         ffn = linear(self.act(linear(hidden, self.intermediate)), self.output)
+        ffn = dropout(ffn, self.hidden_rate, generator)
         return self.output_ln(hidden + ffn)
 
 
@@ -139,8 +166,12 @@ class BertEncoder(nn.Module):
                        if cfg.add_pooler else None)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> dict:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """``generator`` turns dropout on, in training mode only."""
         cfg = self.config
+        if not self.training:
+            generator = None
         B, S = input_ids.shape
         input_ids = input_ids.long()
         if token_type_ids is None:
@@ -156,6 +187,7 @@ class BertEncoder(nn.Module):
                   + self.token_type_embeddings(token_type_ids.long()).to(
                       self.dtype))
         hidden = self.embeddings_ln(hidden)
+        hidden = dropout(hidden, cfg.hidden_dropout_prob, generator)
         if self.embeddings_project is not None:
             hidden = linear(hidden, self.embeddings_project)
 
@@ -163,7 +195,7 @@ class BertEncoder(nn.Module):
         bias = torch.where(attention_mask[:, None, None, :] > 0,
                            0.0, neg).to(torch.float32)
         for layer in self.layers:
-            hidden = layer(hidden, bias)
+            hidden = layer(hidden, bias, generator)
         outputs = {"last_hidden_state": hidden}
         if self.pooler is not None:
             outputs["pooler_output"] = torch.tanh(

@@ -1,9 +1,10 @@
 """Dense retrieval runtime: encode corpus and queries, exact top-k, results.
 
-Port of ``Retriever`` from ``openmatch_tpu/retriever/retriever.py`` for one
-device. The index is the corpus embedding matrix held on the device by a
-``Searcher`` (``ops/mips.py``): the kernel path on a CUDA device, the plain
-path on the CPU.
+Port of ``Retriever`` and ``SuccessiveRetriever`` from
+``openmatch_tpu/retriever/retriever.py`` for one device. ``Retriever``'s
+index is the corpus embedding matrix held on the device by a ``Searcher``
+(``ops/mips.py``): the kernel path on a CUDA device, the plain path on the
+CPU. ``SuccessiveRetriever`` holds one embedding shard at a time.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.mips import Searcher
+from ..ops.mips import Searcher, exact_search
+from ..utils.trec import merge_retrieval_results_by_score
 from .encoder import (encode_dataset, list_shards, load_embeddings,
                       save_embeddings, shard_path)
 
@@ -186,3 +188,39 @@ class Retriever:
         r = cls(model, data_args, inference_args, pad_token_id, device)
         r.load_corpus_shards(inference_args.encoded_save_path)
         return r
+
+
+class SuccessiveRetriever(Retriever):
+    """Shard-at-a-time search for indexes larger than device memory (JAX
+    ``SuccessiveRetriever``): load one embedding shard onto the retriever's
+    device, take its exact top-k, merge the shards' answers by score, free
+    the shard, repeat."""
+
+    @classmethod
+    def from_embeddings(cls, model, data_args, inference_args, pad_token_id,
+                        device=None) -> "SuccessiveRetriever":
+        # no shard is loaded up front: that is the point
+        return cls(model, data_args, inference_args, pad_token_id, device)
+
+    def retrieve(self, query_dataset: Iterable[dict],
+                 topk: int = 100) -> RankResult:
+        q_emb, qids = self.encode_queries(query_dataset)
+        return self.search_partitions(q_emb, qids, topk)
+
+    def search_partitions(self, q_embeddings: np.ndarray, qids: List[str],
+                          topk: int = 100,
+                          search_dtype=torch.bfloat16) -> RankResult:
+        partial = []
+        q = torch.from_numpy(np.ascontiguousarray(q_embeddings))
+        q = q.to(search_dtype).to(self.device)
+        for path in list_shards(self.args.encoded_save_path, "corpus"):
+            emb, ids = load_embeddings(path)
+            shard = torch.from_numpy(np.ascontiguousarray(emb))
+            shard = shard.to(search_dtype).to(self.device)
+            del emb
+            with torch.inference_mode():
+                scores, indices = exact_search(q, shard, k=min(topk, len(ids)))
+            del shard
+            partial.append(_to_result(scores.cpu().numpy(),
+                                      indices.cpu().numpy(), qids, ids))
+        return merge_retrieval_results_by_score(partial, topk)

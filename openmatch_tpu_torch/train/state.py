@@ -1,0 +1,179 @@
+"""Optimizer, learning-rate schedule and checkpoint/resume (port of
+``openmatch_tpu/train/state.py``).
+
+The JAX package's optimizer is the optax chain ``clip_by_global_norm`` ->
+``adamw`` or ``lamb`` with a linear warmup -> linear decay schedule.
+``OptaxAdam`` writes that chain out as one ``torch.optim.Optimizer`` so the
+updates agree with optax's to float rounding:
+
+- the clip scales by ``max_norm / g_norm`` only when ``g_norm >= max_norm``
+  (``clip_grad_norm_`` would divide by ``norm + 1e-6`` on every step);
+- Adam's moments and bias correction are ``scale_by_adam``'s;
+- decoupled weight decay ``wd * p`` is added to every parameter, biases and
+  LayerNorm included (one parameter group);
+- LAMB adds ``scale_by_trust_ratio``: each tensor's update is scaled by
+  ``|p| / |u|``, or 1 where either norm is 0;
+- the schedule is evaluated at the update count *before* the update, as
+  optax's is: ``make_optimizer``'s ``LambdaLR`` is stepped after each
+  ``optimizer.step()``, so the first update under warmup has lr 0 and
+  leaves the parameters unchanged.
+
+A parameter without a gradient counts as a zero gradient, as in optax,
+whose update covers every leaf.
+
+Checkpoints: the model goes into the directory in the JAX package's format
+(``DRModel.save``), so both packages load it; the optimizer and schedule
+go into the port's own ``train_state.pt`` (``torch.save`` of the step, the
+optimizer state and the scheduler state) beside a ``train_state.json``.
+Resuming from the JAX package's ``train_state.msgpack`` is not ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Optional, Tuple
+
+import torch
+
+TRAIN_STATE = "train_state.pt"
+
+
+def linear_warmup_schedule(learning_rate: float, total_steps: int,
+                           warmup_steps: int) -> Callable[[int], float]:
+    """Linear 0 -> lr over warmup, then linear lr -> 0 over the remainder;
+    a function of the update count (optax ``join_schedules`` of two
+    ``linear_schedule``s)."""
+    warmup_steps = max(warmup_steps, 1)
+    decay_steps = max(total_steps - warmup_steps, 1)
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return learning_rate * min(count, warmup_steps) / warmup_steps
+        done = min(count - warmup_steps, decay_steps)
+        return learning_rate * (1.0 - done / decay_steps)
+
+    return schedule
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax ``clip_by_global_norm`` -> ``scale_by_adam`` ->
+    ``add_decayed_weights`` -> [``scale_by_trust_ratio``] ->
+    ``scale_by_learning_rate``: AdamW, or LAMB with ``trust_ratio=True``.
+    One parameter group; ``lr`` is read from the group on each step."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 max_grad_norm: float = 0.0, trust_ratio: bool = False):
+        defaults = dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                        weight_decay=weight_decay,
+                        max_grad_norm=max_grad_norm, trust_ratio=trust_ratio,
+                        count=0)
+        super().__init__(params, defaults)
+        if len(self.param_groups) != 1:
+            raise ValueError("OptaxAdam takes one parameter group")
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdam takes no closure")
+        group = self.param_groups[0]
+        params = list(group["params"])
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        max_norm = group["max_grad_norm"]
+        if max_norm and max_norm > 0:
+            g_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
+                                max_norm / g_norm)
+            grads = torch._foreach_mul(grads, scale)
+        for p in params:
+            if not self.state[p]:
+                self.state[p]["mu"] = torch.zeros_like(p)
+                self.state[p]["nu"] = torch.zeros_like(p)
+        mu = [self.state[p]["mu"] for p in params]
+        nu = [self.state[p]["nu"] for p in params]
+        b1, b2 = group["b1"], group["b2"]
+        group["count"] += 1
+        count = group["count"]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+        updates = torch._foreach_div(mu, 1.0 - b1 ** count)
+        denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, group["eps"])
+        torch._foreach_div_(updates, denom)
+        if group["weight_decay"]:
+            torch._foreach_add_(updates, params, alpha=group["weight_decay"])
+        if group["trust_ratio"]:
+            for p, u in zip(params, updates):
+                p_norm, u_norm = torch.linalg.vector_norm(p), \
+                    torch.linalg.vector_norm(u)
+                ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                    torch.ones_like(p_norm), p_norm / u_norm)
+                u.mul_(ratio)
+        torch._foreach_add_(params, updates, alpha=-group["lr"])
+
+
+def make_optimizer(params, train_args, total_steps: int
+                   ) -> Tuple[OptaxAdam, torch.optim.lr_scheduler.LambdaLR]:
+    """(optimizer, scheduler) for ``train_args``: ``optimizer`` adamw |
+    lamb, ``max_grad_norm``, ``warmup_steps`` or ``warmup_ratio``. Step the
+    scheduler after every ``optimizer.step()``."""
+    warmup = train_args.warmup_steps or int(train_args.warmup_ratio
+                                            * total_steps)
+    name = getattr(train_args, "optimizer", "adamw")
+    if name not in ("adamw", "lamb"):
+        raise ValueError(f"Unknown optimizer '{name}' (expected adamw | lamb)")
+    lr = train_args.learning_rate
+    optimizer = OptaxAdam(
+        params, lr=lr, b1=train_args.adam_beta1, b2=train_args.adam_beta2,
+        eps=train_args.adam_epsilon, weight_decay=train_args.weight_decay,
+        max_grad_norm=train_args.max_grad_norm or 0.0,
+        trust_ratio=name == "lamb")
+    schedule = linear_warmup_schedule(lr, total_steps, warmup)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda count: schedule(count) / lr if lr else 0.0)
+    return optimizer, scheduler
+
+
+def save_train_state(step: int, optimizer, scheduler, output_dir: str):
+    """``train_state.pt`` (step, optimizer and scheduler state) and
+    ``train_state.json`` ({"step"}) in ``output_dir``."""
+    os.makedirs(output_dir, exist_ok=True)
+    torch.save({"step": int(step), "optimizer": optimizer.state_dict(),
+                "scheduler": scheduler.state_dict()},
+               os.path.join(output_dir, TRAIN_STATE))
+    with open(os.path.join(output_dir, "train_state.json"), "w") as f:
+        json.dump({"step": int(step)}, f)
+
+
+def load_train_state(ckpt_dir: str, optimizer, scheduler,
+                     device=None) -> int:
+    """Restore the optimizer and scheduler from ``train_state.pt``, tensors
+    on ``device``; returns the step."""
+    payload = torch.load(os.path.join(ckpt_dir, TRAIN_STATE),
+                         map_location=device, weights_only=True)
+    optimizer.load_state_dict(payload["optimizer"])
+    scheduler.load_state_dict(payload["scheduler"])
+    return int(payload["step"])
+
+
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    """The newest ``checkpoint-N`` directory holding a ``train_state.pt``."""
+    if not os.path.isdir(output_dir):
+        return None
+    best, best_step = None, -1
+    for name in os.listdir(output_dir):
+        if name.startswith("checkpoint-"):
+            try:
+                step = int(name.split("-")[1])
+            except (IndexError, ValueError):
+                continue
+            if step > best_step and os.path.exists(
+                    os.path.join(output_dir, name, TRAIN_STATE)):
+                best, best_step = os.path.join(output_dir, name), step
+    return best
