@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's dense-retrieval serving path once on one CUDA card.
+"""Drive the PyTorch port's retrieval, training and rerank paths on one card.
 
     python3 chip_smoke.py
 
@@ -102,6 +102,28 @@ Phases, in order; any failure raises and the script exits non-zero:
             saved shards, ranks read with the serve audit's tie band.
             Last, three train_steps under torch.profiler: device time by
             kernel and the device-busy share of the host's time.
+8. rerank   the rerank stage through the drivers' main functions, on the
+            train phase's kind of data (its own seeded temporary
+            directory): a raw HF-layout T5-base checkpoint (12 + 12 layers,
+            768 wide, relu, tied; weights at HF's initial scales) builds
+            the index (build_index, t5_encdec: decoder step 0's hidden
+            state) and retrieve at depth 100 must launch K1 and K3;
+            train_rr trains a BERT-base cross-encoder (bce, bf16, mean
+            pooling, 8 positive + 8 negative pairs a step, 20 steps;
+            median step time, pairs/s and peak memory printed) whose
+            saved model must
+            score bit-equal; rerank re-scores the top 20 of the T5 run with
+            it and with monoT5-base (--pos_token true --neg_token false),
+            evaluate gives each MRR@10, and each bf16 score must lie within
+            2e-2 x max|score| of the same model's fp32 score on the card,
+            each query's reciprocal rank being one the fp32 scores allow
+            within a tie band; pairs/s of each model at S=128 and S=256;
+            last, a rerank-only server answers 8 concurrent POST /rerank
+            requests of 50 docs, equal to Reranker's scores within 1e-3 x
+            max|score|.
+
+Each phase logs what was allocated on the card at its start, its peak and
+what it left allocated, which must be under 1 GiB.
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -114,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -555,9 +578,11 @@ def layout_kernels(cm, q, corpus, body, cb) -> dict:
 
 
 class WhitespaceTokenizer:
-    """Hashes whitespace-separated words into the BERT vocab:
-    [CLS] word ids [SEP], pad id 0 (the card's machine has no
-    ``transformers``)."""
+    """Hashes whitespace-separated words into the vocab: [CLS] word ids
+    [SEP] (pairs: [CLS] a [SEP] b [SEP], segments 0 then 1, truncated
+    longest-first), pad id 0 (the card's machine has no ``transformers``).
+    Every word is one id, so monoT5's ``true`` and ``false`` are single
+    tokens."""
 
     pad_token_id = 0
     cls_token_id = 101
@@ -566,13 +591,30 @@ class WhitespaceTokenizer:
     def __init__(self, vocab_size: int):
         self.vocab_size = vocab_size
 
+    def _words(self, text: str) -> list:
+        import zlib
+
+        return [1000 + zlib.crc32(w.encode()) % (self.vocab_size - 1000)
+                for w in text.split()]
+
+    def encode(self, text, add_special_tokens: bool = True) -> list:
+        ids = self._words(text)
+        return self.build_inputs_with_special_tokens(ids) \
+            if add_special_tokens else ids
+
     def encode_plus(self, text, truncation=None, max_length=None,
                     padding=False, return_attention_mask=False,
                     return_token_type_ids=False):
-        import zlib
-
-        ids = [1000 + zlib.crc32(w.encode()) % (self.vocab_size - 1000)
-               for w in text.split()]
+        if isinstance(text, tuple):
+            a, b = (self._words(t) for t in text)
+            while max_length is not None and len(a) + len(b) > max_length - 3:
+                (a if len(a) >= len(b) else b).pop()
+            out = {"input_ids": self.build_inputs_with_special_tokens(a, b)}
+            if return_token_type_ids:
+                out["token_type_ids"] = \
+                    self.create_token_type_ids_from_sequences(a, b)
+            return out
+        ids = self._words(text)
         if max_length is not None:
             ids = ids[:max_length - 2]
         return {"input_ids": self.build_inputs_with_special_tokens(ids)}
@@ -583,6 +625,9 @@ class WhitespaceTokenizer:
     def build_inputs_with_special_tokens(self, a, b=None):
         out = [self.cls_token_id] + list(a) + [self.sep_token_id]
         return out if b is None else out + list(b) + [self.sep_token_id]
+
+    def create_token_type_ids_from_sequences(self, a, b):
+        return [0] * (len(a) + 2) + [1] * (len(b) + 1)
 
 
 class SyntheticDocIds:
@@ -914,6 +959,7 @@ def phase_serve(dev, replay: list) -> tuple:
         log(f"serve: at Q={MAX_BATCH}: K6 {r6[1]:.4f} ms (plain {r6[2]:.4f}); "
             f"search with pipeline=True {search_p:.4f} ms, with c_split=4 "
             f"{search_c:.4f} ms")
+    service.close()  # its worker thread held the searcher and the index
     del searcher, service, prep, g1, l1
     torch.cuda.empty_cache()
 
@@ -1125,6 +1171,7 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
         log(f"serve: segmented, at Q={MAX_BATCH}, N={n_docs}: K4 {t4:.4f} ms "
             f"(plain {t4p:.4f}, bound {b4[0]:.4f}), K5 {r5[1]:.4f} ms, whole "
             f"search {search_ms:.4f} ms")
+    service.close()
     del searcher, service, segs, g4, l4
     torch.cuda.empty_cache()
     return {"launches": {k: launches[k] for k in ("plain_gmax_segs",
@@ -1689,7 +1736,458 @@ def phase_train(dev, cfg=None) -> dict:
             "gather_rescore": launches["gather_rescore"]}
 
 
-PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train")
+# ---- rerank: T5 dense retrieval, train_rr, rerank, /rerank ------------------
+
+RR_DEPTH, RR_STEPS, RR_BATCH, RR_EVAL_BATCH = 20, 20, 8, 128
+RR_LR = 2e-5
+RR_REL = 2e-2  # a bf16 score vs the same model's fp32 score, x max|fp32|
+SERVE_RR_REL = 1e-3  # /rerank vs Reranker on the same pairs, x max|score|
+SERVE_RR_REQUESTS, SERVE_RR_DOCS, SERVE_RR_BATCH = 8, 50, 64
+
+
+def t5_base():
+    """t5-base's shape (castorini/monot5-base-msmarco has the same)."""
+    from openmatch_tpu_torch.models.t5 import T5Config
+
+    return T5Config(vocab_size=32128, d_model=768, d_kv=64, d_ff=3072,
+                    num_layers=12, num_decoder_layers=12, num_heads=12,
+                    feed_forward_proj="relu", tie_word_embeddings=True)
+
+
+def hf_t5(rng: np.random.Generator, cfg, path: str):
+    """A raw HuggingFace-layout T5 checkpoint from seeded weights drawn at
+    HF's initial scales (factor 1): config.json and pytorch_model.bin."""
+    d, H, kv, ff = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.d_ff
+
+    def n(std, *shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(std))
+
+    sd = {"shared.weight": n(1.0, cfg.vocab_size, d)}
+    for stack, layers in (("encoder", cfg.num_layers),
+                          ("decoder", cfg.num_decoder_layers)):
+        for i in range(layers):
+            p = f"{stack}.block.{i}.layer"
+            blocks = ["SelfAttention"] + (["EncDecAttention"]
+                                          if stack == "decoder" else [])
+            for j, attn in enumerate(blocks):
+                sd[f"{p}.{j}.{attn}.q.weight"] = n((d * kv) ** -0.5, H * kv, d)
+                sd[f"{p}.{j}.{attn}.k.weight"] = n(d ** -0.5, H * kv, d)
+                sd[f"{p}.{j}.{attn}.v.weight"] = n(d ** -0.5, H * kv, d)
+                sd[f"{p}.{j}.{attn}.o.weight"] = n((H * kv) ** -0.5, d, H * kv)
+                sd[f"{p}.{j}.layer_norm.weight"] = torch.ones(d)
+            if i == 0:
+                sd[f"{p}.0.SelfAttention.relative_attention_bias.weight"] = \
+                    n(d ** -0.5, cfg.relative_attention_num_buckets, H)
+            f = len(blocks)
+            sd[f"{p}.{f}.DenseReluDense.wi.weight"] = n(d ** -0.5, ff, d)
+            sd[f"{p}.{f}.DenseReluDense.wo.weight"] = n(ff ** -0.5, d, ff)
+            sd[f"{p}.{f}.layer_norm.weight"] = torch.ones(d)
+        sd[f"{stack}.final_layer_norm.weight"] = torch.ones(d)
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"model_type": "t5", "vocab_size": cfg.vocab_size,
+                   "d_model": d, "d_kv": kv, "d_ff": ff,
+                   "num_layers": cfg.num_layers,
+                   "num_decoder_layers": cfg.num_decoder_layers,
+                   "num_heads": H, "relative_attention_num_buckets":
+                   cfg.relative_attention_num_buckets,
+                   "relative_attention_max_distance":
+                   cfg.relative_attention_max_distance,
+                   "feed_forward_proj": "relu", "tie_word_embeddings": True,
+                   "decoder_start_token_id": 0, "pad_token_id": 0,
+                   "dropout_rate": 0.1, "layer_norm_epsilon": 1e-6}, f)
+
+
+def pairs_per_s(model, dev, rng: np.random.Generator, S: int) -> float:
+    """Pairs/s of ``score`` + ``relevance_logprob`` on a full [RR_EVAL_BATCH,
+    S] batch on the card (median device time of 5 calls)."""
+    vocab = min(getattr(model.encoder_config, "vocab_size", 30522), 30522)
+    ids = torch.from_numpy(rng.integers(1000, vocab, (RR_EVAL_BATCH, S))).to(dev)
+    ones, zeros = torch.ones_like(ids), torch.zeros_like(ids)
+    with torch.inference_mode():
+        ms = cuda_time_ms(lambda: model.relevance_logprob(
+            model.score(ids, ones, zeros)), 2, 5)
+    return RR_EVAL_BATCH * 1000 / ms
+
+
+def audit_rerank(name: str, got: dict, fp32: dict, qrels: dict,
+                 mrr: float, per_query: dict) -> None:
+    """The bf16 reranked run against the same model's fp32 scores of the
+    same pairs: the same keys; each score within RR_REL x max|fp32 score|;
+    each query's reciprocal rank one the fp32 scores allow when docs within
+    the tie band (twice the largest score error measured: two docs move by
+    at most that toward each other) of the relevant doc's fp32 score may
+    rank either side; the mean, in evaluate's order, equals evaluate's."""
+    if {q: set(d) for q, d in got.items()} != {q: set(d)
+                                               for q, d in fp32.items()}:
+        raise AssertionError(f"rerank: {name}: bf16 and fp32 runs hold "
+                             "other pairs")
+    errs = [abs(got[q][d] - fp32[q][d]) for q in fp32 for d in fp32[q]]
+    err = max(errs)
+    values = [s for docs in fp32.values() for s in docs.values()]
+    scale = max(abs(s) for s in values)
+    if not err <= RR_REL * scale:
+        raise AssertionError(
+            f"rerank: {name}: bf16 score off by {err} > {RR_REL} x {scale} "
+            f"(median error {np.median(errs):.3e}; fp32 scores from "
+            f"{min(values):.4f} to {max(values):.4f})")
+    band, banded, total = 2 * err, 0, 0.0
+    for qid in (q for q in per_query if q != "all"):
+        rel = qrels[qid]
+        allowed = {0.0}
+        if rel in fp32[qid]:
+            s = fp32[qid][rel]
+            lo = 1 + sum(v > s + band for v in fp32[qid].values())
+            hi = sum(v >= s - band for v in fp32[qid].values())
+            allowed = {1.0 / k if k <= 10 else 0.0 for k in range(lo, hi + 1)}
+            banded += lo != hi
+        if per_query[qid] not in allowed:
+            raise AssertionError(f"rerank: {name}: {qid} has RR "
+                                 f"{per_query[qid]}, fp32 allows "
+                                 f"{sorted(allowed)}")
+        total += per_query[qid]
+    audit = total / (len(per_query) - 1)
+    if audit != mrr:
+        raise AssertionError(f"rerank: {name}: audited MRR@10 {audit} != "
+                             f"evaluate's {mrr}")
+    log(f"rerank: {name}: bf16 vs fp32 on the card: max abs score err "
+        f"{err:.3e} (tolerance {RR_REL} x {scale:.3e}); MRR@10 {mrr:.6f} "
+        f"agrees with the fp32 scores read with a tie band of {band:.3e} "
+        f"({banded} of {len(per_query) - 1} queries had another doc in it)")
+
+
+def rerank_run(model, tok, root, run_path, q_len, p_len) -> dict:
+    """``Reranker`` over the top RR_DEPTH of ``run_path`` (the audit's
+    second scoring of the driver's pairs)."""
+    from openmatch_tpu_torch.config import DataArguments, InferenceArguments
+    from openmatch_tpu_torch.data.inference_dataset import InferenceDataset
+    from openmatch_tpu_torch.retriever.reranker import Reranker
+    from openmatch_tpu_torch.utils.trec import load_from_trec
+
+    data = DataArguments(query_path=os.path.join(root, "dev.jsonl"),
+                         corpus_path=os.path.join(root, "corpus.jsonl"),
+                         q_max_len=q_len, p_max_len=p_len,
+                         query_template="", doc_template="")
+    queries = InferenceDataset.load(tok, data, is_query=True).to_dict()
+    corpus = InferenceDataset.load(tok, data, is_query=False).to_dict()
+    run = load_from_trec(run_path, max_len_per_q=RR_DEPTH)
+    return Reranker(model, tok, data, InferenceArguments(
+        per_device_eval_batch_size=RR_EVAL_BATCH)).rerank(
+        queries, corpus, run, depth=RR_DEPTH)
+
+
+def serve_rerank(dev, rr_dir, tok, rng) -> None:
+    """A rerank-only server answers SERVE_RR_REQUESTS concurrent POST
+    /rerank requests of SERVE_RR_DOCS docs; each answer is its docs by
+    descending score, and the scores equal ``Reranker``'s for the same
+    pairs within SERVE_RR_REL x max|score| (the texts keep every pair under
+    128 tokens, so both score [64, 128] batches)."""
+    from openmatch_tpu_torch.config import DataArguments, InferenceArguments
+    from openmatch_tpu_torch.drivers.serve import (ServingHTTPServer,
+                                                   build_rerank_service,
+                                                   make_handler)
+    from openmatch_tpu_torch.models.rr_model import RRModel
+    from openmatch_tpu_torch.retriever.reranker import Reranker
+
+    data = DataArguments(q_max_len=Q_LEN, p_max_len=P_LEN)
+    service = build_rerank_service(rr_dir, data, SERVE_RR_BATCH, dev,
+                                   tokenizer=tok)
+    t0 = time.perf_counter()
+    service.warmup()
+    log(f"rerank: /rerank warmup (every pad length) "
+        f"{time.perf_counter() - t0:.2f} s")
+    words = [f"t{i}" for i in range(5000)]
+    requests = [{"query": " ".join(rng.choice(words, 6)), "docs": [
+        {"id": f"r{r}d{j}", "text": " ".join(rng.choice(
+            words, rng.integers(30, 100)))} for j in range(SERVE_RR_DOCS)]}
+        for r in range(SERVE_RR_REQUESTS)]
+    service.timeline = []
+    server = ServingHTTPServer(("127.0.0.1", 0),
+                               make_handler(None, K, service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        _, health, _ = http_json(base + "/health")
+        with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+            answers = [f.result() for f in [
+                pool.submit(http_json, base + "/rerank", r)
+                for r in requests]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    if health["endpoints"] != ["/rerank"]:
+        raise AssertionError(f"/health of a rerank-only server: {health}")
+    queries = {f"s{r}": {"text": q["query"]} for r, q in enumerate(requests)}
+    corpus = {d["id"]: {"text": d["text"]} for q in requests
+              for d in q["docs"]}
+    run = {f"s{r}": {d["id"]: 0.0 for d in q["docs"]}
+           for r, q in enumerate(requests)}
+    model = RRModel.load(rr_dir, dtype="bfloat16", device=dev)
+    # /rerank scores the texts as given: the Reranker without templates
+    plain = dataclasses.replace(data, query_template="", doc_template="")
+    want = Reranker(model, tok, plain, InferenceArguments(
+        per_device_eval_batch_size=SERVE_RR_BATCH)).rerank(queries, corpus,
+                                                           run)
+    scale = max(abs(s) for docs in want.values() for s in docs.values())
+    err = 0.0
+    for r, (status, body, _) in enumerate(answers):
+        res = body["results"]
+        scores = [x["score"] for x in res]
+        if status != 200 or len(res) != SERVE_RR_DOCS \
+                or scores != sorted(scores, reverse=True):
+            raise AssertionError(f"/rerank answered {status} with "
+                                 f"{len(res)} results")
+        err = max(err, max(abs(x["score"] - want[f"s{r}"][x["id"]])
+                           for x in res))
+    if not err <= SERVE_RR_REL * scale:
+        raise AssertionError(f"/rerank scores off Reranker's by {err} > "
+                             f"{SERVE_RR_REL} x {scale}")
+    log(f"rerank: /rerank (rerank-only server, max_batch "
+        f"{SERVE_RR_BATCH}): {len(requests)} concurrent requests of "
+        f"{SERVE_RR_DOCS} docs answered in "
+        + ", ".join(f"{sec * 1000:.1f}" for _, _, sec in answers)
+        + f" ms; scores equal Reranker's within {err:.3e} (tolerance "
+        f"{SERVE_RR_REL} x {scale:.3e}); service {service.stats}")
+    for t in service.timeline:
+        log(f"rerank: dispatch of {t['reqs']} requests / {t['rows']} pairs: "
+            f"queued {t['wait_s'] * 1000:.1f} ms, executed "
+            f"{t['exec_s'] * 1000:.1f} ms, of which score+readback "
+            f"{t['device_s'] * 1000:.1f} ms")
+
+
+def phase_rerank(dev, bert_cfg=None, t5_cfg=None) -> dict:
+    """T5 dense retrieval (build_index, retrieve: K1 and K3 must launch),
+    train_rr on a BERT-base cross-encoder, rerank with it and with
+    monoT5-base, evaluate, the fp32 audits, and /rerank, through the
+    drivers' main functions on ``dev`` at full width (``bert_cfg``,
+    ``t5_cfg``). Returns the retrieve step's kernel launches."""
+    from openmatch_tpu_torch.config import ModelArguments
+    from openmatch_tpu_torch.drivers import (build_index, evaluate, rerank,
+                                             retrieve, train_rr)
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.rr_model import RRModel
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.retriever.reranker import collate_pairs
+    from openmatch_tpu_torch.train import rr_trainer
+    from openmatch_tpu_torch.utils.metrics import (eval_mrr, load_qrels,
+                                                   load_run)
+
+    bert_cfg, t5_cfg = bert_cfg or BertConfig(), t5_cfg or t5_base()
+    tok = WhitespaceTokenizer(bert_cfg.vocab_size)
+    tok_t5 = WhitespaceTokenizer(t5_cfg.vocab_size)
+    rng = np.random.default_rng(10)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        t5_dir, bert_dir = os.path.join(root, "t5"), os.path.join(root, "hf")
+        hf_t5(rng, t5_cfg, t5_dir)
+        hf_bert_base(rng, bert_cfg, bert_dir)
+        write_train_data(rng, bert_cfg.vocab_size, root)
+        log(f"rerank: HF T5 ({t5_cfg.d_model} wide, {t5_cfg.num_layers} + "
+            f"{t5_cfg.num_decoder_layers} layers) and BERT checkpoints, "
+            f"{TRAIN_PASSAGES} passages, {TRAIN_QUERIES} train and "
+            f"{DEV_QUERIES} dev queries written in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # 1. T5 dense retrieval (t5_encdec: decoder step 0's hidden state)
+        emb, run_path = os.path.join(root, "emb"), os.path.join(root,
+                                                                "t5.trec")
+        common = ["--model_name_or_path", t5_dir, "--device", str(dev),
+                  "--q_max_len", str(Q_LEN), "--p_max_len", str(P_LEN),
+                  "--encoded_save_path", emb,
+                  "--per_device_eval_batch_size", "256"]
+        sync(dev)
+        t0 = time.perf_counter()
+        build_index.main(common + ["--corpus_path",
+                                   os.path.join(root, "corpus.jsonl")],
+                         tokenizer=tok_t5)
+        sync(dev)
+        log(f"rerank: build_index with T5 (t5_encdec, bf16) encoded "
+            f"{TRAIN_PASSAGES} passages in {time.perf_counter() - t0:.2f} s "
+            "(model load included)")
+        reset_launches(cm)
+        retrieve.main(common + ["--query_path", os.path.join(root,
+                                                             "dev.jsonl"),
+                                "--retrieve_depth", "100",
+                                "--trec_save_path", run_path],
+                      tokenizer=tok_t5)
+        sync(dev)
+        launches = read_launches(cm)
+        log(f"rerank: launches during the T5 retrieve {launches}")
+        if cuda and (launches["plain_gmax"] < 1
+                     or launches["gather_rescore"] < 1):
+            raise AssertionError("rerank: the T5 retrieve did not launch "
+                                 "K1 and K3")
+        qrels_path = os.path.join(root, "dev.qrels")
+        qrels = {q: next(iter(d)) for q, d in load_qrels(qrels_path).items()}
+        mrr_dr = evaluate.main(["-m", "mrr_cut.10", qrels_path, run_path])
+        log(f"rerank: T5 dense retrieval MRR@10 {mrr_dr:.6f}")
+
+        # 2. train_rr, each step timed behind a sync
+        rr_dir = os.path.join(root, "rr")
+        real_step, seen, times = rr_trainer.RRTrainer.train_step, [], []
+
+        def timed_step(self, batch):
+            seen[:] = [self]
+            sync(dev)
+            t = time.perf_counter()
+            loss = real_step(self, batch)
+            sync(dev)
+            times.append(time.perf_counter() - t)
+            return loss
+
+        rr_trainer.RRTrainer.train_step = timed_step
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() if cuda else 0
+        try:
+            result = train_rr.main([
+                "--model_name_or_path", bert_dir, "--output_dir", rr_dir,
+                "--train_path", os.path.join(root, "train.jsonl"),
+                "--loss_fn", "bce", "--dtype", "bfloat16",
+                # mean pooling, as the train phase's bi-encoder: with these
+                # seeded weights attention is near uniform and the [CLS]
+                # state is its own embedding's, nearly one value for every
+                # pair, so first-token scores differ only in bf16 noise
+                "--pooling", "mean",
+                "--projection_in_dim", str(bert_cfg.hidden_size),
+                "--per_device_train_batch_size", str(RR_BATCH),
+                "--q_max_len", str(Q_LEN), "--p_max_len", str(P_LEN),
+                "--max_steps", str(RR_STEPS), "--logging_steps", "5",
+                "--learning_rate", str(RR_LR), "--device", str(dev)],
+                tokenizer=tok)
+        finally:
+            rr_trainer.RRTrainer.train_step = real_step
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        if result["final_step"] != RR_STEPS \
+                or not np.isfinite(result["losses"]).all():
+            raise AssertionError(f"rerank: train_rr run {result}")
+        med = float(np.median(times[1:]))
+        log(f"rerank: train_rr ran {len(times)} steps (BERT-base cross-"
+            f"encoder, bce, bf16 compute, dropout 0.1, lr {RR_LR}, "
+            f"{RR_BATCH} positive + {RR_BATCH} negative pairs of "
+            f"{Q_LEN + P_LEN + 2} tokens a step); logged losses "
+            f"{result['losses']}; median step {med * 1000:.2f} ms (first "
+            f"{times[0] * 1000:.1f} ms) = {2 * RR_BATCH / med:.1f} pairs/s; "
+            f"peak max_memory_allocated {peak / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB allocated before train_rr)")
+        trained = seen[0].model.eval()
+        pairs = [(ids, [0] * len(ids)) for ids in (
+            [101] + list(rng.integers(1000, bert_cfg.vocab_size, 100)) + [102]
+            for _ in range(16))]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in collate_pairs(
+            pairs, 128, Q_LEN + P_LEN + 2, 0).items()}
+        loaded = RRModel.load(rr_dir, dtype="bfloat16", device=dev)
+        with torch.inference_mode():
+            same = torch.equal(loaded.score(**batch), trained.score(**batch))
+        if not same:
+            raise AssertionError("rerank: the saved cross-encoder does not "
+                                 "score as the trained model")
+        log("rerank: RRModel.load of the train_rr output scores 16 pairs "
+            "bit-equal to the trained model")
+        del trained, seen[:], loaded
+
+        # 3-4. rerank with monoBERT and monoT5, evaluate, the fp32 audits
+        def rr_model(name, dtype):
+            if name == "monoBERT":
+                return RRModel.load(rr_dir, dtype=dtype, device=dev)
+            return RRModel.build(ModelArguments(
+                model_name_or_path=t5_dir, dtype=dtype, pos_token="true",
+                neg_token="false"), tokenizer=tok_t5, device=dev)
+
+        models = (("monoBERT", tok, ["--model_name_or_path", rr_dir]),
+                  ("monoT5", tok_t5, ["--model_name_or_path", t5_dir,
+                                      "--pos_token", "true",
+                                      "--neg_token", "false"]))
+        failures = []
+        for name, tk, flags in models:
+            out = os.path.join(root, f"{name}.trec")
+            sync(dev)
+            t0 = time.perf_counter()
+            got = rerank.main(flags + [
+                "--query_path", os.path.join(root, "dev.jsonl"),
+                "--corpus_path", os.path.join(root, "corpus.jsonl"),
+                "--trec_run_path", run_path, "--trec_save_path", out,
+                # the texts are token id lists: a template would turn
+                # them into strings
+                "--query_template", "", "--doc_template", "",
+                "--reranking_depth", str(RR_DEPTH), "--q_max_len",
+                str(Q_LEN), "--p_max_len", str(P_LEN), "--dtype", "bfloat16",
+                "--per_device_eval_batch_size", str(RR_EVAL_BATCH),
+                "--device", str(dev)], tokenizer=tk)
+            sync(dev)
+            sec = time.perf_counter() - t0
+            n_pairs = sum(len(d) for d in got.values())
+            mrr = evaluate.main(["-m", "mrr_cut.10", qrels_path, out])
+            per_query = eval_mrr(load_qrels(qrels_path), load_run(out), 10)
+            log(f"rerank: rerank with {name} (bf16) scored {n_pairs} pairs "
+                f"in {sec:.2f} s ({n_pairs / sec:.1f} pairs/s, model load "
+                f"included); MRR@10 {mrr:.6f} (the T5 run's {mrr_dr:.6f})")
+            model = rr_model(name, "float32")
+            fp32 = rerank_run(model, tk, root, run_path, Q_LEN, P_LEN)
+            try:  # both models are audited before the phase fails
+                audit_rerank(name, got, fp32, qrels, mrr, per_query)
+            except AssertionError as e:
+                log(str(e))
+                failures.append(str(e))
+            del model
+            if cuda:
+                torch.cuda.empty_cache()
+
+        # pairs/s at S=128 and S=256, bf16
+        if cuda:
+            for name, _, _ in models:
+                model = rr_model(name, "bfloat16")
+                rate = {S: pairs_per_s(model, dev, rng, S) for S in (128, 256)}
+                log(f"rerank: {name} (bf16) scores a batch of "
+                    f"{RR_EVAL_BATCH} pairs at {rate[128]:.1f} pairs/s at "
+                    f"S=128 and {rate[256]:.1f} pairs/s at S=256 (median "
+                    "device time of 5 calls)")
+                del model
+
+        # 5. /rerank
+        serve_rerank(dev, rr_dir, tok, rng)
+        if failures:
+            raise AssertionError("; ".join(failures))
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"plain_gmax": launches["plain_gmax"],
+            "gather_rescore": launches["gather_rescore"]}
+
+
+PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
+          "rerank")
+
+
+LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase with the peak allocation counter reset first; log what
+    was allocated at its start, its peak and what it left allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = fn(*args)
+    # a served phase's services stay reachable from the HTTP handler class
+    # make_handler built (its methods close over them), and classes sit in
+    # reference cycles: only the cyclic collector frees them, and with them
+    # the index
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log(f"memory: phase {name}: {start / 2**30:.2f} GiB allocated at its "
+        f"start, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{left / 2**30:.2f} GiB at its end")
+    if left > LEFT_BYTES:
+        raise AssertionError(f"phase {name} left {left / 2**30:.2f} GiB "
+                             "allocated")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1711,20 +2209,22 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
-        phase_kernels(dev)
+        run_phase("kernels", phase_kernels, dev)
     rows, launches, replay = {}, {}, []
     if "serve" in phases:
-        r, n = phase_serve(dev, replay)
+        r, n = run_phase("serve", phase_serve, dev, replay)
         rows.update(r)
         launches.update(n)
     if "perf" in phases:
-        r, n = phase_perf(dev)
+        r, n = run_phase("perf", phase_perf, dev)
         rows.update(r)
         launches.update(n)
     if "stages" in phases and replay:
-        phase_stages(dev, replay)
+        run_phase("stages", phase_stages, dev, replay)
     if "train" in phases:
-        phase_train(dev)
+        run_phase("train", phase_train, dev)
+    if "rerank" in phases:
+        run_phase("rerank", phase_rerank, dev)
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,25 +1,32 @@
-"""Retrieval serving: hold the model and the index on the device, answer HTTP.
+"""Retrieval and rerank serving: hold the models and the index on the
+device, answer HTTP.
 
-Port of the retrieval half of ``openmatch_tpu/drivers/serve.py``:
+Port of ``openmatch_tpu/drivers/serve.py``:
 
     python -m openmatch_tpu_torch.drivers.serve \
-        --model_name_or_path ckpt_dr --encoded_save_path embeddings/ \
+        [--model_name_or_path ckpt_dr --encoded_save_path embeddings/] \
+        [--rr_model_name_or_path ckpt_rr] \
         --port 8080 [--retrieve_depth 100] [--max_batch 64] [--device cuda] \
         [--search_n_segs 6]
 
     GET  /health
     POST /search   {"queries": ["...", ...], "k": 10}
       -> {"results": [[{"id": ..., "score": ...}, ...], ...]}
+    POST /rerank   {"query": "...", "docs": [{"id": "d1", "text": "..."}, ...]}
+      -> {"results": [{"id": ..., "score": ...}, ...]}   # descending
 
-``/rerank`` answers 404: the cross-encoder is not ported yet.
-``--search_n_segs`` > 1 holds the index as that many separate device
-allocations (the kernel path only: ``--search_method auto`` on a CPU
-device refuses it, as the JAX driver does).
+Either endpoint runs alone: ``--encoded_save_path`` enables /search,
+``--rr_model_name_or_path`` enables /rerank; a disabled one answers 404.
+/rerank scores as ``Reranker`` does (``RRModel.score`` then
+``relevance_logprob``). ``--search_n_segs`` > 1 holds the index as that
+many separate device allocations (the kernel path only: ``--search_method
+auto`` on a CPU device refuses it, as the JAX driver does).
 
-One worker thread owns the device: concurrent HTTP handlers enqueue and
-wait, and the worker coalesces what arrived into batches of at most
-``max_batch`` queries. ``torch.inference_mode`` is thread-local, so the
-worker enters it itself.
+One worker thread per service owns the device: concurrent HTTP handlers
+enqueue and wait, and the worker coalesces what arrived into batches of at
+most ``max_batch`` queries or pairs. ``torch.inference_mode`` is
+thread-local, so the worker enters it itself. ``close()`` stops the worker,
+which releases what the service holds on the device.
 """
 
 from __future__ import annotations
@@ -38,7 +45,11 @@ from ..config import (ArgumentParser, DataArguments, InferenceArguments,
                       ModelArguments)
 from ..data.collators import pad_ids
 from ..models.dr_model import DRModel
+from ..models.rr_model import RRModel
 from ..ops.mips import Searcher
+from ..retriever.reranker import (_model_max_positions, bucket_lens,
+                                  collate_pairs, device_pair_len, encode_pair,
+                                  score_batch)
 from .common import load_tokenizer, setup_logging, split_device_flag
 
 
@@ -71,20 +82,34 @@ class _QueueService:
 
     def _worker(self):
         with torch.inference_mode():
-            while True:
-                self._serve_one_group()
+            while self._serve_one_group():
+                pass
 
-    def _serve_one_group(self):
-        items = [self._queue.get()]
+    def close(self):
+        """Stop the worker thread (after the requests queued before this
+        call); the service then holds nothing on the device."""
+        self._queue.put(None)
+        self._thread.join()
+
+    def _serve_one_group(self) -> bool:
+        """Serve one coalesced group; False once ``close`` was called."""
+        first = self._queue.get()
+        if first is None:
+            return False
+        items = [first]
         deadline = time.monotonic() + self.coalesce_window_s
         while sum(self._rows(args) for args, _, _ in items) < self.max_batch:
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 break
             try:
-                items.append(self._queue.get(timeout=remaining))
+                item = self._queue.get(timeout=remaining)
             except queue.Empty:
                 break
+            if item is None:  # close(): serve what was taken, then stop
+                self._queue.put(None)
+                break
+            items.append(item)
         self.stats["dispatch_groups"] += 1
         self.stats["requests"] += len(items)
         self.stats["max_coalesced"] = max(self.stats["max_coalesced"],
@@ -110,6 +135,7 @@ class _QueueService:
                 "rows": sum(self._rows(args) for args, _, _ in items),
                 "reqs": len(items), "error": err,
             })
+        return True
 
     def _submit(self, *args):
         reply: "queue.Queue" = queue.Queue()
@@ -201,7 +227,78 @@ class RetrievalService(_QueueService):
         return self._submit(queries, k)
 
 
-def make_handler(service, default_k: int):
+class RerankService(_QueueService):
+    """Cross-encoder pair scoring behind a single-consumer queue: the pairs
+    of the coalesced requests are flattened and scored in chunks of
+    ``max_batch``, each padded to ``max_batch`` rows and to the smallest of
+    ``Reranker``'s bucket pad lengths that holds its longest pair."""
+
+    def __init__(self, model, tokenizer, q_max_len: int, p_max_len: int,
+                 max_batch: int):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.tokenizer = tokenizer
+        self.max_len = q_max_len + p_max_len + 2
+        self.bucket_lens = bucket_lens(device_pair_len(
+            self.max_len, _model_max_positions(model)))
+        self.max_batch = max_batch
+        self._start_worker()
+
+    def warmup(self):
+        """Score one full batch at every pad length a chunk can take, then
+        one request through the tokenizer path."""
+        with torch.inference_mode():
+            for pad_len in self.bucket_lens:
+                zeros = np.zeros((self.max_batch, pad_len), np.int64)
+                score_batch(self.model, {
+                    "input_ids": zeros, "attention_mask": zeros + 1,
+                    "token_type_ids": zeros}, self.device).cpu()
+        self.rerank("warmup", [{"id": "w", "text": "warmup"}])
+
+    @staticmethod
+    def _rows(args):
+        return len(args[1])
+
+    def _score_pairs(self, flat_pairs) -> np.ndarray:
+        """[(query, doc text)] merged across requests -> scores [n]; one
+        device dispatch per ``max_batch`` chunk."""
+        pad_id = self.tokenizer.pad_token_id or 0
+        scores = np.empty(len(flat_pairs), np.float32)
+        for start in range(0, len(flat_pairs), self.max_batch):
+            chunk = flat_pairs[start:start + self.max_batch]
+            pairs = [encode_pair(self.tokenizer, q, t, self.max_len)
+                     for q, t in chunk]
+            pairs = pairs + [pairs[-1]] * (self.max_batch - len(chunk))
+            longest = max(len(ids) for ids, _ in pairs)
+            pad_len = next(b for b in self.bucket_lens if b >= longest)
+            batch = collate_pairs(pairs, pad_len, self.max_len, pad_id)
+            t_dev = time.monotonic()  # device span: upload, score, readback
+            out = score_batch(self.model, batch, self.device)
+            scores[start:start + len(chunk)] = out[:len(chunk)].cpu().numpy()
+            self._exec_device_s += time.monotonic() - t_dev
+        return scores
+
+    def _run_many(self, requests):
+        """requests: [(query, docs)]; each answer is its docs by descending
+        score."""
+        flat = [(q, d["text"]) for q, docs in requests for d in docs]
+        scores = self._score_pairs(flat)
+        results, row = [], 0
+        for _, docs in requests:
+            s = scores[row:row + len(docs)]
+            order = np.argsort(-s, kind="stable")
+            results.append([{"id": docs[int(i)]["id"],
+                             "score": float(s[int(i)])} for i in order])
+            row += len(docs)
+        return results
+
+    def rerank(self, query: str, docs):
+        if not docs:
+            return []
+        return self._submit(query, docs)
+
+
+def make_handler(service, default_k: int, rerank_service=None):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):
             pass
@@ -216,8 +313,9 @@ def make_handler(service, default_k: int):
 
         def do_GET(self):
             if self.path == "/health":
-                payload = {"status": "ok",
-                           "endpoints": ["/search"] if service else []}
+                payload = {"status": "ok", "endpoints": (
+                    (["/search"] if service else [])
+                    + (["/rerank"] if rerank_service else []))}
                 if service:
                     payload["num_docs"] = service.searcher.n_docs
                 self._send(200, payload)
@@ -249,8 +347,23 @@ def make_handler(service, default_k: int):
             self._send(200, {"results": service.search(queries, k=k)})
 
         def _handle_rerank(self, req):
-            self._send(404, {"error": "/rerank not enabled (the PyTorch "
-                                      "port has no cross-encoder yet)"})
+            if rerank_service is None:
+                self._send(404, {"error": "/rerank not enabled (no "
+                                          "--rr_model_name_or_path)"})
+                return
+            query, docs = req.get("query"), req.get("docs")
+            if not isinstance(query, str):
+                self._send(400, {"error": "'query' must be a string"})
+                return
+            if (not isinstance(docs, list) or not docs
+                    or not all(isinstance(d, dict) and "id" in d
+                               and isinstance(d.get("text"), str)
+                               for d in docs)):
+                self._send(400, {"error": "'docs' must be a non-empty list "
+                                          "of {'id': ..., 'text': str} "
+                                          "objects"})
+                return
+            self._send(200, {"results": rerank_service.rerank(query, docs)})
 
         def do_POST(self):
             routes = {"/search": self._handle_search,
@@ -292,6 +405,18 @@ def build_service(model_args, data_args, infer_args, max_batch: int,
                             max_batch=max_batch)
 
 
+def build_rerank_service(rr_path: str, data_args, max_batch: int, device,
+                         tokenizer=None) -> RerankService:
+    """The /rerank service over the cross-encoder at ``rr_path``;
+    ``tokenizer`` defaults to ``load_tokenizer`` of that path."""
+    rr_args = ModelArguments(model_name_or_path=rr_path)
+    if tokenizer is None:
+        tokenizer = load_tokenizer(rr_args)
+    model = RRModel.build(rr_args, tokenizer=tokenizer, device=device)
+    return RerankService(model, tokenizer, q_max_len=data_args.q_max_len,
+                         p_max_len=data_args.p_max_len, max_batch=max_batch)
+
+
 class ServingHTTPServer(ThreadingHTTPServer):
     """ThreadingHTTPServer with a production listen backlog: the default
     of 5 drops SYNs from concurrent one-connection-per-request clients,
@@ -300,27 +425,39 @@ class ServingHTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
-def main(argv=None, tokenizer=None):
+def main(argv=None, tokenizer=None, rr_tokenizer=None):
+    """``tokenizer`` / ``rr_tokenizer``: the retrieval and the rerank
+    model's tokenizers, by default ``load_tokenizer`` of each path."""
     setup_logging()
     device, rest = split_device_flag(argv)
     extra = argparse.ArgumentParser(allow_abbrev=False)
     extra.add_argument("--port", type=int, default=8080)
     extra.add_argument("--max_batch", type=int, default=64)
     extra.add_argument("--rr_model_name_or_path", default=None,
-                       help="not available in the PyTorch port yet")
+                       help="cross-encoder checkpoint enabling POST /rerank")
     extra_args, rest = extra.parse_known_args(rest)
-    if extra_args.rr_model_name_or_path:
-        raise NotImplementedError("/rerank is not ported to PyTorch yet")
     model_args, data_args, infer_args = ArgumentParser(
         (ModelArguments, DataArguments, InferenceArguments)).parse(rest)
-    if not infer_args.encoded_save_path:
-        raise ValueError("nothing to serve: pass --encoded_save_path")
-    service = build_service(model_args, data_args, infer_args,
-                            extra_args.max_batch, device, tokenizer)
-    service.warmup()
-    server = ServingHTTPServer(("0.0.0.0", extra_args.port),
-                               make_handler(service, infer_args.retrieve_depth))
-    print(f"serving /search on :{extra_args.port}")
+    service = rerank_service = None
+    if infer_args.encoded_save_path:
+        service = build_service(model_args, data_args, infer_args,
+                                extra_args.max_batch, device, tokenizer)
+        service.warmup()
+    if extra_args.rr_model_name_or_path:
+        rerank_service = build_rerank_service(
+            extra_args.rr_model_name_or_path, data_args, extra_args.max_batch,
+            device, rr_tokenizer)
+        rerank_service.warmup()
+    if service is None and rerank_service is None:
+        raise ValueError("nothing to serve: pass --encoded_save_path "
+                         "(retrieval) and/or --rr_model_name_or_path "
+                         "(rerank)")
+    server = ServingHTTPServer(
+        ("0.0.0.0", extra_args.port),
+        make_handler(service, infer_args.retrieve_depth, rerank_service))
+    endpoints = ((["/search"] if service else [])
+                 + (["/rerank"] if rerank_service else []))
+    print(f"serving {'+'.join(endpoints)} on :{extra_args.port}")
     server.serve_forever()
 
 

@@ -1,0 +1,66 @@
+"""Train a cross-encoder reranker (port of the JAX ``train_rr`` driver).
+
+    python -m openmatch_tpu_torch.drivers.train_rr \
+        --model_name_or_path bert-base-uncased \
+        --train_path train.jsonl --output_dir out \
+        [--loss_fn bce] [--pos_token true --neg_token false] [--device cuda]
+
+``--model_name_or_path`` is an OpenMatch reranker checkpoint or a raw
+HuggingFace BERT-family or T5 directory (monoT5 needs ``--pos_token`` and
+``--neg_token``). A step takes ``per_device_train_batch_size`` positive and
+as many negative pairs on one device and one process. A ``checkpoint-N``
+under ``--output_dir`` written by this port is resumed.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ..config import (ArgumentParser, DataArguments, ModelArguments,
+                      TrainingArguments)
+from ..data.collators import PairCollator
+from ..data.train_dataset import RRTrainDataset
+from ..models.rr_model import RRModel
+from ..train.rr_trainer import RRTrainer
+from .common import (epochs_iterator, load_tokenizer, setup_logging,
+                     split_device_flag)
+
+
+def main(argv=None, tokenizer=None):
+    """``tokenizer``: used as given; by default ``load_tokenizer``. Returns
+    the trainer's ``{"losses", "final_step"}``."""
+    setup_logging()
+    device, rest = split_device_flag(argv)
+    parser = ArgumentParser((ModelArguments, DataArguments,
+                             TrainingArguments))
+    model_args, data_args, train_args = parser.parse(rest)
+
+    if tokenizer is None:
+        tokenizer = load_tokenizer(model_args)
+    model = RRModel.build(model_args, train_args, tokenizer=tokenizer,
+                          device=device)
+    dataset = RRTrainDataset(tokenizer, data_args,
+                             shuffle_seed=train_args.seed)
+    batch = train_args.per_device_train_batch_size
+    steps_per_epoch = max(len(dataset) // max(batch, 1), 1)
+    num_epochs = int(math.ceil(train_args.num_train_epochs))
+    total_steps = (train_args.max_steps if train_args.max_steps > 0
+                   else steps_per_epoch * num_epochs)
+
+    trainer = RRTrainer(model, train_args, total_steps=total_steps,
+                        device=device)
+    trainer.maybe_resume()
+    collator = PairCollator(pad_token_id=tokenizer.pad_token_id or 0,
+                            q_max_len=data_args.q_max_len,
+                            p_max_len=data_args.p_max_len)
+    data_iter = epochs_iterator(dataset, collator, batch, num_epochs,
+                                train_args.seed)
+    result = trainer.train(data_iter)
+    trainer.save_model()
+    if hasattr(tokenizer, "save_pretrained"):
+        tokenizer.save_pretrained(train_args.output_dir)
+    return result
+
+
+if __name__ == "__main__":
+    main()

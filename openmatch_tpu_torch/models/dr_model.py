@@ -2,12 +2,17 @@
 
 Port of ``openmatch_tpu/models/dr_model.py``: tied or untied query/passage
 towers, "first"/"mean" pooling, an optional bias-free head and optional L2
-normalisation. ``DRModel.load`` and ``DRModel.save`` read and write the JAX
-package's checkpoint directory (``openmatch_config.json`` plus flax-msgpack
+normalisation. Backbones: ``bert`` (BERT / RoBERTa / ELECTRA), ``t5`` (the
+T5 encoder with the configured pooling: GTR, ``--encoder_only``) and
+``t5_encdec`` (full T5: the rep is the hidden state of one decoder step
+fed the start token, whatever the pooling, JAX ``dr_model.py:134-139``).
+
+``DRModel.load`` and ``DRModel.save`` read and write the JAX package's
+checkpoint directory (``openmatch_config.json`` plus flax-msgpack
 ``params.msgpack``) through the port's own codec (``models/flax_msgpack``),
 so a model trained in either package serves in the other. ``DRModel.build``
 also converts a raw HuggingFace BERT / RoBERTa / ELECTRA directory
-(``models/hf_convert``).
+(``models/hf_convert``) or T5 / GTR directory (``models/t5``).
 """
 
 from __future__ import annotations
@@ -25,16 +30,52 @@ from .flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from .hf_convert import load_bert_encoder
 from .jax_convert import params_from_jax, params_to_jax
 from .pooling import LinearHead, pool_hidden
+from .t5 import (T5Config, T5Encoder, T5EncoderDecoderStep, load_t5_encdec,
+                 load_t5_encoder)
 
 OPENMATCH_CONFIG = "openmatch_config.json"
-_T5_TODO = ("T5 backbones ({}) are not ported to PyTorch yet; they follow "
-            "in the port's T5 step (ROADMAP.md, P7)")
+_ENCODERS = {"bert": BertEncoder, "t5": T5Encoder,
+             "t5_encdec": T5EncoderDecoderStep}
+
+
+def make_encoder(backbone_type: str, config, dtype: torch.dtype):
+    """The encoder module of a backbone (``bert``, ``t5``, ``t5_encdec``)."""
+    if backbone_type not in _ENCODERS:
+        raise ValueError(f"Unknown backbone type {backbone_type}")
+    want = BertConfig if backbone_type == "bert" else T5Config
+    if not isinstance(config, want):
+        raise TypeError(f"backbone {backbone_type!r} needs a "
+                        f"{want.__name__}, got {type(config).__name__}")
+    return _ENCODERS[backbone_type](config, dtype)
+
+
+def config_from_dict(backbone_type: str, d: Dict[str, Any]):
+    """``openmatch_config.json``'s ``encoder_config`` -> its config."""
+    return BertConfig(**d) if backbone_type == "bert" else T5Config(**d)
+
+
+def hidden_size(config) -> int:
+    return config.hidden_size if isinstance(config, BertConfig) \
+        else config.d_model
+
+
+def num_heads(config) -> int:
+    return config.num_attention_heads if isinstance(config, BertConfig) \
+        else config.num_heads
+
+
+def dropout_active(config) -> bool:
+    """True when the encoder config carries nonzero dropout rates (the
+    trainer then passes a generator; inference never does)."""
+    return bool(getattr(config, "hidden_dropout_prob", 0.0)
+                or getattr(config, "attention_probs_dropout_prob", 0.0)
+                or getattr(config, "dropout_rate", 0.0))
 
 
 class DRModel(nn.Module):
     def __init__(
         self,
-        encoder_config: BertConfig,
+        encoder_config,
         backbone_type: str = "bert",
         tied: bool = True,
         feature: str = "last_hidden_state",
@@ -46,10 +87,6 @@ class DRModel(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if backbone_type in ("t5", "t5_encdec"):
-            raise NotImplementedError(_T5_TODO.format(backbone_type))
-        if backbone_type != "bert":
-            raise ValueError(f"Unknown backbone type {backbone_type}")
         self.encoder_config = encoder_config
         self.backbone_type = backbone_type
         self.tied = tied
@@ -60,8 +97,9 @@ class DRModel(nn.Module):
         self.head_in_dim = head_in_dim
         self.head_out_dim = head_out_dim
         self.dtype = dtype
-        self.encoder_q = BertEncoder(encoder_config, dtype)
-        self.encoder_p = None if tied else BertEncoder(encoder_config, dtype)
+        self.encoder_q = make_encoder(backbone_type, encoder_config, dtype)
+        self.encoder_p = (None if tied else
+                          make_encoder(backbone_type, encoder_config, dtype))
         self.head_q = LinearHead(head_in_dim, head_out_dim) if has_head else None
         self.head_p = (LinearHead(head_in_dim, head_out_dim)
                        if has_head and not tied else None)
@@ -69,14 +107,11 @@ class DRModel(nn.Module):
     @property
     def out_dim(self) -> int:
         return self.head_out_dim if self.has_head \
-            else self.encoder_config.hidden_size
+            else hidden_size(self.encoder_config)
 
     @property
     def dropout_active(self) -> bool:
-        """True when the encoder config carries nonzero dropout rates (the
-        trainer then passes a generator; inference never does)."""
-        c = self.encoder_config
-        return bool(c.hidden_dropout_prob or c.attention_probs_dropout_prob)
+        return dropout_active(self.encoder_config)
 
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                is_query: bool = False,
@@ -86,9 +121,12 @@ class DRModel(nn.Module):
         query_tower = is_query or self.tied
         encoder = self.encoder_q if query_tower else self.encoder_p
         head = self.head_q if query_tower else self.head_p
-        hidden = encoder(input_ids, attention_mask,
-                         generator=generator)[self.feature]
-        reps = pool_hidden(hidden, attention_mask, self.pooling)
+        outputs = encoder(input_ids, attention_mask, generator=generator)
+        if self.backbone_type == "t5_encdec":
+            reps = outputs["decoder_hidden"][:, 0, :]
+        else:
+            reps = pool_hidden(outputs[self.feature], attention_mask,
+                               self.pooling)
         if head is not None:
             reps = head(reps)
         if self.normalize:
@@ -121,10 +159,8 @@ class DRModel(nn.Module):
     def from_config_dict(cls, cfg: Dict[str, Any],
                          dtype: torch.dtype = torch.float32) -> "DRModel":
         backbone = cfg["plm_backbone"]["type"]
-        if backbone in ("t5", "t5_encdec"):
-            raise NotImplementedError(_T5_TODO.format(backbone))
         return cls(
-            encoder_config=BertConfig(**cfg["encoder_config"]),
+            encoder_config=config_from_dict(backbone, cfg["encoder_config"]),
             backbone_type=backbone,
             tied=cfg["tied"],
             feature=cfg["plm_backbone"]["feature"],
@@ -164,7 +200,7 @@ class DRModel(nn.Module):
         with open(os.path.join(output_dir, OPENMATCH_CONFIG), "w") as f:
             json.dump(self.config_dict(), f, indent=4)
         tree = params_to_jax(self.state_dict(),
-                             self.encoder_config.num_attention_heads)
+                             num_heads(self.encoder_config))
         write_flax_msgpack(tree, os.path.join(output_dir, "params.msgpack"))
 
     @classmethod
@@ -172,18 +208,25 @@ class DRModel(nn.Module):
         """``ModelArguments`` -> a loaded model (the drivers' entry), on the
         card unless the caller names the CPU: an OpenMatch checkpoint
         directory loads, a raw HuggingFace BERT / RoBERTa / ELECTRA
-        directory converts (JAX ``DRModel.build``). A new linear head is
+        directory converts, and a T5 / GTR one (a ``t5`` or ``gtr`` name or
+        a T5 ``config.json``) builds ``t5_encdec``, or ``t5`` with
+        ``--encoder_only`` (JAX ``DRModel.build``). A new linear head is
         drawn from a generator seeded with 0 (JAX seeds its head with
         ``PRNGKey(0)``); untied towers start as copies of each other."""
         device = resolve_device(device)
         path = model_args.model_name_or_path
         if path and os.path.exists(os.path.join(path, OPENMATCH_CONFIG)):
             return cls.load(path, dtype=model_args.dtype, device=device)
-        if _looks_like_t5(path):
-            raise NotImplementedError(_T5_TODO.format(path))
-        enc_config, enc_state = load_bert_encoder(path)
+        if not _looks_like_t5(path):
+            backbone, (enc_config, enc_state) = "bert", load_bert_encoder(path)
+        elif model_args.encoder_only:
+            backbone, (enc_config, enc_state) = "t5", load_t5_encoder(path)
+        else:
+            backbone, (enc_config, enc_state) = ("t5_encdec",
+                                                 load_t5_encdec(path))
         model = cls(
             encoder_config=enc_config,
+            backbone_type=backbone,
             tied=not model_args.untie_encoder,
             feature=model_args.feature,
             pooling=model_args.pooling,

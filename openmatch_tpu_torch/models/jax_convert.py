@@ -11,11 +11,20 @@ port's modules. Flax layouts it undoes:
 - ``attention/out`` kernel is [H, hd, d]: a [d, d] linear over the
   concatenated heads.
 - ``LayerNorm`` has ``scale``/``bias``; ``Embed`` has ``embedding``.
+- T5 (``T5Encoder``, ``T5EncoderDecoderStep``): ``q``, ``k``, ``v`` are
+  ``DenseGeneral`` kernels [d, H, d_kv], each a [H*d_kv, d] linear; ``o`` is
+  [H, d_kv, d], a [d, H*d_kv] linear; ``rel_bias``, ``enc_rel_bias`` and
+  ``dec_rel_bias`` are [buckets, H] tables; ``RMSNorm`` keeps its
+  ``weight``; ``shared`` is an ``Embed``; ``lm_head`` a ``Dense``.
+
+Trees: a ``DRModel`` tree has ``encoder_q`` (and ``encoder_p``, ``head_q``,
+``head_p``), an ``RRModel`` tree ``encoder`` (and ``head``); any other tree
+is a bare encoder. Each encoder is BERT or T5, told apart by its keys.
 
 ``params_to_jax`` is the inverse: a port ``state_dict`` -> the Flax tree
 (fp32 numpy leaves, keys sorted as ``jax.tree.map`` leaves them), which
-``DRModel.save`` writes as ``params.msgpack``: the bytes the JAX
-``DRModel.save`` writes for the same weights.
+``DRModel.save`` and ``RRModel.save`` write as ``params.msgpack``: the bytes
+the JAX package's ``save`` writes for the same weights.
 """
 
 from __future__ import annotations
@@ -76,19 +85,71 @@ def encoder_state_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.T
     return out
 
 
+def _t5_layers_from_jax(tree: Mapping, jax_name: str, ours: str,
+                        out: Dict[str, torch.Tensor]):
+    layers = sorted((int(m.group(1)), key) for key in tree
+                    if (m := re.fullmatch(jax_name + r"_(\d+)", key)))
+    for i, key in layers:
+        lt, lp = tree[key], f"{ours}.{i}"
+        for attn in ("self_attn", "cross_attn"):
+            if attn not in lt:
+                continue
+            for n in ("q", "k", "v"):
+                kernel = np.asarray(lt[attn][n]["kernel"])  # [d, H, d_kv]
+                out[f"{lp}.{attn}.{n}.weight"] = _t(
+                    kernel.reshape(kernel.shape[0], -1).T)
+            o = np.asarray(lt[attn]["o"]["kernel"])  # [H, d_kv, d]
+            out[f"{lp}.{attn}.o.weight"] = _t(o.reshape(-1, o.shape[-1]).T)
+        for ln in ("self_attn_ln", "cross_attn_ln", "ff_ln"):
+            if ln in lt:
+                out[f"{lp}.{ln}.weight"] = _t(lt[ln]["weight"])
+        for n, dense in lt["ff"].items():
+            _dense(dense, f"{lp}.ff.{n}", out)
+
+
+def t5_state_from_jax(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A ``T5Encoder`` or ``T5EncoderDecoderStep`` Flax tree -> the port's
+    module state."""
+    p = f"{prefix}." if prefix else ""
+    out = {f"{p}shared.weight": _t(tree["shared"]["embedding"])}
+    for name in ("rel_bias", "enc_rel_bias", "dec_rel_bias"):
+        if name in tree:
+            out[f"{p}{name}"] = _t(tree[name])
+    for name in ("final_ln", "enc_final_ln", "dec_final_ln"):
+        if name in tree:
+            out[f"{p}{name}.weight"] = _t(tree[name]["weight"])
+    if "lm_head" in tree:
+        _dense(tree["lm_head"], f"{p}lm_head", out)
+    for jax_name, ours in (("layer", "layers"), ("enc_layer", "enc_layers"),
+                           ("dec_layer", "dec_layers")):
+        _t5_layers_from_jax(tree, jax_name, f"{p}{ours}", out)
+    return out
+
+
+def _any_encoder_from_jax(tree: Mapping, prefix: str = ""):
+    if "shared" in tree:
+        return t5_state_from_jax(tree, prefix)
+    return encoder_state_from_jax(tree, prefix)
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A Flax parameter tree (numpy leaves) -> a state_dict.
 
     A ``DRModel`` tree (keys ``encoder_q``, optional ``encoder_p``,
-    ``head_q``, ``head_p``) maps onto the port's ``DRModel``; a bare
-    ``BertEncoder`` tree maps onto ``BertEncoder``."""
-    if "encoder_q" not in tree:
-        return encoder_state_from_jax(tree)
+    ``head_q``, ``head_p``) maps onto the port's ``DRModel``, an
+    ``RRModel`` tree (``encoder``, optional ``head``) onto ``RRModel``; a
+    bare encoder tree maps onto ``BertEncoder`` or the T5 module."""
+    if "encoder_q" in tree:
+        towers, heads = ("encoder_q", "encoder_p"), ("head_q", "head_p")
+    elif "encoder" in tree:
+        towers, heads = ("encoder",), ("head",)
+    else:
+        return _any_encoder_from_jax(tree)
     out: Dict[str, torch.Tensor] = {}
-    for tower in ("encoder_q", "encoder_p"):
+    for tower in towers:
         if tower in tree:
-            out.update(encoder_state_from_jax(tree[tower], tower))
-    for head in ("head_q", "head_p"):
+            out.update(_any_encoder_from_jax(tree[tower], tower))
+    for head in heads:
         if head in tree:
             _dense(tree[head]["linear"], f"{head}.linear", out)
     return out
@@ -147,19 +208,76 @@ def encoder_state_to_jax(sd: Mapping, prefix: str, num_heads: int) -> dict:
     return tree
 
 
+def _t5_layers_to_jax(sd: Mapping, ours: str, jax_name: str,
+                      num_heads: int, tree: dict):
+    layers = sorted({int(m.group(1)) for key in sd
+                     if (m := re.match(re.escape(ours) + r"\.(\d+)\.",
+                                       key))})
+    for i in layers:
+        lp, lt = f"{ours}.{i}", {}
+        for attn in ("self_attn", "cross_attn"):
+            if f"{lp}.{attn}.q.weight" not in sd:
+                continue
+            lt[attn] = {}
+            for n in ("q", "k", "v"):
+                w = _np(sd[f"{lp}.{attn}.{n}.weight"])  # [H*d_kv, d]
+                lt[attn][n] = {"kernel": w.T.reshape(
+                    w.shape[1], num_heads, -1).copy()}
+            o = _np(sd[f"{lp}.{attn}.o.weight"])  # [d, H*d_kv]
+            lt[attn]["o"] = {"kernel": o.T.reshape(num_heads, -1,
+                                                   o.shape[0]).copy()}
+        for ln in ("self_attn_ln", "cross_attn_ln", "ff_ln"):
+            if f"{lp}.{ln}.weight" in sd:
+                lt[ln] = {"weight": _np(sd[f"{lp}.{ln}.weight"])}
+        lt["ff"] = {n: _dense_to_jax(sd, f"{lp}.ff.{n}")
+                    for n in ("wi", "wi_0", "wi_1", "wo")
+                    if f"{lp}.ff.{n}.weight" in sd}
+        tree[f"{jax_name}_{i}"] = lt
+
+
+def t5_state_to_jax(sd: Mapping, prefix: str, num_heads: int) -> dict:
+    """The port's T5 module state -> its Flax tree."""
+    p = f"{prefix}." if prefix else ""
+    tree = {"shared": {"embedding": _np(sd[f"{p}shared.weight"])}}
+    for name in ("rel_bias", "enc_rel_bias", "dec_rel_bias"):
+        if f"{p}{name}" in sd:
+            tree[name] = _np(sd[f"{p}{name}"])
+    for name in ("final_ln", "enc_final_ln", "dec_final_ln"):
+        if f"{p}{name}.weight" in sd:
+            tree[name] = {"weight": _np(sd[f"{p}{name}.weight"])}
+    if f"{p}lm_head.weight" in sd:
+        tree["lm_head"] = _dense_to_jax(sd, f"{p}lm_head")
+    for ours, jax_name in (("layers", "layer"), ("enc_layers", "enc_layer"),
+                           ("dec_layers", "dec_layer")):
+        _t5_layers_to_jax(sd, f"{p}{ours}", jax_name, num_heads, tree)
+    return tree
+
+
+def _any_encoder_to_jax(sd: Mapping, prefix: str, num_heads: int) -> dict:
+    p = f"{prefix}." if prefix else ""
+    if f"{p}shared.weight" in sd:
+        return t5_state_to_jax(sd, prefix, num_heads)
+    return encoder_state_to_jax(sd, prefix, num_heads)
+
+
 def params_to_jax(state_dict: Mapping, num_heads: int) -> dict:
     """A port ``state_dict`` -> the JAX package's Flax tree (the inverse of
     ``params_from_jax``). A ``DRModel`` state (``encoder_q.`` keys) gives
-    ``{"encoder_q", ["encoder_p"], ["head_q"], ["head_p"]}``; a bare
-    ``BertEncoder`` state gives the encoder tree. ``num_heads`` splits the
-    fused attention weights into the ``DenseGeneral`` layouts."""
-    if not any(k.startswith("encoder_q.") for k in state_dict):
-        return _sorted(encoder_state_to_jax(state_dict, "", num_heads))
+    ``{"encoder_q", ["encoder_p"], ["head_q"], ["head_p"]}``, an ``RRModel``
+    state (``encoder.`` keys) ``{"encoder", ["head"]}``; a bare encoder
+    state gives the encoder tree. ``num_heads`` splits the attention
+    weights into the ``DenseGeneral`` layouts."""
+    if any(k.startswith("encoder_q.") for k in state_dict):
+        towers, heads = ("encoder_q", "encoder_p"), ("head_q", "head_p")
+    elif any(k.startswith("encoder.") for k in state_dict):
+        towers, heads = ("encoder",), ("head",)
+    else:
+        return _sorted(_any_encoder_to_jax(state_dict, "", num_heads))
     tree = {}
-    for tower in ("encoder_q", "encoder_p"):
+    for tower in towers:
         if any(k.startswith(tower + ".") for k in state_dict):
-            tree[tower] = encoder_state_to_jax(state_dict, tower, num_heads)
-    for head in ("head_q", "head_p"):
+            tree[tower] = _any_encoder_to_jax(state_dict, tower, num_heads)
+    for head in heads:
         if f"{head}.linear.weight" in state_dict:
             tree[head] = {"linear": _dense_to_jax(state_dict,
                                                   f"{head}.linear")}

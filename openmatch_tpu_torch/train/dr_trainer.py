@@ -48,9 +48,9 @@ def world_size() -> int:
 
 class DRTrainer:
     def __init__(self, model, train_args, total_steps: int, device="cuda"):
-        """``model``: a ``DRModel`` whose fp32 parameters are trained in
-        place, moved to ``device`` (the card unless the caller names the
-        CPU)."""
+        """``model``: a ``DRModel`` (an ``RRModel`` for ``RRTrainer``) whose
+        fp32 parameters are trained in place, moved to ``device`` (the card
+        unless the caller names the CPU)."""
         self.device = resolve_device(device)
         if world_size() > 1:
             raise NotImplementedError(_MULTI_PROCESS_TODO.format(

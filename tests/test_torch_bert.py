@@ -102,5 +102,16 @@ def test_bf16_compute_keeps_fp32_params_and_finite_output():
 
 
 def test_t5_backbone_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="T5"):
-        DRModel(BertConfig(**SMALL), backbone_type="t5")
+    """The T5 backbones are ported (tests/test_torch_t5.py); each needs a
+    T5Config, and an unknown backbone is refused."""
+    from openmatch_tpu_torch.models.t5 import T5Config
+
+    for backbone in ("t5", "t5_encdec"):
+        with pytest.raises(TypeError, match="T5Config"):
+            DRModel(BertConfig(**SMALL), backbone_type=backbone)
+        m = DRModel(T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=64,
+                             num_layers=1, num_decoder_layers=1, num_heads=4),
+                    backbone_type=backbone)
+        assert m.out_dim == 32
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        DRModel(BertConfig(**SMALL), backbone_type="gpt")

@@ -217,7 +217,18 @@ def test_hf_build_head_is_seeded_and_shared(tmp_path):
 
 
 def test_t5_checkpoint_still_refused(tmp_path):
+    """A T5 / GTR directory is no longer refused: it builds the full-T5
+    model (``tests/test_torch_t5.py`` holds its reps to JAX's), and one
+    without weights fails on the missing files."""
+    import transformers as tf
+
     d = tmp_path / "gtr-base"
     d.mkdir()
-    with pytest.raises(NotImplementedError, match="P7"):
+    with pytest.raises(FileNotFoundError):
         DRModel.build(ModelArguments(model_name_or_path=str(d)), device="cpu")
+    tf.T5ForConditionalGeneration(tf.T5Config(
+        vocab_size=64, d_model=32, d_kv=8, d_ff=64, num_layers=1,
+        num_heads=4)).save_pretrained(str(d))
+    model = DRModel.build(ModelArguments(model_name_or_path=str(d)),
+                          device="cpu")
+    assert model.backbone_type == "t5_encdec" and model.out_dim == 32

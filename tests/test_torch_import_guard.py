@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX and nothing of the JAX package: in a fresh
-interpreter where importing jax, flax, optax, ml_dtypes, msgpack or
-openmatch_tpu fails, every module of openmatch_tpu_torch still imports (the
-port reads and writes flax-msgpack checkpoints with its own codec)."""
+interpreter where importing jax, flax, optax, ml_dtypes, msgpack,
+transformers, safetensors or openmatch_tpu fails, every module of
+openmatch_tpu_torch still imports (the port reads and writes flax-msgpack
+checkpoints with its own codec and HF weights with its own reader)."""
 
 import os
 import subprocess
@@ -15,8 +16,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "msgpack",
-             "openmatch_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "msgpack",
+           "transformers", "safetensors", "openmatch_tpu")
+for name in BLOCKED:
     sys.modules[name] = None  # any import of these raises ImportError
 import openmatch_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(openmatch_tpu_torch.__path__,
@@ -24,8 +26,7 @@ names = [m.name for m in pkgutil.walk_packages(openmatch_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "optax", "ml_dtypes",
-                                       "msgpack", "openmatch_tpu")
+                if m.split(".")[0] in BLOCKED
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print(len(names))
@@ -39,4 +40,4 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     # every module of the slice is covered, not just the package root
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 46
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 52
