@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval, training and rerank paths on one card.
+"""Drive the PyTorch port's retrieval, training, rerank, ANCE and BEIR paths
+on one card.
 
     python3 chip_smoke.py
 
@@ -121,9 +122,33 @@ Phases, in order; any failure raises and the script exits non-zero:
             last, a rerank-only server answers 8 concurrent POST /rerank
             requests of 50 docs, equal to Reranker's scores within 1e-3 x
             max|score|.
+9. ance     the hard-negative refresh, both modes, on a seeded raw HF
+            BERT-base (mean pooling, bf16): perf/ance_cycle.py's main at
+            its defaults (100,000 docs of 128 tokens, 1,000 queries of 32,
+            50 steps of 8 x 8 a generation, two generations, encode batch
+            512, top 200, 20 negatives) through run_ance_alternating and
+            the port's DRTrainer, with its per-phase table; K1 and K3 must
+            launch in the refresh, every loss be finite, every mined
+            negative be a non-positive inside the fp32 audit's top 200
+            widened by the tie band, the refresh leave its index freed, and
+            the published file load through DRTrainDataset and QPCollator.
+            Then run_ance_generator (one generation) from the cycle's saved
+            checkpoint over 32,768 passages and 256 dev queries with qrels:
+            K1 and K3 must launch, it must publish generation 1 in the same
+            ann_dir, and its ann_ndcg_1 must hold the checkpoint and an
+            ndcg_cut_10 equal to the fp32 audit's (ranks read with the tie
+            band).
+10. beir    drivers/retrieve_beir.py's main on a seeded BERT-base over a
+            BEIR directory at FiQA-2018's test counts (57,638 docs, 6,648
+            queries of which the 648 in the 1,706 test qrels are kept; one
+            title in about 20 empty): K1 and K3 must launch, the TREC run
+            parse, and ndcg_cut_10 and recall_100 equal the fp32 audit's
+            (ranks read with the tie band); encode passages/s is printed.
 
-Each phase logs what was allocated on the card at its start, its peak and
-what it left allocated, which must be under 1 GiB.
+Each phase logs what was allocated on the card at its start, its peak,
+what it left allocated, which must be under 1 GiB, and its wall time. The
+kernel table's launches of K1 and K3 include the train, rerank, ance and
+beir phases' searches.
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -2160,8 +2185,443 @@ def phase_rerank(dev, bert_cfg=None, t5_cfg=None) -> dict:
             "gather_rescore": launches["gather_rescore"]}
 
 
+# ---- ance: the hard-negative refresh, alternating and generator ------------
+
+ANCE_DOCS, ANCE_QUERIES, ANCE_STEPS = 100_000, 1_000, 50
+REFRESH_LEFT = 2**26  # bytes a refresh may leave allocated: the index it
+# searched (100,000 x 768 bf16, 154 MB) must be gone before gen1 trains
+
+
+def on_card(emb: np.ndarray, dev) -> torch.Tensor:
+    """fp16 embeddings as the index and the searched queries hold them
+    (bf16), in fp32 on ``dev`` for an audit's products."""
+    return torch.from_numpy(np.ascontiguousarray(emb)).to(
+        torch.bfloat16).to(dev).float()
+
+
+def check_search_kernels(phase: str, emb: dict, k: int, dev) -> None:
+    """K1 and K3 against their plain versions at the shapes a phase's
+    search gave them: its queries and corpus embeddings as the Searcher
+    holds them (bf16, one buffer), K1 with the pyramid's level 1, K3 at the
+    selection K1's maxima give; each kernel's device time beside its plain
+    version's and its bound. Called after the phase read its launch counts, so these
+    launches are not counted. On the CPU, where the search runs the plain
+    path, there is nothing to hold."""
+    if dev.type != "cuda":
+        return
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops.mips import (FANOUT, _select_groups,
+                                              pyramid_fanouts)
+
+    def bf16(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            torch.bfloat16).to(dev)
+
+    q, body = bf16(emb["q_emb"]), cm.prepare_plain_corpus(
+        bf16(emb["doc_emb"])).plain
+    nb = body.shape[0] // 8
+    if not pyramid_fanouts(nb, k) or nb // 2 <= k:
+        raise AssertionError(f"{phase}: {nb} blocks at k={k} do not take "
+                             "the K1 path")
+    g1, l1 = cm.fused_plain_gmax(q, body, emit_l1=FANOUT)
+    r1, rl1 = cm.plain_gmax_reference(q, body, emit_l1=FANOUT)
+    compare(f"{phase}: K1 gmax Q={q.shape[0]} NB={nb}", g1, r1)
+    compare(f"{phase}: K1 l1", l1, rl1)
+    del r1, rl1
+    bid = _select_groups(g1, k, l1=l1).to(torch.int32)
+    compare(f"{phase}: K3 rescore k={k}", cm.gather_rescore(q, body, bid),
+            cm.gather_rescore_reference(q, body, bid))
+    t1 = kernel_ms(lambda: cm.fused_plain_gmax(q, body, emit_l1=FANOUT))
+    t1p = cuda_time_ms(lambda: cm.plain_gmax_reference(
+        q, body, emit_l1=FANOUT), 1, 3)
+    t3 = kernel_ms(lambda: cm.gather_rescore(q, body, bid))
+    t3p = cuda_time_ms(lambda: cm.gather_rescore_reference(q, body, bid),
+                       1, 3)
+    b1 = gmax_bound(q, body.numel(), q.shape[0] * (nb + -(-nb // FANOUT)))
+    b3 = rescore_bound(q, bid)
+    log(f"{phase}: at Q={q.shape[0]}, N={emb['doc_emb'].shape[0]}, k={k}: "
+        f"K1 {t1:.4f} ms (plain {t1p:.4f}, bound {b1[0]:.4f}, {b1[1]}), K3 "
+        f"{t3:.4f} ms (plain {t3p:.4f}, bound {b3[0]:.4f}, {b3[1]})")
+
+
+def audit_mined(dev, refresh: dict, qrels: dict, topk: int) -> int:
+    """Every mined negative is a non-positive whose fp32 score over the
+    refresh's fp16 embeddings (as the index holds them, in bf16) lies at or
+    above the tie band (AUDIT_REL x max|score|) of the query's topk-th fp32
+    score. Returns the number of negatives checked."""
+    index, q = on_card(refresh["doc_emb"], dev), on_card(refresh["q_emb"], dev)
+    col = {d: i for i, d in enumerate(refresh["doc_ids"])}
+    checked = 0
+    for lo in range(0, q.shape[0], 256):
+        scores = q[lo:lo + 256] @ index.T
+        floor = scores.topk(topk, dim=1).values[:, -1] \
+            - AUDIT_REL * scores.abs().amax(1)
+        for r, qid in enumerate(refresh["qids"][lo:lo + 256]):
+            negs = refresh["negatives"][qid]
+            if set(negs) & set(qrels[qid]):
+                raise AssertionError(f"ance: {qid} mined a positive")
+            got = scores[r, [col[d] for d in negs]]
+            if (got < floor[r]).any():
+                raise AssertionError(
+                    f"ance: {qid} mined a negative scoring "
+                    f"{got.min().item()} in fp32, below the top {topk}'s "
+                    f"tie band (from {floor[r].item()})")
+            checked += len(negs)
+    return checked
+
+
+def audit_metrics(phase: str, run: dict, qrels: dict, emb: dict,
+                  depth: int, metrics: dict, dev) -> None:
+    """A run's metrics against fp32 scores over the same fp16 embeddings
+    (``emb``: q_emb, qids, doc_emb, doc_ids; each cast to bf16 as the index
+    and the searched queries were). Each relevant doc's rank in the run (in
+    evaluate's order) must be one the fp32 scores allow, read with the tie
+    band (docs within AUDIT_REL x max|score| of its score may rank either
+    side); a doc absent from the run must be allowed a rank past ``depth``.
+    The per-query values the run gives, summed in evaluate's order, must
+    equal ``metrics``; where no relevant doc has another within its band,
+    they must also equal evaluate_run on the fp32 top ``depth``."""
+    from openmatch_tpu_torch.utils.metrics import evaluate_run
+
+    index, q = on_card(emb["doc_emb"], dev), on_card(emb["q_emb"], dev)
+    col = {d: i for i, d in enumerate(emb["doc_ids"])}
+    measures = sorted(metrics)
+    fp32_run, banded, checked = {}, 0, 0
+    for lo in range(0, q.shape[0], 256):
+        scores = q[lo:lo + 256] @ index.T
+        tol = AUDIT_REL * scores.abs().amax(1)
+        top_s, top_i = scores.topk(min(depth, index.shape[0]), dim=1)
+        for r, qid in enumerate(emb["qids"][lo:lo + 256]):
+            fp32_run[qid] = {emb["doc_ids"][i]: s for s, i in zip(
+                top_s[r].tolist(), top_i[r].tolist())}
+            rel = [d for d, g in qrels.get(qid, {}).items() if g > 0]
+            if not rel:
+                continue
+            s = scores[r, [col[d] for d in rel]]
+            best = ((scores[r][None] > (s + tol[r])[:, None]).sum(1)
+                    + 1).tolist()
+            worst = (scores[r][None] >= (s - tol[r])[:, None]).sum(1).tolist()
+            ranked = sorted(run.get(qid, {}).items(),
+                            key=lambda kv: (kv[1], kv[0]), reverse=True)
+            rank = {d: i + 1 for i, (d, _) in enumerate(ranked)}
+            for d, b, w in zip(rel, best, worst):
+                banded += b != w
+                checked += 1
+                got = rank.get(d)
+                ok = b <= got <= w if got is not None else w > len(ranked)
+                if not ok:
+                    raise AssertionError(
+                        f"{phase}: {qid}'s relevant {d} ranks {got} in the "
+                        f"run; the fp32 scores allow {b}-{w}")
+    totals = dict.fromkeys(measures, 0.0)
+    for qid in qrels:
+        one = evaluate_run({qid: qrels[qid]}, {qid: run.get(qid, {})},
+                           measures)
+        for m in measures:
+            totals[m] += one[m]
+    audit = {m: totals[m] / len(qrels) for m in measures}
+    exact = evaluate_run(qrels, fp32_run, measures)
+    if audit != {m: metrics[m] for m in measures} \
+            or (not banded and exact != audit):
+        raise AssertionError(f"{phase}: metrics {metrics}, audited {audit}, "
+                             f"fp32 top {depth} {exact} ({banded} relevant "
+                             "docs within a tie band)")
+    log(f"{phase}: fp32 audit over {index.shape[0]} docs: {audit} equal the "
+        f"run's; fp32 top {depth} gives {exact}; {checked} relevant docs "
+        f"checked, {banded} with another doc within their tie band")
+
+
+def phase_ance(dev, cfg=None) -> dict:
+    """The ANCE refresh through the port's entry points at BERT-base width
+    (``cfg``): one alternating cycle (``perf.ance_cycle.main``: train,
+    refresh with K1 and K3, mine, publish, train on the mined file) and one
+    generator refresh (``run_ance_generator``) from the cycle's checkpoint,
+    with their fp32 audits. Returns the refreshes' kernel launches."""
+    from openmatch_tpu_torch.ance.loop import (AnceConfig, latest_ann_data,
+                                               run_ance_generator)
+    from openmatch_tpu_torch.config import DataArguments, InferenceArguments
+    from openmatch_tpu_torch.data.collators import QPCollator
+    from openmatch_tpu_torch.data.inference_dataset import InferenceDataset
+    from openmatch_tpu_torch.data.train_dataset import DRTrainDataset
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.perf import ance_cycle
+    from openmatch_tpu_torch.retriever.retriever import Retriever
+    from openmatch_tpu_torch.utils.metrics import load_qrels
+
+    cfg = cfg or BertConfig()
+    tok = WhitespaceTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        hf_dir = os.path.join(root, "hf")
+        hf_bert_base(rng, cfg, hf_dir)
+
+        # 1. one alternating cycle at the reference's ANCE scale
+        reset_launches(cm)
+        t0 = time.perf_counter()
+        cycle = ance_cycle.main([
+            str(ANCE_DOCS), str(ANCE_QUERIES), str(ANCE_STEPS),
+            "--model_name_or_path", hf_dir, "--pooling", "mean",
+            "--device", str(dev), "--workdir", root])
+        sync(dev)
+        cycle_s = time.perf_counter() - t0
+        launches = read_launches(cm)
+        log(f"ance: launches during the cycle {launches} (the refresh's "
+            "search is the cycle's only one)")
+        if cuda and (launches["plain_gmax"] < 1
+                     or launches["gather_rescore"] < 1):
+            raise AssertionError("ance: the refresh did not launch K1 and K3")
+        losses, refresh = cycle["losses"], cycle["refresh"]
+        if len(losses) != 2 * ANCE_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"ance: losses {losses}")
+        g0, g1 = losses[:ANCE_STEPS], losses[ANCE_STEPS:]
+        log(f"ance: cycle of {cycle_s:.2f} s (BERT-base, mean pooling, bf16; "
+            "seconds by phase "
+            + ", ".join(f"{k} {v:.3f}" for k, v in cycle["phases"].items())
+            + f"; encode {ANCE_DOCS / cycle['phases']['encode_corpus_s']:.0f} "
+            f"docs/s); loss gen0 first 10 {np.mean(g0[:10]):.4f}, last 10 "
+            f"{np.mean(g0[-10:]):.4f}; gen1 (mined negatives) first 10 "
+            f"{np.mean(g1[:10]):.4f}")
+        if refresh["left_bytes"] > REFRESH_LEFT:
+            raise AssertionError(f"ance: the refresh left "
+                                 f"{refresh['left_bytes']} bytes allocated")
+        n = audit_mined(dev, refresh, cycle["qrels"], ance_cycle.TOPK_TRAINING)
+        check_search_kernels("ance", refresh, ance_cycle.TOPK_TRAINING, dev)
+        ds = DRTrainDataset(tok, DataArguments(
+            train_path=refresh["path"], q_max_len=Q_LEN, p_max_len=P_LEN,
+            train_n_passages=N_PSG))
+        it = ds.epoch_iterator(0, None)
+        batch = QPCollator(0, Q_LEN, P_LEN)([next(it)
+                                             for _ in range(TRAIN_BATCH)])
+        if batch["passage"]["input_ids"].shape != (TRAIN_BATCH * N_PSG, P_LEN):
+            raise AssertionError("ance: the published file does not collate")
+        log(f"ance: {n} mined negatives of {len(refresh['negatives'])} "
+            f"queries pass the fp32 audit (inside the top "
+            f"{ance_cycle.TOPK_TRAINING} plus the tie band, no positive); "
+            f"the published {os.path.basename(refresh['path'])} "
+            f"({len(ds)} lines) loads through DRTrainDataset and QPCollator; "
+            f"the refresh left {refresh['left_bytes'] / 2**20:.1f} MiB "
+            "allocated")
+
+        # 2. the generator from the cycle's checkpoint, into the same ann_dir
+        trainer = cycle.pop("trainer")
+        ckpt = trainer.save_checkpoint(os.path.join(
+            root, "ckpt", f"checkpoint-{trainer.step}"))
+        del trainer, cycle, refresh
+        if cuda:
+            torch.cuda.empty_cache()
+        write_train_data(rng, cfg.vocab_size, root)
+        with open(os.path.join(root, "corpus.jsonl")) as f:
+            corpus = {r["id"]: r["text"] for r in map(json.loads, f)}
+        with open(os.path.join(root, "dev.jsonl")) as f:
+            queries = {r["id"]: r["text"] for r in map(json.loads, f)}
+        dev_qrels = load_qrels(os.path.join(root, "dev.qrels"))
+        data_args = DataArguments(
+            corpus_path=os.path.join(root, "corpus.jsonl"),
+            query_path=os.path.join(root, "dev.jsonl"), q_max_len=Q_LEN,
+            p_max_len=P_LEN)
+        inf_args = InferenceArguments(
+            per_device_eval_batch_size=ance_cycle.ENCODE_BS)
+        seen = {}
+
+        class Recording(Retriever):
+            """Keeps the generator's run and embeddings for the audit."""
+
+            def search(self, q_embeddings, qids, topk=100,
+                       search_dtype=torch.bfloat16):
+                run = super().search(q_embeddings, qids, topk, search_dtype)
+                seen.update(run=run, depth=topk, emb={
+                    "q_emb": q_embeddings, "qids": qids,
+                    "doc_emb": self.doc_embeddings, "doc_ids": self.doc_ids})
+                return run
+
+        def build_retriever(path):
+            return Recording(DRModel.load(path, dtype="bfloat16", device=dev),
+                             data_args, inf_args, 0, dev)
+
+        ann_dir = os.path.join(root, "ann")
+        reset_launches(cm)
+        sync(dev)
+        t0 = time.perf_counter()
+        run_ance_generator(
+            build_retriever,
+            lambda: InferenceDataset.load(tok, data_args, is_query=False),
+            lambda: InferenceDataset.load(tok, data_args, is_query=True),
+            queries, corpus, {q: list(d) for q, d in dev_qrels.items()},
+            dev_qrels, os.path.join(root, "ckpt"),
+            AnceConfig(ann_dir=ann_dir), max_generations=1)
+        sync(dev)
+        gen_s = time.perf_counter() - t0
+        more = read_launches(cm)
+        log(f"ance: launches during the generator {more}")
+        if cuda and (more["plain_gmax"] < 1 or more["gather_rescore"] < 1):
+            raise AssertionError("ance: the generator did not launch K1 and "
+                                 "K3")
+        path, gen, metrics = latest_ann_data(ann_dir)
+        if gen != 1 or metrics.get("checkpoint") != ckpt:
+            raise AssertionError(f"ance: the generator published generation "
+                                 f"{gen} with {metrics}")
+        with open(path) as f:
+            lines = sum(1 for _ in f)
+        log(f"ance: run_ance_generator refreshed from "
+            f"{os.path.basename(ckpt)} over {len(corpus)} passages and "
+            f"{len(queries)} dev queries in {gen_s:.2f} s (model load "
+            f"included): published generation {gen} ({lines} lines) after "
+            f"the cycle's 0; ann_ndcg_{gen} {metrics}")
+        audit_metrics("ance", seen["run"], dev_qrels, seen["emb"],
+                      seen["depth"], {"ndcg_cut_10": metrics["ndcg_cut_10"]},
+                      dev)
+        check_search_kernels("ance generator", seen["emb"], seen["depth"],
+                             dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    return {k: launches[k] + more[k] for k in ("plain_gmax",
+                                               "gather_rescore")}
+
+
+# ---- beir: zero-shot retrieval at BEIR FiQA-2018's test counts -------------
+
+BEIR_DOCS, BEIR_QUERIES = 57_638, 6_648
+BEIR_TEST_QUERIES, BEIR_QRELS = 648, 1_706  # in qrels/test.tsv
+BEIR_WORDS = 30_000  # word types of the seeded text
+BEIR_DEPTH = 100  # retrieve_depth's default
+
+
+def write_beir(rng: np.random.Generator, root: str) -> str:
+    """A BEIR-layout directory at FiQA-2018's test counts: corpus.jsonl
+    (seeded whitespace words, 20-199 a text, about one title in 20
+    empty), queries.jsonl (each a sample of words of its first positive;
+    the queries outside the test qrels sample a random doc) and
+    qrels/test.tsv with its header. Returns the directory."""
+    d = os.path.join(root, "fiqa")
+    os.makedirs(os.path.join(d, "qrels"))
+    names = [f"w{j}" for j in range(BEIR_WORDS)]
+    lengths = rng.integers(20, 200, BEIR_DOCS)
+    words = np.split(rng.integers(0, BEIR_WORDS, lengths.sum()),
+                     np.cumsum(lengths)[:-1])
+    titles = rng.integers(2, 12, BEIR_DOCS) * (rng.random(BEIR_DOCS) >= 0.05)
+    with open(os.path.join(d, "corpus.jsonl"), "w") as f:
+        for i in range(BEIR_DOCS):
+            title = " ".join(names[j] for j in rng.integers(0, BEIR_WORDS,
+                                                            titles[i]))
+            f.write(json.dumps({"_id": f"d{i}", "title": title, "text":
+                                " ".join(names[j] for j in words[i])}) + "\n")
+    test = rng.choice(BEIR_QUERIES, BEIR_TEST_QUERIES, replace=False)
+    rels = {int(j): [int(x)] for j, x in zip(
+        test, rng.integers(0, BEIR_DOCS, BEIR_TEST_QUERIES))}
+    while sum(map(len, rels.values())) < BEIR_QRELS:
+        ps = rels[int(test[rng.integers(BEIR_TEST_QUERIES)])]
+        doc = int(rng.integers(BEIR_DOCS))
+        if doc not in ps:
+            ps.append(doc)
+    with open(os.path.join(d, "queries.jsonl"), "w") as f:
+        for j in range(BEIR_QUERIES):
+            src = words[rels[j][0] if j in rels else rng.integers(BEIR_DOCS)]
+            pick = rng.choice(len(src), min(len(src), rng.integers(5, 16)),
+                              replace=False)
+            f.write(json.dumps({"_id": f"q{j}", "text": " ".join(
+                names[src[k]] for k in np.sort(pick))}) + "\n")
+    with open(os.path.join(d, "qrels", "test.tsv"), "w") as f:
+        f.write("query-id\tcorpus-id\tscore\n")
+        for j in test:
+            for doc in rels[int(j)]:
+                f.write(f"q{j}\td{doc}\t1\n")
+    return d
+
+
+def phase_beir(dev, cfg=None) -> dict:
+    """``retrieve_beir`` through its ``main`` at BERT-base width (``cfg``)
+    on a BEIR directory at FiQA-2018's test counts: K1 and K3 must launch,
+    the TREC run must parse, and ndcg_cut_10 and recall_100 must equal the
+    fp32 audit. Returns the run's kernel launches."""
+    from openmatch_tpu_torch.data.beir import BEIRDataset
+    from openmatch_tpu_torch.drivers import retrieve_beir
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.retriever.retriever import Retriever
+    from openmatch_tpu_torch.utils.trec import load_from_trec
+
+    cfg = cfg or BertConfig()
+    tok = WhitespaceTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(12)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(root, "hf")
+        hf_bert_base(rng, cfg, hf_dir)
+        data_dir = write_beir(rng, root)
+        beir = BEIRDataset(data_dir)
+        n_rel = sum(map(len, beir.qrels.values()))
+        empty = sum(d["title"] == "-" for d in beir.iter_corpus())
+        log(f"beir: HF BERT-base checkpoint and a BEIR directory of "
+            f"{BEIR_DOCS} docs ({empty} with an empty title), {BEIR_QUERIES} "
+            f"queries, {len(beir.qrels)} of them in the {n_rel} test qrels, "
+            f"written in {time.perf_counter() - t0:.2f} s")
+
+        # encode_corpus timed and both encodings kept for the audit
+        real = Retriever.encode_corpus, Retriever.encode_queries
+        emb, times = {}, []
+
+        def encode_corpus(self, *a, **kw):
+            sync(dev)
+            t = time.perf_counter()
+            out = real[0](self, *a, **kw)
+            sync(dev)
+            times.append(time.perf_counter() - t)
+            emb["doc_emb"], emb["doc_ids"] = out
+            return out
+
+        def encode_queries(self, *a, **kw):
+            out = real[1](self, *a, **kw)
+            emb["q_emb"], emb["qids"] = out
+            return out
+
+        Retriever.encode_corpus, Retriever.encode_queries = (encode_corpus,
+                                                             encode_queries)
+        run_path = os.path.join(root, "run.trec")
+        reset_launches(cm)
+        t0 = time.perf_counter()
+        try:
+            metrics = retrieve_beir.main([
+                "--model_name_or_path", hf_dir, "--data_dir", data_dir,
+                "--pooling", "mean", "--dtype", "bfloat16",
+                "--q_max_len", "64", "--p_max_len", "128",
+                "--per_device_eval_batch_size", "512",
+                "--trec_save_path", run_path, "--device", str(dev)],
+                tokenizer=tok)
+        finally:
+            Retriever.encode_corpus, Retriever.encode_queries = real
+        sync(dev)
+        total = time.perf_counter() - t0
+        launches = read_launches(cm)
+        log(f"beir: launches during retrieve_beir {launches}")
+        if cuda and (launches["plain_gmax"] < 1
+                     or launches["gather_rescore"] < 1):
+            raise AssertionError("beir: retrieve_beir did not launch K1 and "
+                                 "K3")
+        run = load_from_trec(run_path)
+        if len(run) != len(beir.qrels) \
+                or {len(v) for v in run.values()} != {BEIR_DEPTH}:
+            raise AssertionError(f"beir: the TREC run holds {len(run)} "
+                                 "queries of "
+                                 f"{sorted({len(v) for v in run.values()})} "
+                                 "docs")
+        log(f"beir: retrieve_beir in {total:.2f} s (model build and "
+            f"tokenization included): encode_corpus {times[0]:.2f} s = "
+            f"{BEIR_DOCS / times[0]:.0f} passages/s (tokenized in its "
+            f"stream, p_max_len 128); metrics {metrics}")
+        audit_metrics("beir", run, beir.qrels, emb, BEIR_DEPTH, metrics, dev)
+        check_search_kernels("beir", emb, BEIR_DEPTH, dev)
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"plain_gmax": launches["plain_gmax"],
+            "gather_rescore": launches["gather_rescore"]}
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank")
+          "rerank", "ance", "beir")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -2169,10 +2629,12 @@ LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
 
 def run_phase(name: str, fn, *args):
     """Run one phase with the peak allocation counter reset first; log what
-    was allocated at its start, its peak and what it left allocated."""
+    was allocated at its start, its peak, what it left allocated and its
+    wall time."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     out = fn(*args)
     # a served phase's services stay reachable from the HTTP handler class
     # make_handler built (its methods close over them), and classes sit in
@@ -2183,7 +2645,8 @@ def run_phase(name: str, fn, *args):
     left = torch.cuda.memory_allocated()
     log(f"memory: phase {name}: {start / 2**30:.2f} GiB allocated at its "
         f"start, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"{left / 2**30:.2f} GiB at its end")
+        f"{left / 2**30:.2f} GiB at its end; wall time "
+        f"{time.perf_counter() - t0:.2f} s")
     if left > LEFT_BYTES:
         raise AssertionError(f"phase {name} left {left / 2**30:.2f} GiB "
                              "allocated")
@@ -2221,10 +2684,12 @@ def main(argv=None) -> int:
         launches.update(n)
     if "stages" in phases and replay:
         run_phase("stages", phase_stages, dev, replay)
-    if "train" in phases:
-        run_phase("train", phase_train, dev)
-    if "rerank" in phases:
-        run_phase("rerank", phase_rerank, dev)
+    # the chains' retrieves add their K1 and K3 launches to the table's
+    for name, fn in (("train", phase_train), ("rerank", phase_rerank),
+                     ("ance", phase_ance), ("beir", phase_beir)):
+        if name in phases:
+            for kernel, n in run_phase(name, fn, dev).items():
+                launches[kernel] = launches.get(kernel, 0) + n
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

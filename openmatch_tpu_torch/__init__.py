@@ -13,13 +13,18 @@ same layout: ``openmatch_tpu/X/y.py`` has its counterpart at
 - ``retriever``: encode to embedding shards, load them, search (resident
   or one shard at a time).
 - ``drivers``: ``train_dr``, ``build_index``, ``retrieve``,
-  ``successive_retrieve``, ``evaluate`` and the HTTP ``serve``.
+  ``successive_retrieve``, ``evaluate``, ``retrieve_beir`` and the HTTP
+  ``serve``.
+- ``ance``: the hard-negative refresh, alternating and generator.
 - ``perf``: twins of the JAX package's perf scripts
-  (``scripts/perf/score_path_phases.py``, ``scripts/perf/micro.py``).
+  (``scripts/perf/score_path_phases.py``, ``scripts/perf/micro.py``,
+  ``scripts/perf/ance_cycle.py``).
+- ``scripts``: twins of the data tools under ``scripts/`` (MS MARCO and
+  NQ train shards, hard-negative shards, embedding splits).
 
-``config``, ``templates``, ``data``, ``utils.trec`` and ``utils.metrics``
-are the port's own copies of the JAX package's jax-free modules: the port
-imports nothing of ``openmatch_tpu``.
+``config``, ``templates``, ``data``, ``ance.loop``, ``utils.trec`` and
+``utils.metrics`` are the port's own copies of the JAX package's jax-free
+modules: the port imports nothing of ``openmatch_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -84,11 +84,10 @@ def encode_pair_with_segments(tokenizer, a: Content, b: Content, max_length: int
             else:
                 b.pop()
         ids = tokenizer.build_inputs_with_special_tokens(a, b)
-        # a tokenizer without segment ids gives zeros; one that has them
-        # and fails raises
-        make_segs = getattr(tokenizer, "create_token_type_ids_from_sequences",
-                            None)
-        segs = make_segs(a, b) if make_segs is not None else [0] * len(ids)
+        try:
+            segs = tokenizer.create_token_type_ids_from_sequences(a, b)
+        except Exception:
+            segs = [0] * len(ids)
         return ids, segs
     enc = tokenizer.encode_plus(
         (a, b),

@@ -1,5 +1,5 @@
-"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag and the
-trainers' epoch loop."""
+"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag, the
+process count and the trainers' epoch loop."""
 
 from __future__ import annotations
 
@@ -17,6 +17,21 @@ def setup_logging():
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         level=os.environ.get("OPENMATCH_LOG_LEVEL", "INFO"),
     )
+
+
+def maybe_init_distributed() -> Tuple[int, int]:
+    """(process index, process count) of this job: (0, 1), the one process
+    the port runs on. A launcher's ``WORLD_SIZE`` above 1, or an
+    initialised ``torch.distributed`` of more than one process, raises
+    rather than run the same job on every rank (multi-process runs are
+    ROADMAP P10)."""
+    from ..train.dr_trainer import _MULTI_PROCESS_TODO, world_size
+
+    count = max(int(os.environ.get("WORLD_SIZE", "1")), world_size())
+    if count > 1:
+        raise NotImplementedError(_MULTI_PROCESS_TODO.format(
+            f"a job of {count} processes"))
+    return 0, 1
 
 
 def load_tokenizer(model_args):

@@ -453,10 +453,29 @@ def test_pair_encodings_match_jax(tokenizer, fn):
              ([9, 10, 11, 12, 13], [14, 15, 16], 7),
              ("w1 w2", [20, 21, 22, 23, 24, 25, 26], 9),
              ([5] * 20, "w3 w4", 12)]
-    for a, b, n in cases:
-        got = getattr(tokenization, fn)(tokenizer, a, b, n)
-        want = getattr(jtokenization, fn)(tokenizer, a, b, n)
-        assert got == want
+    for tk in (tokenizer, RaisingSegments(tokenizer)):
+        for a, b, n in cases:
+            got = getattr(tokenization, fn)(tk, a, b, n)
+            want = getattr(jtokenization, fn)(tk, a, b, n)
+            assert got == want
+    # a tokenizer whose segment ids raise gives zeros on the id-list route
+    got = tokenization.encode_pair_with_segments(
+        RaisingSegments(tokenizer), [9, 10, 11], [14, 15], 9)
+    assert got[1] == [0] * len(got[0])
+
+
+class RaisingSegments:
+    """The fixture's tokenizer, but ``create_token_type_ids_from_sequences``
+    raises (as some tokenizers' do)."""
+
+    def __init__(self, tokenizer):
+        self._tokenizer = tokenizer
+
+    def __getattr__(self, name):
+        return getattr(self._tokenizer, name)
+
+    def create_token_type_ids_from_sequences(self, a, b):
+        raise NotImplementedError("no segment ids")
 
 
 def write_train_jsonl(path, n=9, seed=0):
