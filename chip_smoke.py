@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval, training, rerank, ANCE and BEIR paths
-on one card.
+"""Drive the PyTorch port's retrieval, training, rerank, ANCE, BEIR and v1
+reranking paths on one card.
 
     python3 chip_smoke.py
 
@@ -144,6 +144,32 @@ Phases, in order; any failure raises and the script exits non-zero:
             title in about 20 empty): K1 and K3 must launch, the TREC run
             parse, and ndcg_cut_10 and recall_100 equal the fp32 audit's
             (ranks read with the tie band); encode passages/s is printed.
+11. v1      the v1 pipeline through the drivers' main functions, on seeded
+            data in its own temporary directory: a 400,000-word vocabulary
+            (with -embed_dim 300, GloVe 6B-300d's table shape), 100,000
+            passages of 20-199 Zipf-drawn words, 1,000 train and 200 dev
+            queries of 5-15 words of a positive, 10,000 entities with
+            20-word descriptions. bm25_retrieve (native, g++-built into
+            build/native; k1 0.9, b 0.4, top 100 for all 1,200 queries)
+            with 20 queries audited against a numpy BM25 (1e-4 relative);
+            train_v1 on triples from its run (the positive, two
+            non-positives of its top 100; triplet_loss, batch 8): KNRM,
+            Conv-KNRM, TK and EDRM for 200 steps at lr 1e-3 (query 10,
+            doc 256 words), BertRanker (32 + 221 tokens, fp32, 20 steps)
+            and BertMaxP (4 passages of 32 + 61 tokens, 10 steps) on a
+            seeded HF BERT-base, every logged loss finite; inference_v1
+            reranks the dev run from each saved train_state.msgpack (top
+            100; BertRanker top 20; BertMaxP top 10 of 100 queries), whose
+            first batch must score bit-equal to the trainer's live module,
+            and each model is scored on the card and on the CPU by the same
+            weights (word models 256 pairs within 1e-4 x max|score|, KNRM's
+            21 kernel features too, also with TF32 allowed; BERT models 32
+            and 16 pairs within 1e-3); gen_feature for KNRM and BertRanker
+            (top 20), each file parsed by load_feature_file; coor_ascent
+            (k=2) on KNRM's features, ranksvm on KNRM's and BertRanker's;
+            evaluate gives MRR@10 and ndcg_cut_10 of every run. Step ms,
+            pairs/s, peaks, BM25's index and query times are printed. It
+            launches no hand-written kernel.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -160,6 +186,7 @@ raises before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2620,8 +2647,505 @@ def phase_beir(dev, cfg=None) -> dict:
             "gather_rescore": launches["gather_rescore"]}
 
 
+# ---- v1: BM25 -> the v1 rerankers -> features -> LeToR ensembles -----------
+
+V1_VOCAB = 400_000  # GloVe 6B's word count: with -embed_dim 300 its table
+V1_EMBED = 300
+V1_DOCS = 100_000
+V1_TRAIN_QUERIES, V1_DEV_QUERIES = 1_000, 200
+V1_DEPTH = 100  # bm25_retrieve's top k, and the word models' rerank depth
+V1_ENTS = 10_000  # entity vocabulary (EDRM)
+V1_STEPS = 200  # word models: batch 8, lr 1e-3, triplet_loss
+V1_BERT_STEPS, V1_MAXP_STEPS = 20, 10
+V1_BERT_DEPTH = 20  # BertRanker reranks the top 20
+V1_MAXP_QUERIES, V1_MAXP_DEPTH = 100, 10  # BertMaxP: top 10 of 100 queries
+V1_MAXP_DOC_LEN = 61  # 4 passages of 32 + 61 + 3 = 96 tokens cover a doc
+V1_INFER_BATCH = 256  # inference_v1's -batch_size; its first batch is
+# also scored by the trainer's live module, which must match it bit for bit
+V1_AUDIT = 256  # dev pairs scored on the card and on the CPU
+# BERT-base in fp32 on the host's CPU takes seconds per batch of 32 pairs
+# of 256 tokens (the audit's time is logged): its audits take fewer pairs
+V1_BERT_AUDIT, V1_MAXP_AUDIT = 32, 16
+V1_WORD_REL, V1_BERT_REL = 1e-4, 1e-3  # card vs CPU, x max|score|
+V1_BM25_REL = 1e-4  # native BM25 vs numpy, relative
+V1_BM25_AUDIT = 20  # queries
+
+
+class PairTokenizer(WhitespaceTokenizer):
+    """``WhitespaceTokenizer`` plus the HF call the v1 BERT collator makes:
+    a batch of (query, doc) pairs -> numpy input_ids, attention_mask and
+    token_type_ids padded to ``max_length``, truncated longest-first."""
+
+    def __call__(self, queries, docs, truncation=None, max_length=None,
+                 padding=None, return_tensors=None):
+        rows = [self.encode_plus((q, d), max_length=max_length,
+                                 return_token_type_ids=True)
+                for q, d in zip(queries, docs)]
+        out = {k: np.zeros((len(rows), max_length), np.int64) for k in
+               ("input_ids", "attention_mask", "token_type_ids")}
+        for i, row in enumerate(rows):
+            n = len(row["input_ids"])
+            out["input_ids"][i, :n] = row["input_ids"]
+            out["attention_mask"][i, :n] = 1
+            out["token_type_ids"][i, :n] = row["token_type_ids"]
+        return out
+
+
+def zipf_words(rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` word ids of the V1_VOCAB vocabulary, P(rank r) ~ 1 / r."""
+    cdf = np.cumsum(1.0 / np.arange(1, V1_VOCAB + 1))
+    return np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(n)),
+                      V1_VOCAB - 1)
+
+
+def write_v1_data(rng: np.random.Generator, root: str) -> dict:
+    """The v1 phase's inputs in ``root``: vocab.txt (V1_VOCAB words),
+    ents.txt, corpus.tsv (V1_DOCS passages of 20-199 Zipf words; also the
+    V1Dataset docs file), queries.tsv (train then dev queries of 5-15
+    words of a positive), dev.qrels, and each passage's entities (0-3) with
+    each entity's 20-word description. Returns the arrays the BM25 audit
+    and the EDRM files are built from."""
+    names = np.array([f"w{j}" for j in range(V1_VOCAB)])
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(root, "ents.txt"), "w") as f:
+        f.write("\n".join(f"e{k}" for k in range(V1_ENTS)) + "\n")
+    lengths = rng.integers(20, 200, V1_DOCS)
+    flat = zipf_words(rng, int(lengths.sum()))
+    cuts = np.cumsum(lengths)[:-1]
+    words = np.split(flat, cuts)
+    texts = [" ".join(w) for w in np.split(names[flat], cuts)]
+    with open(os.path.join(root, "corpus.tsv"), "w") as f:
+        f.writelines(f"d{i}\t{t}\n" for i, t in enumerate(texts))
+    n_q = V1_TRAIN_QUERIES + V1_DEV_QUERIES
+    pos = rng.permutation(V1_DOCS)[:n_q]
+    queries = []
+    for p in pos:
+        src = words[p]
+        pick = rng.choice(len(src), rng.integers(5, 16), replace=False)
+        queries.append(src[np.sort(pick)])
+    with open(os.path.join(root, "queries.tsv"), "w") as f:
+        f.writelines(f"q{j}\t{' '.join(names[q])}\n"
+                     for j, q in enumerate(queries))
+    with open(os.path.join(root, "dev.qrels"), "w") as f:
+        f.writelines(f"q{j} 0 d{pos[j]} 1\n"
+                     for j in range(V1_TRAIN_QUERIES, n_q))
+    ents = [rng.integers(0, V1_ENTS, rng.integers(0, 4))
+            for _ in range(V1_DOCS)]
+    des = [" ".join(names[w]) for w in
+           zipf_words(rng, V1_ENTS * 20).reshape(V1_ENTS, 20)]
+    return {"names": names, "words": words, "flat": flat,
+            "lengths": lengths, "texts": texts, "pos": pos,
+            "queries": queries, "ents": ents, "des": des}
+
+
+def audit_bm25(data: dict, run: dict, qids: list) -> float:
+    """Each audited query's returned scores against a numpy BM25 (k1 0.9,
+    b 0.4) over the same postings, and its k-th score against numpy's
+    k-th; returns the largest relative error."""
+    n = len(data["lengths"])
+    doc_of = np.repeat(np.arange(n), data["lengths"])
+    order = np.argsort(data["flat"], kind="stable")
+    sorted_words, sorted_docs = data["flat"][order], doc_of[order]
+    avg = data["lengths"].mean()
+    norm = 0.9 * (1 - 0.4 + 0.4 * data["lengths"] / avg)
+    worst = 0.0
+    for qid in qids:
+        scores = np.zeros(n)
+        for t in data["queries"][int(qid[1:])]:
+            lo, hi = np.searchsorted(sorted_words, [t, t + 1])
+            tf = np.bincount(sorted_docs[lo:hi], minlength=n)
+            df = np.count_nonzero(tf)
+            idf = np.log(1 + (n - df + 0.5) / (df + 0.5))
+            scores += idf * tf * 1.9 / (tf + norm)
+        got = run[qid]
+        want = np.array([scores[int(d[1:])] for d in got])
+        err = np.abs(np.array(list(got.values())) - want) / want
+        kth = np.sort(scores)[::-1][len(got) - 1]
+        err = max(err.max(), abs(min(got.values()) - kth) / kth)
+        if err > V1_BM25_REL:
+            raise AssertionError(f"v1: BM25 of {qid} differs from numpy by "
+                                 f"{err:.3g} (relative)")
+        worst = max(worst, err)
+    return worst
+
+
+def write_v1_runs(root: str, run: dict, data: dict, rng) -> dict:
+    """From the BM25 run: triples.trec (each train query's positive with
+    two non-positives of its top V1_DEPTH), the dev runs at depths
+    V1_DEPTH and V1_BERT_DEPTH and BertMaxP's (top V1_MAXP_DEPTH of
+    V1_MAXP_QUERIES), and the EDRM jsonl files. Returns their paths."""
+    pos = data["pos"]
+    paths = {k: os.path.join(root, f"{k}.trec") for k in
+             ("triples", "dev", "dev_bert", "dev_maxp")}
+    triples = []
+    for j in range(V1_TRAIN_QUERIES):
+        negs = [d for d in run[f"q{j}"] if d != f"d{pos[j]}"]
+        triples += [(f"q{j}", f"d{pos[j]}", negs[i])
+                    for i in rng.choice(len(negs), 2, replace=False)]
+    triples = [triples[i] for i in rng.permutation(len(triples))]
+    with open(paths["triples"], "w") as f:
+        f.writelines(f"{q} {p} {n}\n" for q, p, n in triples)
+    dev_q = [f"q{j}" for j in range(V1_TRAIN_QUERIES,
+                                    V1_TRAIN_QUERIES + V1_DEV_QUERIES)]
+    for key, qs, depth in (("dev", dev_q, V1_DEPTH),
+                           ("dev_bert", dev_q, V1_BERT_DEPTH),
+                           ("dev_maxp", dev_q[:V1_MAXP_QUERIES],
+                            V1_MAXP_DEPTH)):
+        with open(paths[key], "w") as f:
+            for q in qs:
+                for r, (d, s) in enumerate(list(run[q].items())[:depth]):
+                    f.write(f"{q} Q0 {d} {r + 1} {s} BM25\n")
+
+    def ent_fields(doc: int, prefix: str) -> dict:
+        ents = data["ents"][doc]
+        return {f"{prefix}_ent": [f"e{k}" for k in ents],
+                f"{prefix}_des": [data["des"][k] for k in ents]}
+
+    def query_fields(j: int) -> dict:
+        return {"query": " ".join(data["names"][data["queries"][j]]),
+                **ent_fields(pos[j], "query")}
+
+    texts = data["texts"]
+    paths["edrm_train"] = os.path.join(root, "edrm_train.jsonl")
+    with open(paths["edrm_train"], "w") as f:
+        for q, p, n in triples:
+            j, p, n = int(q[1:]), int(p[1:]), int(n[1:])
+            f.write(json.dumps({**query_fields(j), "doc_pos": texts[p],
+                                "doc_neg": texts[n],
+                                **ent_fields(p, "doc_pos"),
+                                **ent_fields(n, "doc_neg")}) + "\n")
+    paths["edrm_dev"] = os.path.join(root, "edrm_dev.jsonl")
+    with open(paths["edrm_dev"], "w") as f:
+        for q in dev_q:
+            j = int(q[1:])
+            for d, s in list(run[q].items())[:V1_DEPTH]:
+                f.write(json.dumps({
+                    "query_id": q, "doc_id": d, "retrieval_score": s,
+                    **query_fields(j), "doc": texts[int(d[1:])],
+                    **ent_fields(int(d[1:]), "doc")}) + "\n")
+    return paths
+
+
+@contextlib.contextmanager
+def timing(times: dict, *targets):
+    """Each (owner, attribute name, key) in ``targets`` wrapped, for the
+    block, to add its calls' seconds to ``times[key]``."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+
+    def wrap(fn, key):
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t
+        return timed
+
+    for (owner, attr, fn), (_, _, key) in zip(saved, targets):
+        setattr(owner, attr, wrap(fn, key))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def v1_spec(root: str, trec: str) -> str:
+    return (f"queries={os.path.join(root, 'queries.tsv')},"
+            f"docs={os.path.join(root, 'corpus.tsv')},trec={trec}")
+
+
+def audit_v1_model(name: str, model, batch: dict, dev, rel: float,
+                   feats_under_tf32: bool = False) -> float:
+    """``model``'s (score, feats) on the card against the same weights on
+    the CPU, on ``batch``: scores within ``rel`` x max|score| (and KNRM's
+    feats, which are also scored with TF32 allowed: the match matrix must
+    stay fp32). Returns the largest score error relative to max|score|."""
+    import copy
+
+    from openmatch_tpu_torch.train.v1_trainer import to_device
+
+    batch = {k: v for k, v in batch.items() if not isinstance(v, list)
+             and k != "retrieval_score"}
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.no_grad():
+        s_card, f_card = model.score_batch(to_device(batch, dev))
+        s_cpu, f_cpu = cpu_model.score_batch(to_device(batch, "cpu"))
+        pairs = [("score", s_card.cpu(), s_cpu)]
+        if feats_under_tf32:
+            pairs.append(("feats", f_card.cpu(), f_cpu))
+            old = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = model.score_batch(to_device(batch, dev))[1].cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = old
+            pairs.append(("feats with TF32 allowed", tf32, f_cpu))
+    del cpu_model
+    worst = 0.0
+    for what, got, want in pairs:
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item() / max(scale, 1e-30)
+        if not torch.isfinite(got).all() or err > rel:
+            raise AssertionError(f"v1: {name} {what} on the card differs from "
+                                 f"the CPU by {err:.3g} x max|value| "
+                                 f"(tolerance {rel})")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_v1(dev, bert_cfg=None) -> dict:
+    """BM25 -> train_v1 (KNRM, Conv-KNRM, TK, EDRM, BertRanker, BertMaxP)
+    -> inference_v1 -> gen_feature -> coor_ascent / ranksvm -> evaluate,
+    through the drivers' main functions on ``dev``, with the BM25, reload
+    and card-vs-CPU audits. Launches no hand-written kernel: returns {}."""
+    from openmatch_tpu_torch.bm25 import engine
+    from openmatch_tpu_torch.drivers import (bm25_retrieve, coor_ascent,
+                                             evaluate, gen_feature,
+                                             inference_v1, train_v1)
+    from openmatch_tpu_torch.letor.features import load_feature_file
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.train import v1_trainer
+    from openmatch_tpu_torch.utils.trec import load_from_trec
+    from openmatch_tpu_torch.v1.dataset import V1Dataset
+    from openmatch_tpu_torch.v1.tokenizer import WordTokenizer
+
+    bert_cfg = bert_cfg or BertConfig()
+    rng = np.random.default_rng(13)
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = write_v1_data(rng, root)
+        hf_dir = os.path.join(root, "hf")
+        hf_bert_base(rng, bert_cfg, hf_dir)
+        log(f"v1: {V1_VOCAB} words, {V1_DOCS} passages "
+            f"({int(data['lengths'].sum())} words), {V1_TRAIN_QUERIES} train "
+            f"and {V1_DEV_QUERIES} dev queries, {V1_ENTS} entities and an HF "
+            f"BERT-base checkpoint written in {time.perf_counter() - t0:.2f} s")
+
+        # 1. BM25: the index build and the queries timed apart
+        bm25_path = os.path.join(root, "bm25.trec")
+        with timing({}, (engine.BM25Retriever, "index_corpus", "index"),
+                    (engine.BM25Retriever, "retrieve", "search")) as times:
+            bm25_retrieve.main([
+                "--corpus_path", os.path.join(root, "corpus.tsv"),
+                "--query_path", os.path.join(root, "queries.tsv"),
+                "--trec_save_path", bm25_path, "--k1", "0.9", "--b", "0.4",
+                "--topk", str(V1_DEPTH)])
+        run = load_from_trec(bm25_path)
+        n_q = V1_TRAIN_QUERIES + V1_DEV_QUERIES
+        if len(run) != n_q or {len(v) for v in run.values()} != {V1_DEPTH}:
+            raise AssertionError(f"v1: the BM25 run holds {len(run)} queries "
+                                 f"of {sorted({len(v) for v in run.values()})}"
+                                 " docs")
+        audited = [f"q{j}" for j in rng.choice(n_q, V1_BM25_AUDIT,
+                                               replace=False)]
+        bm25_err = audit_bm25(data, run, audited)
+        log(f"v1: BM25 (native, g++-built into build/native) indexed "
+            f"{V1_DOCS} passages in {times['index']:.2f} s, answered {n_q} "
+            f"queries at top {V1_DEPTH} in {times['search']:.3f} s = "
+            f"{n_q / times['search']:.0f} queries/s; {V1_BM25_AUDIT} "
+            f"queries within {bm25_err:.2e} (relative) of a numpy BM25")
+        paths = write_v1_runs(root, run, data, rng)
+        qrels_path = os.path.join(root, "dev.qrels")
+        wtok = WordTokenizer(vocab=os.path.join(root, "vocab.txt"))
+        btok = PairTokenizer(bert_cfg.vocab_size)
+        runs = {"bm25": bm25_path}
+
+        word = ["-vocab", os.path.join(root, "vocab.txt"), "-embed_dim",
+                str(V1_EMBED), "-max_query_len", "10", "-max_doc_len", "256"]
+        bert = ["-model", "bert", "-pretrain", hf_dir, "-max_query_len",
+                "32"]
+        models = [
+            # name, model flags, tokenizer, train spec, dev spec, steps,
+            # lr, audit pairs, tolerance
+            ("knrm", ["-model", "knrm"] + word, wtok, "triples", "dev",
+             V1_STEPS, "1e-3", V1_AUDIT, V1_WORD_REL),
+            ("cknrm", ["-model", "cknrm", "-kernel_dim", "128"] + word, wtok,
+             "triples", "dev", V1_STEPS, "1e-3", V1_AUDIT, V1_WORD_REL),
+            ("tk", ["-model", "tk"] + word, wtok, "triples", "dev", V1_STEPS,
+             "1e-3", V1_AUDIT, V1_WORD_REL),
+            ("edrm", ["-model", "edrm", "-kernel_dim", "128", "-ent_vocab",
+                      os.path.join(root, "ents.txt"), "-max_ent_num", "3",
+                      "-max_des_len", "20"] + word, wtok, "edrm_train",
+             "edrm_dev", V1_STEPS, "1e-3", V1_AUDIT, V1_WORD_REL),
+            ("bert", bert + ["-max_doc_len", "221"], btok, "triples",
+             "dev_bert", V1_BERT_STEPS, "2e-5", V1_BERT_AUDIT, V1_BERT_REL),
+            ("maxp", bert + ["-maxp", "-max_doc_len", str(V1_MAXP_DOC_LEN)],
+             btok, "triples", "dev_maxp", V1_MAXP_STEPS, "2e-5",
+             V1_MAXP_AUDIT, V1_BERT_REL),
+        ]
+        real_step = v1_trainer.V1Trainer.train_step
+        for (name, flags, tok, train_key, dev_key, steps, lr, n_audit,
+             rel) in models:
+            ckpt = os.path.join(root, f"ckpt_{name}")
+            spec = {k: (paths[k] if k.startswith("edrm") else
+                        v1_spec(root, paths[k]))
+                    for k in (train_key, dev_key)}
+            seen, step_times = [], []
+
+            def timed_step(self, batch):
+                seen[:] = [self]
+                sync(dev)
+                t = time.perf_counter()
+                loss = real_step(self, batch)
+                sync(dev)
+                step_times.append(time.perf_counter() - t)
+                return loss
+
+            # 2. train_v1, each step timed behind a sync; the model's build
+            # and the checkpoint's save timed apart
+            v1_trainer.V1Trainer.train_step = timed_step
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                with timing({}, (train_v1, "build_v1_model", "build"),
+                            (v1_trainer.V1Trainer, "save_checkpoint",
+                             "save")) as parts:
+                    result = train_v1.main(flags + [
+                        "-task", "ranking", "-ranking_loss", "triplet_loss",
+                        "-train", spec[train_key], "-save", ckpt, "-epoch",
+                        "1", "-batch_size", "8", "-lr", lr, "-eval_every",
+                        str(max(steps // 10, 1)), "-max_input",
+                        str(steps * 8), "-seed", "7", "--device", str(dev)],
+                        tokenizer=tok)
+            finally:
+                v1_trainer.V1Trainer.train_step = real_step
+            train_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            losses = result["losses"]
+            if result["final_step"] != steps or len(losses) != 10 \
+                    or not np.isfinite(losses).all():
+                raise AssertionError(f"v1: train_v1 {name} ran {result}")
+            trainer = seen[0]
+            model = trainer.model
+            n_params = sum(p.numel() for p in model.parameters())
+            log(f"v1: train_v1 {name} ({n_params} parameters) ran {steps} "
+                f"steps of 8 triples (triplet_loss, lr {lr}) in "
+                f"{train_s:.2f} s: model build {parts['build']:.2f} s, steps "
+                f"{sum(step_times):.2f} s (median "
+                f"{np.median(step_times[1:]) * 1000:.2f} ms, first "
+                f"{step_times[0] * 1000:.1f} ms), train_state.msgpack save "
+                f"{parts['save']:.2f} s; losses "
+                f"{[round(x, 4) for x in losses]}; peak "
+                f"max_memory_allocated {peak / 2**30:.2f} GiB")
+
+            # 3. inference_v1 reranks the dev run from the saved checkpoint
+            out_run = os.path.join(root, f"{name}.trec")
+            sync(dev)
+            t0 = time.perf_counter()
+            with timing({}, (inference_v1, "build_v1_model", "build"),
+                        (inference_v1, "load_v1_params", "load")) as parts:
+                scored = inference_v1.main(flags + [
+                    "-task", "ranking", "-test", spec[dev_key],
+                    "-checkpoint", ckpt, "-res", out_run, "-batch_size",
+                    str(V1_INFER_BATCH), "--device", str(dev)],
+                    tokenizer=tok)
+            sync(dev)
+            infer_s = time.perf_counter() - t0
+            n_pairs = sum(map(len, scored.values()))
+            runs[name] = out_run
+
+            # the reloaded checkpoint scores inference_v1's first batch
+            # bit-equal to the trainer's live module
+            dev_spec = spec[dev_key]
+            dev_set = V1Dataset(dict(kv.split("=", 1) for kv in
+                                     dev_spec.split(",")) if
+                                dev_spec.startswith("queries=") else dev_spec,
+                                mode="test")
+            collator = v1_collator(flags, tok)
+            n_live = min(V1_INFER_BATCH, len(dev_set))
+            first = [dev_set[i] for i in range(n_live)]
+            live = v1_trainer.predict_scores(model, [collator(first)])
+            for q, docs in live.items():
+                for d, s in docs.items():
+                    if scored[q][d] != s:
+                        raise AssertionError(
+                            f"v1: {name}'s reloaded checkpoint scores "
+                            f"{q} {d} {scored[q][d]!r}, the live module "
+                            f"{s!r}")
+            with torch.no_grad():
+                on_card = v1_trainer.to_device(collator(first), dev)
+                ms = cuda_time_ms(lambda: model.score_batch(on_card), 1, 3) \
+                    if cuda else float("nan")
+
+            # 4. the card against the CPU on the same weights
+            t0 = time.perf_counter()
+            err = audit_v1_model(name, model, collator(first[:n_audit]), dev,
+                                 rel, feats_under_tf32=name == "knrm")
+            audit_s = time.perf_counter() - t0
+            log(f"v1: inference_v1 {name} reranked {n_pairs} pairs in "
+                f"{infer_s:.2f} s (model build {parts['build']:.2f} s, "
+                f"checkpoint load {parts['load']:.2f} s) = "
+                f"{n_pairs / (infer_s - parts['build'] - parts['load']):.0f} "
+                f"pairs/s after the load (tokenization included); the model "
+                f"alone {n_live * 1000 / ms:.0f} pairs/s on the first batch "
+                f"({n_live} pairs), which the reloaded checkpoint scores "
+                f"bit-equal to the live module; card vs CPU on {n_audit} "
+                f"pairs within {err:.2e} x max|score| (tolerance {rel}; "
+                f"{audit_s:.2f} s)")
+
+            # 5. features for the ensembles
+            if name in ("knrm", "bert"):
+                feat_path = os.path.join(root, f"{name}.features")
+                n_lines = gen_feature.main(flags + [
+                    "-task", "ranking", "-dev",
+                    v1_spec(root, paths["dev_bert"]) + f",qrels={qrels_path}",
+                    "-checkpoint", ckpt, "-out", feat_path, "--device",
+                    str(dev)], tokenizer=tok)
+                fs = load_feature_file(feat_path)
+                want = V1_DEV_QUERIES * V1_BERT_DEPTH
+                if n_lines != want or len(fs) != want:
+                    raise AssertionError(f"v1: gen_feature {name} wrote "
+                                         f"{n_lines} lines, parsed {len(fs)}")
+                log(f"v1: gen_feature {name}: {len(fs)} lines of "
+                    f"{fs.num_features} features, "
+                    f"{int(fs.labels.sum())} labelled relevant")
+                runs[f"{name}_features"] = feat_path
+            del trainer, model, seen[:]
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
+        # 6. LeToR ensembles over the features, then every run evaluated
+        for name, feats, ranker in (
+                ("coor_ascent(knrm)", "knrm_features", "coor_ascent"),
+                ("ranksvm(knrm)", "knrm_features", "ranksvm"),
+                ("ranksvm(bert)", "bert_features", "ranksvm")):
+            out_run = os.path.join(root, f"{name}.trec")
+            t0 = time.perf_counter()
+            folds = coor_ascent.main([
+                "--features", runs[feats], "--k", "2", "--ranker", ranker,
+                "--metric", "ndcg", "--metric_k", "10", "--restarts", "1",
+                "--output_trec", out_run])
+            log(f"v1: coor_ascent --ranker {ranker} on {feats}: ndcg@10 per "
+                f"fold {[round(m, 4) for m in folds]} in "
+                f"{time.perf_counter() - t0:.2f} s")
+            runs[name] = out_run
+        for name, path in runs.items():
+            if name.endswith("_features"):
+                continue
+            mrr = evaluate.main(["-m", "mrr_cut.10", qrels_path, path])
+            ndcg = evaluate.main(["-m", "ndcg_cut_10", qrels_path, path])
+            log(f"v1: evaluate {name}: MRR@10 {mrr:.4f}, ndcg_cut_10 "
+                f"{ndcg['ndcg_cut_10']:.4f}")
+    return {}
+
+
+def v1_collator(flags: list, tok):
+    """The collator inference_v1 builds for these model flags."""
+    from openmatch_tpu_torch.drivers import train_v1
+
+    parser = argparse.ArgumentParser()
+    train_v1.add_model_args(parser)
+    return train_v1.build_v1_collator(parser.parse_args(flags), tok, "test")
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank", "ance", "beir")
+          "rerank", "ance", "beir", "v1")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -2686,7 +3210,8 @@ def main(argv=None) -> int:
         run_phase("stages", phase_stages, dev, replay)
     # the chains' retrieves add their K1 and K3 launches to the table's
     for name, fn in (("train", phase_train), ("rerank", phase_rerank),
-                     ("ance", phase_ance), ("beir", phase_beir)):
+                     ("ance", phase_ance), ("beir", phase_beir),
+                     ("v1", phase_v1)):
         if name in phases:
             for kernel, n in run_phase(name, fn, dev).items():
                 launches[kernel] = launches.get(kernel, 0) + n

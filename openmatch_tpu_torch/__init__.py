@@ -13,18 +13,24 @@ same layout: ``openmatch_tpu/X/y.py`` has its counterpart at
 - ``retriever``: encode to embedding shards, load them, search (resident
   or one shard at a time).
 - ``drivers``: ``train_dr``, ``build_index``, ``retrieve``,
-  ``successive_retrieve``, ``evaluate``, ``retrieve_beir`` and the HTTP
-  ``serve``.
+  ``successive_retrieve``, ``evaluate``, ``retrieve_beir``, the HTTP
+  ``serve``, and the v1 pipeline's ``bm25_retrieve``, ``train_v1``,
+  ``inference_v1``, ``gen_feature`` and ``coor_ascent``.
 - ``ance``: the hard-negative refresh, alternating and generator.
+- ``v1``: the v1 rerankers (KNRM, Conv-KNRM, TK, EDRM, BertRanker,
+  BertMaxP) and their kernel matcher; ``train.v1_trainer`` trains them.
+- ``bm25`` and ``letor``: the BM25 first stage over the native C++ index
+  (``native/bm25``) and the Coor-Ascent / RankSVM ensembles.
 - ``perf``: twins of the JAX package's perf scripts
   (``scripts/perf/score_path_phases.py``, ``scripts/perf/micro.py``,
   ``scripts/perf/ance_cycle.py``).
 - ``scripts``: twins of the data tools under ``scripts/`` (MS MARCO and
   NQ train shards, hard-negative shards, embedding splits).
 
-``config``, ``templates``, ``data``, ``ance.loop``, ``utils.trec`` and
-``utils.metrics`` are the port's own copies of the JAX package's jax-free
-modules: the port imports nothing of ``openmatch_tpu``.
+``config``, ``templates``, ``data``, ``ance.loop``, ``utils.trec``,
+``utils.metrics``, ``v1.tokenizer``, ``v1.dataset``, ``v1.long_doc``,
+``bm25`` and ``letor`` are the port's own copies of the JAX package's
+jax-free modules: the port imports nothing of ``openmatch_tpu``.
 """
 
 __version__ = "0.1.0"

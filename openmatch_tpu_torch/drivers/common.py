@@ -1,5 +1,6 @@
-"""Shared driver plumbing: logging, tokenizer, the ``--device`` flag, the
-process count and the trainers' epoch loop."""
+"""Shared driver plumbing: logging, tokenizers, the ``--device`` flag, the
+process count, the trainers' epoch loop and the v1 drivers' dataset specs
+(``DictOrStr``, ``build_v1_tokenizer``)."""
 
 from __future__ import annotations
 
@@ -34,9 +35,7 @@ def maybe_init_distributed() -> Tuple[int, int]:
     return 0, 1
 
 
-def load_tokenizer(model_args):
-    """The HF fast tokenizer named by ``--tokenizer_name`` or the model
-    path. ``transformers`` is imported here, and only here."""
+def _auto_tokenizer():
     try:
         from transformers import AutoTokenizer
     except ImportError:
@@ -44,9 +43,52 @@ def load_tokenizer(model_args):
             "loading a tokenizer needs the 'transformers' package, which is "
             "not installed; construct the service with a tokenizer object "
             "instead") from None
+    return AutoTokenizer
+
+
+def load_tokenizer(model_args):
+    """The HF fast tokenizer named by ``--tokenizer_name`` or the model
+    path. ``transformers`` is imported here and in ``build_v1_tokenizer``
+    only."""
     name = model_args.tokenizer_name or model_args.model_name_or_path
-    return AutoTokenizer.from_pretrained(name, cache_dir=model_args.cache_dir,
-                                         use_fast=True)
+    return _auto_tokenizer().from_pretrained(
+        name, cache_dir=model_args.cache_dir, use_fast=True)
+
+
+class DictOrStr(argparse.Action):
+    """v1 dataset specs: a plain path, or ``queries=q.tsv,docs=d.tsv,
+    trec=run.trec[,qrels=qrels]`` parsed to a dict for V1Dataset's id-spec
+    mode.
+
+    The dict branch is taken only when EVERY comma-part is
+    ``<spec key>=value`` for the keys V1Dataset's id-spec mode reads: a
+    plain path that happens to contain '=' (``run=3/x.jsonl``) stays a
+    string, and a value containing '=' survives (split once per part)."""
+
+    SPEC_KEYS = frozenset({"queries", "docs", "trec", "qrels"})
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parts = [kv.split("=", 1) for kv in values.split(",")]
+        if all(len(p) == 2 and p[0] in self.SPEC_KEYS for p in parts):
+            setattr(namespace, self.dest, dict(parts))
+        else:
+            setattr(namespace, self.dest, values)
+
+
+def build_v1_tokenizer(args):
+    """The v1 drivers' tokenizer: bert/roberta/electra load the HF
+    tokenizer from -vocab or -pretrain; every other model gets the
+    WordTokenizer over -vocab or a -pretrain GloVe file."""
+    if args.model in ("bert", "roberta", "electra"):
+        src = args.vocab or args.pretrain
+        if not src:
+            raise ValueError(
+                f"-model {args.model} needs -vocab or -pretrain to locate "
+                "the HF tokenizer")
+        return _auto_tokenizer().from_pretrained(src)
+    from ..v1.tokenizer import WordTokenizer
+
+    return WordTokenizer(vocab=args.vocab, pretrained=args.pretrain)
 
 
 def split_device_flag(argv: Optional[List[str]]) -> Tuple[object, List[str]]:

@@ -39,11 +39,13 @@ class ExtType(NamedTuple):
 
 
 class _Reader:
-    def __init__(self, buf: bytes, ext_hook, raw: bool):
+    def __init__(self, buf: bytes, ext_hook, raw: bool,
+                 bin_views: bool = False):
         self.buf = memoryview(buf)
         self.pos = 0
         self.ext_hook = ext_hook
         self.raw = raw
+        self.bin_views = bin_views  # bins as views of buf, not copies
 
     def take(self, n: int) -> memoryview:
         if self.pos + n > len(self.buf):
@@ -61,7 +63,7 @@ class _Reader:
 
     def ext(self, n: int):
         code = self.unpack(">b")
-        return self.ext_hook(code, bytes(self.take(n)))
+        return self.ext_hook(code, self.take(n))
 
     def value(self):
         t = self.unpack(">B")
@@ -84,7 +86,8 @@ class _Reader:
             return self.unpack(sized[t])
         lengths = {0: ">B", 1: ">H", 2: ">I"}
         if 0xC4 <= t <= 0xC6:  # bin 8/16/32
-            return bytes(self.take(self.unpack(lengths[t - 0xC4])))
+            data = self.take(self.unpack(lengths[t - 0xC4]))
+            return data if self.bin_views else bytes(data)
         if 0xC7 <= t <= 0xC9:  # ext 8/16/32
             return self.ext(self.unpack(lengths[t - 0xC7]))
         if 0xD4 <= t <= 0xD8:  # fixext 1/2/4/8/16
@@ -106,8 +109,8 @@ class _Reader:
         return out
 
 
-def _plain_ext(code: int, data: bytes):
-    return ExtType(code, data)
+def _plain_ext(code: int, data) -> ExtType:
+    return ExtType(code, bytes(data))
 
 
 def unpackb(data: bytes, ext_hook=_plain_ext, raw: bool = False):
@@ -121,8 +124,13 @@ def unpackb(data: bytes, ext_hook=_plain_ext, raw: bool = False):
     return out
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    shape, dtype_name, buffer = unpackb(data, raw=True)
+def _ndarray_from_bytes(data) -> np.ndarray:
+    """An ndarray ext payload -> a read-only array over ``data``'s memory
+    (no copy, except bf16 widened to fp32)."""
+    reader = _Reader(data, _plain_ext, raw=True, bin_views=True)
+    shape, dtype_name, buffer = reader.value()
+    if reader.pos != len(reader.buf):
+        raise ValueError("extra data after an ndarray payload")
     if dtype_name == b"bfloat16":  # widen bf16 bit patterns to fp32 exactly
         bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
         return bits.view(np.float32).reshape(shape)
@@ -134,11 +142,11 @@ def _flax_ext(code: int, data: bytes):
     if code == _EXT_NDARRAY:
         return _ndarray_from_bytes(data)
     if code == _EXT_COMPLEX:
-        re_, im = unpackb(data)
+        re_, im = unpackb(bytes(data))
         return complex(re_, im)
     if code == _EXT_NPSCALAR:
         return _ndarray_from_bytes(data)[()]
-    return ExtType(code, data)
+    return ExtType(code, bytes(data))
 
 
 def _unchunk(d):
@@ -206,21 +214,59 @@ def _pack_int(out: bytearray, x: int):
         raise OverflowError(f"integer {x} does not fit msgpack's int64")
 
 
-def _pack_ext(out: bytearray, code: int, data: bytes):
+def _pack_ext_header(out: bytearray, code: int, n: int):
     fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
-    if len(data) in fixed:
-        out.append(fixed[len(data)])
+    if n in fixed:
+        out.append(fixed[n])
     else:
-        _head(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        _head(out, n, None, 0, (0xC7, 0xC8, 0xC9))
     out += struct.pack(">b", code)
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes):
+    _pack_ext_header(out, code, len(data))
     out += data
 
 
-def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+class _Out(bytearray):
+    """The bytes being written, with large raw buffers kept aside as views
+    (``parts``), so an array's memory is not copied into the output."""
+
+    RAW_MIN = 1 << 16
+
+    def __init__(self):
+        super().__init__()
+        self.chunks = []
+
+    def raw(self, buf: memoryview):
+        if len(buf) < self.RAW_MIN:
+            self += buf
+            return
+        self.chunks.append(bytes(self))
+        self.clear()
+        self.chunks.append(buf)
+
+    def parts(self) -> list:
+        return self.chunks + [bytes(self)]
+
+
+def _pack_ndarray(out: bytearray, code: int, arr: np.ndarray):
+    """An ndarray ext: the msgpack array ``(shape, dtype name, C-order
+    bytes)``, the bytes passed to ``out.raw`` when ``out`` takes views."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes are not supported")
+    head = bytearray()
     # shape as a list: the inner pack is flax's non-strict one
-    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    _pack(head, [list(arr.shape), arr.dtype.name])
+    head[0] = 0x93  # the array holds three items: the bytes follow
+    _head(head, arr.nbytes, None, 0, (0xC4, 0xC5, 0xC6))
+    _pack_ext_header(out, code, len(head) + arr.nbytes)
+    out += head
+    data = memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+    if isinstance(out, _Out):
+        out.raw(data)
+    else:
+        out += data
 
 
 def _pack(out: bytearray, x):
@@ -250,9 +296,9 @@ def _pack(out: bytearray, x):
         for v in x:
             _pack(out, v)
     elif isinstance(x, np.ndarray):
-        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(x))
+        _pack_ndarray(out, _EXT_NDARRAY, x)
     elif isinstance(x, np.generic):
-        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(x)))
+        _pack_ndarray(out, _EXT_NPSCALAR, np.asarray(x))
     elif type(x) is complex:
         _pack_ext(out, _EXT_COMPLEX, packb([x.real, x.imag]))
     else:
@@ -284,11 +330,19 @@ def _state_dict(x):
     return x
 
 
+def _parts(tree) -> list:
+    out = _Out()
+    _pack(out, _state_dict(tree))
+    return out.parts()
+
+
 def to_bytes(tree) -> bytes:
     """``flax.serialization.to_bytes`` of a nested dict of numpy leaves."""
-    return packb(_state_dict(tree))
+    return b"".join(_parts(tree))
 
 
 def write_flax_msgpack(tree, path: str):
+    """``to_bytes(tree)`` written to ``path``, the arrays' memory written
+    from where it lies."""
     with open(path, "wb") as f:
-        f.write(to_bytes(tree))
+        f.writelines(_parts(tree))

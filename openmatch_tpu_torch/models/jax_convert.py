@@ -25,6 +25,14 @@ is a bare encoder. Each encoder is BERT or T5, told apart by its keys.
 (fp32 numpy leaves, keys sorted as ``jax.tree.map`` leaves them), which
 ``DRModel.save`` and ``RRModel.save`` write as ``params.msgpack``: the bytes
 the JAX package's ``save`` writes for the same weights.
+
+``v1_params_from_jax`` / ``v1_params_to_jax`` do the same for the v1
+rerankers (``v1/models.py``): an ``Embedder``'s ``embedding``; a
+``Conv1DEncoder``'s ``conv_N`` kernels, [W, in, out] in Flax and
+[out, in, W] for ``conv1d``; TK's attention ``q``/``k``/``v``
+(``DenseGeneral`` kernels [D, H, hd], biases [H, hd]) and ``out``
+([H, hd, D]); its ``mixer``; ``Dense`` heads; and a ``bert`` subtree, which
+is ``encoder_state_from_jax``'s.
 """
 
 from __future__ import annotations
@@ -288,3 +296,96 @@ def _sorted(tree):
     if isinstance(tree, dict):
         return {k: _sorted(tree[k]) for k in sorted(tree)}
     return tree
+
+
+# ---- the v1 rerankers -------------------------------------------------------
+
+
+def _v1_encoder_from_jax(tree: Mapping, name: str,
+                         out: Dict[str, torch.Tensor]):
+    """A ``Conv1DEncoder`` or ``TransformerEncoder`` subtree."""
+    for key, sub in tree.items():
+        if key.startswith("conv_"):
+            kernel = np.asarray(sub["kernel"])  # [W, in, out]
+            out[f"{name}.convs.{key}.weight"] = _t(kernel.transpose(2, 1, 0))
+            out[f"{name}.convs.{key}.bias"] = _t(sub["bias"])
+            continue
+        lp = f"{name}.layers.{int(key.split('_')[1])}"
+        for n in ("q", "k", "v"):
+            kernel = np.asarray(sub[n]["kernel"])  # [D, H, hd]
+            out[f"{lp}.{n}.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
+            out[f"{lp}.{n}.bias"] = _t(np.asarray(sub[n]["bias"]).reshape(-1))
+        kernel = np.asarray(sub["out"]["kernel"])  # [H, hd, D]
+        out[f"{lp}.out.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
+        out[f"{lp}.out.bias"] = _t(sub["out"]["bias"])
+        for ln in ("attn_ln", "ff_ln"):
+            _layer_norm(sub[ln], f"{lp}.{ln}", out)
+        for fc in ("fc1", "fc2"):
+            _dense(sub[fc], f"{lp}.{fc}", out)
+
+
+def v1_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A v1 model's Flax parameter tree (numpy leaves) -> the state_dict of
+    its ``v1/models.py`` counterpart."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in tree.items():
+        if name == "bert":
+            out.update(encoder_state_from_jax(sub, "bert"))
+        elif name == "mixer":
+            out["mixer"] = _t(sub)
+        elif "embedding" in sub:
+            out[f"{name}.embedding"] = _t(sub["embedding"])
+        elif "kernel" in sub:
+            _dense(sub, name, out)
+        else:
+            _v1_encoder_from_jax(sub, name, out)
+    return out
+
+
+def _v1_encoder_to_jax(sd: Mapping, name: str, num_heads: int) -> dict:
+    tree = {}
+    for key in sd:
+        m = re.fullmatch(re.escape(name) + r"\.convs\.(conv_\d+)\.weight", key)
+        if m:
+            prefix = f"{name}.convs.{m.group(1)}"
+            tree[m.group(1)] = {
+                "kernel": _np(sd[key]).transpose(2, 1, 0).copy(),
+                "bias": _np(sd[f"{prefix}.bias"])}
+    layers = sorted({int(m.group(1)) for key in sd if (m := re.match(
+        re.escape(name) + r"\.layers\.(\d+)\.", key))})
+    for i in layers:
+        lp, lt = f"{name}.layers.{i}", {}
+        for n in ("q", "k", "v"):
+            w = _np(sd[f"{lp}.{n}.weight"])  # [H*hd, D]
+            lt[n] = {"kernel": w.T.reshape(w.shape[1], num_heads, -1).copy(),
+                     "bias": _np(sd[f"{lp}.{n}.bias"]).reshape(num_heads, -1)}
+        o = _np(sd[f"{lp}.out.weight"])  # [D, H*hd]
+        lt["out"] = {"kernel": o.T.reshape(num_heads, -1, o.shape[0]).copy(),
+                     "bias": _np(sd[f"{lp}.out.bias"])}
+        for ln in ("attn_ln", "ff_ln"):
+            lt[ln] = _layer_norm_to_jax(sd, f"{lp}.{ln}")
+        for fc in ("fc1", "fc2"):
+            lt[fc] = _dense_to_jax(sd, f"{lp}.{fc}")
+        tree[f"layer_{i}"] = lt
+    return tree
+
+
+def v1_params_to_jax(state_dict: Mapping, num_heads: int = 1) -> dict:
+    """A v1 model's ``state_dict`` (or any mapping of its parameter names,
+    such as Adam's moments) -> the Flax tree, keys sorted (the inverse of
+    ``v1_params_from_jax``). ``num_heads``: TK's ``head_num`` or the BERT
+    encoder's ``num_attention_heads``, which split the attention
+    weights."""
+    tree = {}
+    for name in sorted({k.split(".")[0] for k in state_dict}):
+        if name == "bert":
+            tree["bert"] = encoder_state_to_jax(state_dict, "bert", num_heads)
+        elif name == "mixer":
+            tree["mixer"] = _np(state_dict["mixer"])
+        elif f"{name}.embedding" in state_dict:
+            tree[name] = {"embedding": _np(state_dict[f"{name}.embedding"])}
+        elif f"{name}.weight" in state_dict:
+            tree[name] = _dense_to_jax(state_dict, name)
+        else:
+            tree[name] = _v1_encoder_to_jax(state_dict, name, num_heads)
+    return _sorted(tree)
