@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval, training, rerank, ANCE, BEIR and v1
-reranking paths on one card.
+"""Drive the PyTorch port's retrieval, training, rerank, ANCE, BEIR, v1
+reranking and research-recipe paths on one card.
 
     python3 chip_smoke.py
 
@@ -170,6 +170,34 @@ Phases, in order; any failure raises and the script exits non-zero:
             evaluate gives MRR@10 and ndcg_cut_10 of every run. Step ms,
             pairs/s, peaks, BM25's index and query times are printed. It
             launches no hand-written kernel.
+12. research the research recipes through their entry points, fp32 at
+            full width (seeded T5-base and BERT-base): a sentence-
+            transformers GTR directory (T5-base encoder, 2_Dense 768 ->
+            768) converted by scripts/gtr/convert_gtr_ckpt.py's twin,
+            1,024 passages encoded (norms 1 within 1e-5; 8 within 1e-4 x
+            max|rep| of the CPU), then scale_t5_weights' twin (every
+            scaled tensor the original / 100 or / 10 bit for bit); a seed
+            QG (from an HF T5-base dir) and a ContrastQG model (seeded)
+            each trained 20 steps on one repeated batch of 16 x 256 -> 32
+            (the loss finite and falling); qg_synthesis.run_pipeline over
+            4,096 passages (max_docs 256, BM25 top 100, negatives from
+            ranks 50-100, batch 16, 24 new tokens, greedy): every jsonl
+            row has a query, a positive and a negative, and 16 rows' greedy
+            tokens, teacher-forced through a CPU copy, lie within 1e-4 x
+            max|logit| of their row's maximum; seed-QG docs/s and
+            ContrastQG pairs/s; train_dr takes 5 BERT-base steps on the
+            synthetic file; train_mlm 20 steps of 32 x 256 (finite losses;
+            the exported DRModel reloads and encodes 8 passages bit-equal
+            to the trained encoder); meta_train -model knrm (-embed_dim
+            300) and -model bert, 10 steps of 8 + 8 pairs (weights >= 0,
+            summing to 1, 0, or under 1 below the normaliser's 1e-8
+            floor; KNRM's step-2 weights, the first at a virtual lr > 0,
+            within 1e-4 of the CPU's from the same state); train_v1
+            -reinfoselect -model knrm (Conv-KNRM policy) and -model bert,
+            20 steps, eval every 5: keep rates in [0, 1], the policy moves
+            at every refresh from the first nonzero reward on, the best
+            checkpoint reloads and scores. Step times and peaks are
+            printed. It launches no hand-written kernel.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -1806,9 +1834,10 @@ def t5_base():
                     feed_forward_proj="relu", tie_word_embeddings=True)
 
 
-def hf_t5(rng: np.random.Generator, cfg, path: str):
+def hf_t5(rng: np.random.Generator, cfg, path: str, decoder: bool = True):
     """A raw HuggingFace-layout T5 checkpoint from seeded weights drawn at
-    HF's initial scales (factor 1): config.json and pytorch_model.bin."""
+    HF's initial scales (factor 1): config.json and pytorch_model.bin (the
+    encoder alone, as ``T5EncoderModel`` saves it, without ``decoder``)."""
     d, H, kv, ff = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.d_ff
 
     def n(std, *shape):
@@ -1816,8 +1845,9 @@ def hf_t5(rng: np.random.Generator, cfg, path: str):
                                 * np.float32(std))
 
     sd = {"shared.weight": n(1.0, cfg.vocab_size, d)}
-    for stack, layers in (("encoder", cfg.num_layers),
-                          ("decoder", cfg.num_decoder_layers)):
+    stacks = (("encoder", cfg.num_layers),
+              ("decoder", cfg.num_decoder_layers))[: 2 if decoder else 1]
+    for stack, layers in stacks:
         for i in range(layers):
             p = f"{stack}.block.{i}.layer"
             blocks = ["SelfAttention"] + (["EncDecAttention"]
@@ -3144,8 +3174,642 @@ def v1_collator(flags: list, tok):
     return train_v1.build_v1_collator(parser.parse_args(flags), tok, "test")
 
 
+# ---- the research recipes ---------------------------------------------------
+
+RS_WORDS = 30_000  # the research corpus's word types
+RS_DOCS = 4096  # qg_synthesis's corpus
+RS_MAX_DOCS, RS_TOPK, RS_BAND = 256, 100, (50, 100)
+RS_GEN_BATCH, RS_NEW_TOKENS = 16, 24
+RS_SRC_LEN, RS_TGT_LEN = 256, 32
+QG_STEPS, QG_LR = 20, 1e-4
+TF_ROWS = 16  # rows of the teacher-forcing check
+TF_REL = 1e-4  # a generated token's CPU logit >= row max - TF_REL x max|row|
+GTR_PASSAGES, GTR_LEN, GTR_AUDIT = 1024, 128, 8
+GTR_NORM_TOL = 1e-5
+GTR_REL = 1e-4  # card vs CPU reps, x max|rep|
+DR_STEPS = 5
+MLM_STEPS, MLM_BATCH, MLM_LEN = 20, 32, 256
+META_STEPS, META_BATCH = 10, 8
+META_W_ATOL = 1e-4  # card vs CPU meta weights, absolute (they sum to 1)
+RIS_STEPS, RIS_EVAL = 20, 5
+# the rankers' learning rates: high enough that 5 steps reorder some dev
+# run, so every dev evaluation gives the policy a reward to move on
+RIS_LR = {"knrm": "1e-2", "bert": "1e-4"}
+RIS_DEV_QUERIES, RIS_DEV_DOCS = 40, 10
+
+
+class T5WordTokenizer:
+    """A T5-style tokenizer over ``words`` (the card's machine has no
+    ``sentencepiece``): word j is id 3 + j; pad 0, eos 1 (appended, and
+    kept by truncation), unk 2. ``decode`` maps every id above 2 back to a
+    word (ids past the list wrap around it), so any generated token is a
+    corpus word."""
+
+    pad_token_id, eos_token_id, unk_token_id = 0, 1, 2
+
+    def __init__(self, words):
+        self.words = list(words)
+        self.ids = {w: 3 + j for j, w in enumerate(self.words)}
+
+    def __call__(self, text, truncation=True, max_length=None):
+        ids = [self.ids.get(w, 2) for w in text.split()]
+        if truncation and max_length is not None:
+            ids = ids[: max_length - 1]
+        return {"input_ids": ids + [1]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(self.words[(int(i) - 3) % len(self.words)]
+                        for i in ids if int(i) > 2)
+
+
+class MLMTokenizer(WhitespaceTokenizer):
+    """``WhitespaceTokenizer`` plus what train_mlm reads: ``mask_token_id``,
+    ``all_special_ids`` and the padded numpy call."""
+
+    unk_token_id, mask_token_id = 100, 103
+
+    @property
+    def all_special_ids(self):
+        return [self.pad_token_id, self.unk_token_id, self.cls_token_id,
+                self.sep_token_id, self.mask_token_id]
+
+    def __call__(self, text, truncation=True, max_length=None,
+                 padding="max_length", return_tensors="np"):
+        ids = self.encode_plus(text, max_length=max_length)["input_ids"]
+        out = np.zeros((1, max_length), np.int64)
+        out[0, : len(ids)] = ids
+        return {"input_ids": out, "attention_mask": (out > 0).astype(
+            np.int64)}
+
+
+def write_research_data(rng: np.random.Generator, root: str) -> dict:
+    """The phase's text in ``root``: RS_DOCS passages of 40-199 Zipf-drawn
+    words of RS_WORDS (corpus.jsonl, texts.txt), a word vocabulary
+    (vocab.txt), source and target pairs for Meta-LTR and ReInfoSelect
+    (each query 3-8 words of its positive, the negative another passage)
+    and a dev run of RIS_DEV_QUERIES queries x RIS_DEV_DOCS passages with
+    qrels (2-word queries; the other candidates share a query word).""" 
+    names = np.array([f"w{j}" for j in range(RS_WORDS)])
+    cdf = np.cumsum(1.0 / np.arange(1, RS_WORDS + 1))
+    lengths = rng.integers(40, 200, RS_DOCS)
+    flat = np.minimum(np.searchsorted(cdf / cdf[-1],
+                                      rng.random(int(lengths.sum()))),
+                      RS_WORDS - 1)
+    texts = [" ".join(w) for w in np.split(names[flat],
+                                           np.cumsum(lengths)[:-1])]
+    with open(os.path.join(root, "corpus.jsonl"), "w") as f:
+        f.writelines(json.dumps({"id": f"d{i}", "title": "", "text": t})
+                     + "\n" for i, t in enumerate(texts))
+    with open(os.path.join(root, "texts.txt"), "w") as f:
+        f.writelines(t + "\n" for t in texts)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+    def query(i):
+        words = texts[i].split()
+        pick = rng.choice(len(words), rng.integers(3, 9), replace=False)
+        return " ".join(words[j] for j in np.sort(pick))
+
+    for name, n in (("source", max(META_STEPS, RIS_STEPS) * META_BATCH),
+                    ("target", META_STEPS * META_BATCH)):
+        with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
+            for i in rng.integers(0, RS_DOCS, n):
+                f.write(json.dumps({"query": query(i), "doc_pos": texts[i],
+                                    "doc_neg": texts[(i + 1 + rng.integers(
+                                        RS_DOCS - 1)) % RS_DOCS]}) + "\n")
+    # dev queries of 2 words of the positive, whose other candidates share
+    # a query word: the ranking is not settled by word overlap alone, so
+    # training moves the dev metric
+    word_sets = [set(t.split()) for t in texts]
+    with open(os.path.join(root, "dev.jsonl"), "w") as f, \
+            open(os.path.join(root, "dev.qrels"), "w") as g:
+        for j, i in enumerate(rng.choice(RS_DOCS, RIS_DEV_QUERIES,
+                                         replace=False)):
+            words = texts[i].split()
+            q_words = {words[k] for k in rng.choice(len(words), 2,
+                                                    replace=False)}
+            q = " ".join(sorted(q_words))
+            share = [d for d in range(RS_DOCS)
+                     if d != i and word_sets[d] & q_words]
+            if len(share) < RIS_DEV_DOCS - 1:
+                share += list(rng.choice(RS_DOCS, RIS_DEV_DOCS - 1))
+            docs = [i] + list(rng.choice(share, RIS_DEV_DOCS - 1,
+                                         replace=False))
+            for k, d in enumerate(docs):
+                f.write(json.dumps({
+                    "query_id": f"q{j}", "doc_id": f"d{d}",
+                    "retrieval_score": float(RIS_DEV_DOCS - k), "query": q,
+                    "doc": texts[d]}) + "\n")
+            g.write(f"q{j} 0 d{i} 1\n")
+    return {"names": names, "texts": texts}
+
+
+def gtr_step(dev, rng, t5_cfg, root) -> None:
+    """A sentence-transformers GTR directory (T5-base encoder, 2_Dense
+    768 -> 768) converted by the twin, encoded on the card (unit norms; 8
+    passages against the CPU port), then scaled by the twin (each scaled
+    key the original / 100 or / 10 bit for bit)."""
+    import copy
+
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.models.flax_msgpack import read_flax_msgpack
+    from openmatch_tpu_torch.scripts import scale_t5_weights
+    from openmatch_tpu_torch.scripts.gtr import convert_gtr_ckpt
+
+    src, out, scaled = (os.path.join(root, n) for n in
+                        ("gtr", "om_gtr", "om_gtr_scaled"))
+    t0 = time.perf_counter()
+    hf_t5(rng, t5_cfg, src, decoder=False)
+    d = t5_cfg.d_model
+    os.makedirs(os.path.join(src, "2_Dense"))
+    with open(os.path.join(src, "2_Dense", "config.json"), "w") as f:
+        json.dump({"in_features": d, "out_features": d, "bias": False,
+                   "activation_function":
+                       "torch.nn.modules.linear.Identity"}, f)
+    torch.save({"linear.weight": torch.from_numpy(
+        rng.standard_normal((d, d), dtype=np.float32) * d ** -0.5)},
+        os.path.join(src, "2_Dense", "pytorch_model.bin"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    convert_gtr_ckpt.main(["--input", src, "--output", out])
+    convert_s = time.perf_counter() - t0
+    model = DRModel.load(out, device=dev)
+    ids = torch.from_numpy(rng.integers(3, t5_cfg.vocab_size,
+                                        (GTR_PASSAGES, GTR_LEN))).to(dev)
+    lengths = torch.from_numpy(rng.integers(16, GTR_LEN + 1, GTR_PASSAGES))
+    mask = (torch.arange(GTR_LEN)[None] < lengths[:, None]).long().to(dev)
+    reps = []
+    with torch.inference_mode():
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(0, GTR_PASSAGES, 128):
+            reps.append(model.encode_passage(ids[i:i + 128],
+                                             mask[i:i + 128]))
+        sync(dev)
+        enc_s = time.perf_counter() - t0
+    reps = torch.cat(reps)
+    norm_err = (reps.norm(dim=-1) - 1).abs().max().item()
+    if reps.shape != (GTR_PASSAGES, d) or not torch.isfinite(reps).all() \
+            or norm_err > GTR_NORM_TOL:
+        raise AssertionError(f"research: GTR reps {tuple(reps.shape)}, norms "
+                             f"off 1 by {norm_err:.3g}")
+    cpu = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        want = cpu.encode_passage(ids[:GTR_AUDIT].cpu(),
+                                  mask[:GTR_AUDIT].cpu())
+    err = ((reps[:GTR_AUDIT].cpu() - want).abs().max()
+           / want.abs().max()).item()
+    if err > GTR_REL:
+        raise AssertionError(f"research: GTR reps on the card differ from "
+                             f"the CPU by {err:.3g} x max|rep|")
+    del model, cpu
+    t0 = time.perf_counter()
+    scale_t5_weights.main(["--input_model_path", out, "--output_model_path",
+                           scaled, "--num_layers", str(t5_cfg.num_layers)])
+    scale_s = time.perf_counter() - t0
+    before = read_flax_msgpack(os.path.join(out, "params.msgpack"))
+    after = read_flax_msgpack(os.path.join(scaled, "params.msgpack"))
+    n_scaled = 0
+
+    def walk(a, b, path):
+        nonlocal n_scaled
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"research: scaled tree {path} keys")
+            for k in b:
+                walk(a[k], b[k], f"{path}/{k}")
+            return
+        div = 100 if ("/o/" in path or "/shared/" in path) else \
+            10 if "/ff/" in path else 1
+        want = b / div if div > 1 and path.startswith("/encoder_q") else b
+        if not np.array_equal(a, want):
+            raise AssertionError(f"research: scale_t5_weights {path} is not "
+                                 f"the original / {div} bit for bit")
+        n_scaled += want is not b
+
+    walk(after, before, "")
+    log(f"research: GTR: sentence-transformers T5-base dir written in "
+        f"{write_s:.2f} s, converted by the twin in {convert_s:.2f} s; "
+        f"encode {GTR_PASSAGES} passages of <= {GTR_LEN} tokens (fp32) "
+        f"{GTR_PASSAGES / enc_s:.0f} passages/s, norms within {norm_err:.2e} "
+        f"of 1, {GTR_AUDIT} passages within {err:.2e} x max|rep| of the CPU "
+        f"(tolerance {GTR_REL}); scale_t5_weights twin {scale_s:.2f} s, "
+        f"{n_scaled} tensors scaled bit-exactly")
+
+
+def qg_batch(tok, texts, idx, contrast: bool) -> dict:
+    """A QG training batch: passages (or 'positive: ... negative: ...'
+    pairs) -> the passage's first RS_TGT_LEN - 1 words and eos."""
+    from openmatch_tpu_torch.data.collators import pad_ids
+
+    if contrast:
+        src = [tok(f"positive: {texts[i]} negative: "
+                   f"{texts[(i + 7) % len(texts)]}", True, RS_SRC_LEN)
+               ["input_ids"] for i in idx]
+    else:
+        src = [tok(texts[i], True, RS_SRC_LEN)["input_ids"] for i in idx]
+    tgt = [tok(texts[i], True, RS_TGT_LEN)["input_ids"] for i in idx]
+    batch = pad_ids(src, RS_SRC_LEN, 0)
+    labels = pad_ids(tgt, RS_TGT_LEN, 0)
+    return {**batch, "labels": labels["input_ids"],
+            "label_mask": labels["attention_mask"]}
+
+
+def train_qg(name: str, qg, batch, dev) -> list:
+    """QG_STEPS steps of ``qg`` on one repeated batch; the loss must be
+    finite and fall. Returns the losses."""
+    from openmatch_tpu_torch.train.state import OptaxAdam
+
+    step = qg.make_train_step(OptaxAdam(list(qg.model.parameters()),
+                                        lr=QG_LR))
+    losses, times = [], []
+    for _ in range(QG_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        times.append(time.perf_counter() - t0)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"research: {name} losses {losses}")
+    B = batch["input_ids"].shape[0]
+    log(f"research: {name} trained {QG_STEPS} steps of {B} x "
+        f"{RS_SRC_LEN} -> {RS_TGT_LEN} tokens (fp32, Adam lr {QG_LR}): "
+        f"median step {np.median(times[1:]) * 1000:.1f} ms; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return losses
+
+
+def teacher_forcing_check(qg, tok, texts, dev) -> float:
+    """The card's greedy ids for TF_ROWS passages, teacher-forced through a
+    CPU copy: each token up to the row's eos must have a logit within
+    TF_REL x max|logit| of the row's maximum. Returns the largest gap."""
+    import copy
+
+    from openmatch_tpu_torch.data.collators import pad_ids
+
+    src = [tok(t, True, RS_SRC_LEN)["input_ids"] for t in texts[:TF_ROWS]]
+    batch = pad_ids(src, RS_SRC_LEN, 0)
+    gen = qg.generate(batch["input_ids"], batch["attention_mask"],
+                      RS_NEW_TOKENS, 1).cpu()
+    cpu = copy.deepcopy(qg.model).cpu()
+    dec = torch.cat([torch.zeros(TF_ROWS, 1, dtype=torch.long),
+                     gen[:, :-1]], 1)
+    with torch.inference_mode():
+        logits = cpu(torch.from_numpy(batch["input_ids"]),
+                     torch.from_numpy(batch["attention_mask"]),
+                     dec)["logits"]
+    del cpu
+    chosen = logits.gather(-1, gen[..., None])[..., 0]
+    gap = (logits.max(-1).values - chosen) / logits.abs().amax(-1)
+    live = (torch.cumsum((gen == 1).long(), 1) - (gen == 1).long()) == 0
+    worst = gap[live].max().item()
+    if worst > TF_REL:
+        raise AssertionError(f"research: a greedy token's CPU logit is "
+                             f"{worst:.3g} x max|logit| below its row's max")
+    return worst
+
+
+def phase_research(dev, bert_cfg=None, t5_cfg=None) -> dict:
+    """The research recipes through their entry points on ``dev`` at full
+    width (BERT-base ``bert_cfg``, T5-base ``t5_cfg``), in fp32: the GTR and
+    T5-scaling tools, QG training, qg_synthesis, train_dr on its output,
+    train_mlm, meta_train (KNRM and BERT) and train_v1 -reinfoselect (KNRM
+    and BERT), each with its checks. Launches no hand-written kernel:
+    returns {}."""
+    import copy
+
+    from openmatch_tpu_torch.bm25 import engine
+    from openmatch_tpu_torch.drivers import (meta_train, qg_synthesis,
+                                             train_dr, train_mlm, train_v1)
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.research import meta_ltr
+    from openmatch_tpu_torch.research.qg import QGModel
+    from openmatch_tpu_torch.train import meta_trainer, reinfoselect_trainer
+    from openmatch_tpu_torch.train.v1_trainer import (load_v1_params,
+                                                      to_device)
+    from openmatch_tpu_torch.v1.tokenizer import WordTokenizer
+
+    bert_cfg, t5_cfg = bert_cfg or BertConfig(), t5_cfg or t5_base()
+    rng = np.random.default_rng(14)
+    cuda = dev.type == "cuda"
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        data = write_research_data(rng, root)
+        texts = data["texts"]
+        bert_dir, t5_dir = os.path.join(root, "hf"), os.path.join(root, "t5")
+        hf_bert_base(rng, bert_cfg, bert_dir)
+        hf_t5(rng, t5_cfg, t5_dir)
+        log(f"research: {RS_DOCS} passages of {RS_WORDS} word types, pairs, "
+            f"a dev run and HF BERT-base / T5-base checkpoints written in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # 1. GTR: the converter and the scaler twins
+        gtr_step(dev, rng, t5_cfg, root)
+
+        # 2. QG and ContrastQG, each trained on one repeated batch
+        t5_tok = T5WordTokenizer(data["names"])
+        idx = rng.choice(RS_DOCS, RS_GEN_BATCH, replace=False)
+        qg = QGModel.from_pretrained(t5_dir, device=dev)
+        train_qg("seed QG", qg, qg_batch(t5_tok, texts, idx, False),
+                 dev)
+        cqg = QGModel(t5_cfg, device=dev)
+        cqg.init_params(15)
+        train_qg("ContrastQG", cqg, qg_batch(t5_tok, texts, idx, True),
+                 dev)
+
+        # 3. qg_synthesis.run_pipeline over the corpus
+        corpus = qg_synthesis.load_corpus(os.path.join(root, "corpus.jsonl"))
+        out_path = os.path.join(root, "synthetic.train.jsonl")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with timing({}, (qg_synthesis, "generate_seed_queries", "seed"),
+                    (qg_synthesis, "synthesize_training_data", "cqg"),
+                    (engine.BM25Retriever, "index_corpus", "index"),
+                    (engine.BM25Retriever, "retrieve", "bm25")) as times:
+            n = qg_synthesis.run_pipeline(
+                qg, cqg, t5_tok, corpus, out_path, max_src_len=RS_SRC_LEN,
+                max_new_tokens=RS_NEW_TOKENS, batch_size=RS_GEN_BATCH,
+                bm25_topk=RS_TOPK, neg_rank_range=RS_BAND,
+                max_docs=RS_MAX_DOCS)
+        rows = [json.loads(line) for line in open(out_path)]
+        if len(rows) != n or n < RS_GEN_BATCH or any(
+                not (r["query"] and r["positives"] and r["negatives"])
+                for r in rows):
+            raise AssertionError(f"research: qg_synthesis wrote {n} rows, "
+                                 f"{len(rows)} parsed")
+        gap = teacher_forcing_check(qg, t5_tok, texts, dev)
+        log(f"research: qg_synthesis over {RS_DOCS} passages (max_docs "
+            f"{RS_MAX_DOCS}, BM25 top {RS_TOPK}, negatives from ranks "
+            f"{RS_BAND[0]}-{RS_BAND[1]}, batch {RS_GEN_BATCH}, "
+            f"{RS_NEW_TOKENS} new tokens, greedy, fp32, no KV cache): seed "
+            f"QG {RS_MAX_DOCS / times['seed']:.1f} docs/s "
+            f"({times['seed']:.2f} s), BM25 index {times['index']:.2f} s + "
+            f"queries {times['bm25']:.3f} s, ContrastQG {n} pairs in "
+            f"{times['cqg']:.2f} s = {n / times['cqg']:.1f} pairs/s; "
+            f"{n} rows written; teacher forcing on the CPU: {TF_ROWS} rows' "
+            f"tokens within {gap:.2e} x max|logit| of their row maxima "
+            f"(tolerance {TF_REL}); peak max_memory_allocated "
+            f"{peak_gib():.2f} GiB")
+        del qg, cqg
+        gc.collect()
+
+        # 4. the synthetic file trains the port's train_dr
+        btok = MLMTokenizer(bert_cfg.vocab_size)
+        result = train_dr.main([
+            "--model_name_or_path", bert_dir, "--train_path", out_path,
+            "--output_dir", os.path.join(root, "dr"), "--max_steps",
+            str(DR_STEPS), "--per_device_train_batch_size", "8",
+            "--train_n_passages", "2", "--q_max_len", "32", "--p_max_len",
+            "128", "--learning_rate", "1e-5", "--logging_steps", "1",
+            "--save_steps", "0", "--device", str(dev)], tokenizer=btok)
+        if result["final_step"] != DR_STEPS or not np.isfinite(
+                result["losses"]).all():
+            raise AssertionError(f"research: train_dr on the synthetic "
+                                 f"file ran {result}")
+        log(f"research: train_dr (BERT-base) took {DR_STEPS} steps of 8 "
+            f"synthetic queries x 2 passages: losses "
+            f"{[round(x, 4) for x in result['losses']]}")
+
+        # 5. train_mlm; the exported encoder reloads and encodes as trained
+        mlm_dir = os.path.join(root, "mlm")
+        step_times = []
+        real_mask = train_mlm.mask_tokens
+
+        def timed_mask(*a, **kw):  # each step starts with its masking
+            sync(dev)
+            step_times.append(time.perf_counter())
+            return real_mask(*a, **kw)
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        train_mlm.mask_tokens = timed_mask
+        try:
+            result = train_mlm.main([
+                "--model_name_or_path", bert_dir, "--train_path",
+                os.path.join(root, "texts.txt"), "--output_dir", mlm_dir,
+                "--max_steps", str(MLM_STEPS), "--per_device_train_batch_size",
+                str(MLM_BATCH), "--p_max_len", str(MLM_LEN),
+                "--learning_rate", "5e-5", "--logging_steps", "5",
+                "--device", str(dev)], tokenizer=btok)
+        finally:
+            train_mlm.mask_tokens = real_mask
+        peak = peak_gib()
+        losses = result["losses"]
+        if result["final_step"] != MLM_STEPS or not np.isfinite(
+                losses).all():
+            raise AssertionError(f"research: train_mlm ran {result}")
+        model = result["model"]
+        ids = torch.from_numpy(np.concatenate([
+            btok(t, max_length=MLM_LEN)["input_ids"] for t in texts[:8]])
+        ).to(dev)
+        with torch.inference_mode():
+            want = model.bert(ids, (ids > 0).long())["last_hidden_state"][:, 0]
+            got = DRModel.load(mlm_dir, device=dev).encode_passage(
+                ids, (ids > 0).long())
+        if not torch.equal(got, want):
+            raise AssertionError("research: train_mlm's exported DRModel "
+                                 "encodes unlike the trained encoder")
+        del model, result
+        log(f"research: train_mlm (BERT-base, fp32) {MLM_STEPS} steps of "
+            f"{MLM_BATCH} x {MLM_LEN} tokens: median step "
+            f"{np.median(np.diff(step_times)[1:]) * 1000:.1f} ms "
+            f"({MLM_BATCH * MLM_LEN / np.median(np.diff(step_times)[1:]):.0f}"
+            f" tokens/s); losses {[round(x, 4) for x in losses]}; peak "
+            f"max_memory_allocated {peak:.2f} GiB; the exported DRModel "
+            f"reloads and encodes 8 passages bit-equal to the trained "
+            f"encoder")
+
+        # 6. meta_train, KNRM and BERT
+        wtok = WordTokenizer(vocab=os.path.join(root, "vocab.txt"))
+        ptok = PairTokenizer(bert_cfg.vocab_size)
+        word = ["-vocab", os.path.join(root, "vocab.txt"), "-embed_dim",
+                "300"]
+        bert = ["-pretrain", bert_dir]
+        for name, flags, tok in (("knrm", ["-model", "knrm"] + word, wtok),
+                                 ("bert", ["-model", "bert"] + bert, ptok)):
+            seen, times, snap = [], [], {}
+            real_step = meta_trainer.MetaLTRTrainer.train_step
+
+            def timed_step(self, batch, target):
+                seen[:] = [self]
+                if self.step == 1:  # the first step with a virtual lr > 0
+                    snap.update(state=copy.deepcopy(self.model.state_dict()),
+                                batch=batch, target=target)
+                sync(dev)
+                t = time.perf_counter()
+                out = real_step(self, batch, target)
+                sync(dev)
+                times.append(time.perf_counter() - t)
+                if self.step == 2:
+                    snap["weights"] = out[1].cpu()
+                return out
+
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            meta_trainer.MetaLTRTrainer.train_step = timed_step
+            try:
+                result = meta_train.main(flags + [
+                    "-task", "ranking", "-train",
+                    os.path.join(root, "source.jsonl"), "-target",
+                    os.path.join(root, "target.jsonl"), "-save_folder",
+                    os.path.join(root, f"meta_{name}"), "-epoch", "1",
+                    "-train_batch_size", str(META_BATCH),
+                    "-target_batch_size", str(META_BATCH), "-lr",
+                    "1e-3" if name == "knrm" else "2e-5",
+                    "-n_warmup_steps", "2", "-max_input",
+                    str(META_STEPS * META_BATCH), "--device", str(dev)],
+                    tokenizer=tok)
+            finally:
+                meta_trainer.MetaLTRTrainer.train_step = real_step
+            peak = peak_gib()
+            # each step's weights are >= 0 and sum to 1, or to 0 when no
+            # pair helps, or below 1 when their raw sum is under the
+            # normaliser's floor of 1e-8 (JAX's clip, kept)
+            ws = result["weights"]
+            sums = [float(w.sum()) for w in ws]
+            if result["final_step"] != META_STEPS or any(
+                    (w < 0).any() for w in ws) \
+                    or max(sums) > 1 + 1e-5 \
+                    or (name == "knrm" and abs(sums[1] - 1) > 1e-5):
+                raise AssertionError(f"research: meta_train {name}: weights "
+                                     f"{[w.tolist() for w in ws]}")
+            trainer = seen[0]
+            audit = ""
+            if name == "knrm":
+                # the same step on the CPU from the same state and batches
+                cpu_model = copy.deepcopy(trainer.model).cpu()
+                cpu_model.load_state_dict(snap["state"])
+                cpu_t = meta_trainer.MetaLTRTrainer(
+                    cpu_model, trainer.args, trainer.total_steps,
+                    device="cpu")
+                w_cpu, _ = meta_ltr.meta_reweight_step(
+                    dict(cpu_model.named_parameters()),
+                    cpu_t.per_example_loss, cpu_t.target_loss,
+                    to_device(snap["batch"], "cpu"),
+                    to_device(snap["target"], "cpu"), trainer.schedule(1))
+                err = (snap["weights"] - w_cpu).abs().max().item()
+                if err > META_W_ATOL:
+                    raise AssertionError(f"research: meta_train knrm's "
+                                         f"weights differ from the CPU's by "
+                                         f"{err:.3g}")
+                audit = (f"; step 2's weights (the first at a virtual lr "
+                         f"> 0) within {err:.2e} of the CPU's (tolerance "
+                         f"{META_W_ATOL})")
+                del cpu_model, cpu_t
+            log(f"research: meta_train {name} {META_STEPS} steps of "
+                f"{META_BATCH} source + {META_BATCH} target pairs (fp32): "
+                f"median step {np.median(times[1:]) * 1000:.1f} ms, first "
+                f"{times[0] * 1000:.1f} ms; peak max_memory_allocated "
+                f"{peak:.2f} GiB; zero-weight share "
+                f"{np.mean(np.concatenate(ws) == 0):.2f}; weight sums "
+                f"{[round(x, 6) for x in sums]}{audit}")
+            del trainer, seen[:], result
+            snap.clear()
+            gc.collect()
+
+        # 7. train_v1 -reinfoselect, KNRM (Conv-KNRM policy) and BERT
+        dev_spec = os.path.join(root, "dev.jsonl")
+        for name, flags, tok in (("knrm", ["-model", "knrm"] + word, wtok),
+                                 ("bert", ["-model", "bert"] + bert, ptok)):
+            seen, moves = [], []
+            real_refresh = reinfoselect_trainer.ReInfoSelectTrainer\
+                .refresh_policy
+
+            def refresh(self, reward):
+                seen[:] = [self]
+                before = [p.detach().clone() for p in
+                          self.policy.parameters()]
+                real_refresh(self, reward)
+                moves.append((reward, any(
+                    not torch.equal(a, b) for a, b in
+                    zip(before, self.policy.parameters()))))
+
+            save = os.path.join(root, f"ris_{name}")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            reinfoselect_trainer.ReInfoSelectTrainer.refresh_policy = refresh
+            try:
+                result = train_v1.main(flags + [
+                    "-task", "ranking", "-ranking_loss", "triplet_loss",
+                    "-reinfoselect", "-train",
+                    os.path.join(root, "source.jsonl"), "-dev", dev_spec,
+                    "-qrels", os.path.join(root, "dev.qrels"), "-save", save,
+                    "-res", os.path.join(root, f"ris_{name}.trec"),
+                    "-max_query_len", "10", "-max_doc_len", "128",
+                    "-batch_size", str(META_BATCH), "-lr", RIS_LR[name],
+                    "-eval_every",
+                    str(RIS_EVAL), "-max_input",
+                    str(RIS_STEPS * META_BATCH), "--device", str(dev)],
+                    tokenizer=tok)
+            finally:
+                reinfoselect_trainer.ReInfoSelectTrainer.refresh_policy = \
+                    real_refresh
+            wall = time.perf_counter() - t0
+            peak = peak_gib()
+            rates = result["keep_rates"]
+            moved = [m for _, m in moves]
+            first = next((i for i, (r, _) in enumerate(moves) if r != 0),
+                         len(moves))
+            if result["final_step"] != RIS_STEPS or len(rates) != RIS_STEPS \
+                    or not all(0.0 <= r <= 1.0 for r in rates) \
+                    or len(moves) != RIS_STEPS // RIS_EVAL \
+                    or moved != [i >= first for i in range(len(moves))] \
+                    or first == len(moves):
+                raise AssertionError(f"research: train_v1 -reinfoselect "
+                                     f"{name}: keep rates {rates}, refreshes "
+                                     f"(reward, policy moved) {moves}")
+            reloaded = load_v1_params(train_v1.build_v1_model(
+                v1_args(flags), tok), os.path.join(save, "best"))
+            live = seen[0].model
+            batch = next(iter(reinfoselect_batches(flags, tok, root)))
+            with torch.no_grad():
+                want = live.score_batch(to_device(batch, dev))[0]
+                got = reloaded.to(dev).eval().score_batch(
+                    to_device(batch, dev))[0]
+            if not torch.isfinite(got).all() or got.shape != want.shape:
+                raise AssertionError(f"research: {name}'s best checkpoint "
+                                     "does not score")
+            log(f"research: train_v1 -reinfoselect {name} {RIS_STEPS} steps "
+                f"of {META_BATCH} triples, eval every {RIS_EVAL} "
+                f"({RIS_DEV_QUERIES} x {RIS_DEV_DOCS} dev pairs) in "
+                f"{wall:.2f} s: keep rates {[round(r, 3) for r in rates]}; "
+                f"refreshes (reward, policy moved) "
+                f"{[(round(r, 4), m) for r, m in moves]}; the best "
+                f"checkpoint reloads and scores; peak max_memory_allocated "
+                f"{peak:.2f} GiB")
+            del reloaded, live, seen[:], result
+            gc.collect()
+    return {}
+
+
+def v1_args(flags: list):
+    parser = argparse.ArgumentParser()
+    from openmatch_tpu_torch.drivers import train_v1
+
+    train_v1.add_model_args(parser)
+    return parser.parse_args(flags + ["-max_query_len", "10",
+                                      "-max_doc_len", "128"])
+
+
+def reinfoselect_batches(flags: list, tok, root: str):
+    from openmatch_tpu_torch.data.loader import batched
+    from openmatch_tpu_torch.drivers import train_v1
+    from openmatch_tpu_torch.v1.dataset import V1Dataset
+
+    collator = train_v1.build_v1_collator(v1_args(flags), tok, "dev")
+    dev_set = V1Dataset(os.path.join(root, "dev.jsonl"), mode="dev")
+    for batch in batched(iter(dev_set), META_BATCH, collator):
+        yield {k: v for k, v in batch.items() if not isinstance(v, list)
+               and k not in ("retrieval_score", "label")}
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank", "ance", "beir", "v1")
+          "rerank", "ance", "beir", "v1", "research")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -3211,7 +3875,7 @@ def main(argv=None) -> int:
     # the chains' retrieves add their K1 and K3 launches to the table's
     for name, fn in (("train", phase_train), ("rerank", phase_rerank),
                      ("ance", phase_ance), ("beir", phase_beir),
-                     ("v1", phase_v1)):
+                     ("v1", phase_v1), ("research", phase_research)):
         if name in phases:
             for kernel, n in run_phase(name, fn, dev).items():
                 launches[kernel] = launches.get(kernel, 0) + n

@@ -13,7 +13,12 @@ when named). ``-model bert|roberta|electra`` take an HF checkpoint
 directory as ``-pretrain`` and compute in fp32; ``-maxp`` makes it
 BertMaxP. ``-save`` receives ``train_state.msgpack`` in the JAX package's
 layout, which either package's ``inference_v1`` and ``gen_feature`` read.
-``-reinfoselect`` (ReInfoSelect, ROADMAP P12) is not ported and raises.
+``-reinfoselect`` trains in ReInfoSelect's data-selection mode: a
+Conv-KNRM classification policy (a BERT one for the BERT models) picks the
+pairs that train the ranker and is updated by REINFORCE on the dev
+metric's change (``train/reinfoselect_trainer.py``); ``-reset`` restores
+the best ranker after each policy update, ``-tau`` is the gumbel-softmax
+temperature.
 ``main`` takes ``tokenizer=`` (an HF-style tokenizer for the BERT models, a
 ``WordTokenizer`` for the others) in place of loading one.
 """
@@ -29,6 +34,7 @@ import torch
 from ..config import TrainingArguments
 from ..data.loader import batched
 from ..models.hf_convert import load_bert_encoder
+from ..train.reinfoselect_trainer import ReInfoSelectTrainer
 from ..train.v1_trainer import V1Trainer, predict_scores
 from ..utils.metrics import evaluate_run, load_qrels
 from ..utils.trec import save_as_trec
@@ -40,8 +46,6 @@ from .common import (DictOrStr, build_v1_tokenizer, setup_logging,
                      split_device_flag)
 
 BERT_MODELS = ("bert", "roberta", "electra")
-_REINFOSELECT_TODO = ("-reinfoselect (ReInfoSelect data selection) is not "
-                      "ported to PyTorch yet (ROADMAP.md, P12)")
 
 
 def _seeded(seed: int, build):
@@ -115,6 +119,18 @@ def build_bert_ranker(pretrain: str, mode: str, task: str, seed: int = 42,
     return model
 
 
+def build_policy(args, tokenizer):
+    """ReInfoSelect's keep / drop policy for the word models and EDRM: a
+    Conv-KNRM with a 2-class head over the positive pair, sharing the
+    ranker's vocabulary and pretrained embeddings, built from
+    ``args.seed + 1``."""
+    model = _seeded(args.seed + 1, lambda: ConvKNRM(
+        vocab_size=tokenizer.get_vocab_size(),
+        embed_dim=_word_embed_dim(args, tokenizer), task="classification"))
+    _load_embeddings(model.embedder, tokenizer)
+    return model
+
+
 def _ent_tokenizer(args):
     if not getattr(args, "ent_vocab", None):
         raise ValueError("-model edrm requires -ent_vocab (entity vocab file)")
@@ -181,7 +197,8 @@ def add_model_args(parser):
 
 
 def main(argv=None, tokenizer=None):
-    """Returns the trainer's ``{"losses", "final_step", "best_metric"}``."""
+    """Returns the trainer's ``{"losses", "final_step", "best_metric"}``
+    (and ``"keep_rates"`` under ``-reinfoselect``)."""
     setup_logging()
     device, rest = split_device_flag(argv)
     parser = argparse.ArgumentParser()
@@ -199,16 +216,19 @@ def main(argv=None, tokenizer=None):
     parser.add_argument("-eval_every", type=int, default=1000)
     parser.add_argument("-max_input", type=int, default=1_280_000)
     parser.add_argument("-reinfoselect", action="store_true", default=False,
-                        help="ReInfoSelect data selection: not ported")
-    parser.add_argument("-reset", action="store_true", default=False)
-    parser.add_argument("-tau", type=float, default=1.0)
+                        help="ReInfoSelect data-selection mode: a "
+                             "classification policy picks which pairs train "
+                             "the ranker, updated by REINFORCE on the "
+                             "dev-metric delta")
+    parser.add_argument("-reset", action="store_true", default=False,
+                        help="reload the best ranker after each policy "
+                             "refresh")
+    parser.add_argument("-tau", type=float, default=1.0,
+                        help="gumbel-softmax temperature")
     args = parser.parse_args(rest)
     if args.maxp and args.reinfoselect:
         raise ValueError("-maxp and -reinfoselect cannot combine (the policy "
                          "scores flat cross-encoder inputs)")
-    if args.reinfoselect:
-        raise NotImplementedError(_REINFOSELECT_TODO)
-
     if tokenizer is None:
         tokenizer = build_v1_tokenizer(args)
     model = build_v1_model(args, tokenizer)
@@ -224,8 +244,24 @@ def main(argv=None, tokenizer=None):
         logging_steps=max(args.eval_every, 1), eval_steps=args.eval_every,
         save_steps=0, seed=args.seed, margin=1.0,
     )
-    trainer = V1Trainer(model, train_args, total_steps, task=args.task,
-                        ranking_loss_kind=args.ranking_loss, device=device)
+    if args.reinfoselect:
+        if not (args.dev and args.qrels):
+            raise ValueError("-reinfoselect needs -dev and -qrels: the "
+                             "policy's REINFORCE reward is the dev-metric "
+                             "delta")
+        if args.model in BERT_MODELS:
+            policy = build_bert_ranker(args.pretrain, args.bert_mode,
+                                       "classification", args.seed + 1)
+        else:
+            policy = build_policy(args, tokenizer)
+        trainer = ReInfoSelectTrainer(
+            model, policy, train_args, total_steps, task=args.task,
+            ranking_loss_kind=args.ranking_loss, tau=args.tau,
+            reset=args.reset, device=device)
+    else:
+        trainer = V1Trainer(model, train_args, total_steps, task=args.task,
+                            ranking_loss_kind=args.ranking_loss,
+                            device=device)
 
     eval_fn = None
     if args.dev and args.qrels:
@@ -248,7 +284,13 @@ def main(argv=None, tokenizer=None):
             yield from batched(iter(train_set), args.batch_size,
                                train_collator, drop_last=True)
 
-    out = trainer.train(data_iter(), eval_fn=eval_fn)
+    if args.reinfoselect:
+        out = trainer.train(data_iter(), eval_fn)
+        rates = out["keep_rates"]
+        print(f"keep-rate {np.mean(rates):.2f} over {len(rates)} selection "
+              "steps")
+    else:
+        out = trainer.train(data_iter(), eval_fn=eval_fn)
     trainer.save_checkpoint(args.save)
     if eval_fn is not None:
         eval_fn(trainer)

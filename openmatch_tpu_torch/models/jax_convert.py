@@ -33,6 +33,13 @@ rerankers (``v1/models.py``): an ``Embedder``'s ``embedding``; a
 (``DenseGeneral`` kernels [D, H, hd], biases [H, hd]) and ``out``
 ([H, hd, D]); its ``mixer``; ``Dense`` heads; and a ``bert`` subtree, which
 is ``encoder_state_from_jax``'s.
+
+``mlm_params_from_jax`` / ``mlm_params_to_jax`` carry ``research.mlm``'s
+``MLMModel`` (a ``bert`` encoder, the ``transform`` Dense, the
+``transform_ln`` LayerNorm and ``decoder_bias``), ``policy_params_*``
+``research.reinfoselect``'s ``DataSelectionPolicy`` (Dense ``fc1``, ``fc2``).
+``T5Seq2Seq`` has ``T5EncoderDecoderStep``'s tree, which ``t5_state_*``
+carry.
 """
 
 from __future__ import annotations
@@ -389,3 +396,41 @@ def v1_params_to_jax(state_dict: Mapping, num_heads: int = 1) -> dict:
         else:
             tree[name] = _v1_encoder_to_jax(state_dict, name, num_heads)
     return _sorted(tree)
+
+
+# ---- the research recipes ---------------------------------------------------
+
+
+def mlm_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """An ``MLMModel`` Flax tree (``bert``, ``transform``, ``transform_ln``,
+    ``decoder_bias``) -> the port's ``research.mlm.MLMModel`` state."""
+    out = encoder_state_from_jax(tree["bert"], "bert")
+    _dense(tree["transform"], "transform", out)
+    _layer_norm(tree["transform_ln"], "transform_ln", out)
+    out["decoder_bias"] = _t(tree["decoder_bias"])
+    return out
+
+
+def mlm_params_to_jax(state_dict: Mapping, num_heads: int) -> dict:
+    """The port's ``MLMModel`` state (or a mapping of its parameter names,
+    such as Adam's moments) -> the Flax tree, keys sorted."""
+    return _sorted({
+        "bert": encoder_state_to_jax(state_dict, "bert", num_heads),
+        "transform": _dense_to_jax(state_dict, "transform"),
+        "transform_ln": _layer_norm_to_jax(state_dict, "transform_ln"),
+        "decoder_bias": _np(state_dict["decoder_bias"]),
+    })
+
+
+def policy_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``DataSelectionPolicy`` Flax tree (``fc1``, ``fc2``) -> the port's
+    module state."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2"):
+        _dense(tree[name], name, out)
+    return out
+
+
+def policy_params_to_jax(state_dict: Mapping) -> dict:
+    """The port's ``DataSelectionPolicy`` state -> the Flax tree."""
+    return {name: _dense_to_jax(state_dict, name) for name in ("fc1", "fc2")}

@@ -1,13 +1,16 @@
 """The T5 stack as PyTorch modules (port of ``openmatch_tpu/models/t5.py``).
 
-Two uses, as in the JAX package:
+Three uses, as in the JAX package:
 
 - ``T5Encoder``: the encoder alone (GTR, ``--encoder_only``, the ``t5enc``
   reranker);
 - ``T5EncoderDecoderStep``: the encoder, then ONE decoder step fed
   ``decoder_start_token_id``. Its ``decoder_hidden[:, 0]`` is the full-T5
   dense-retrieval rep, and its logits at ``[neg_token, pos_token]`` are the
-  monoT5 score.
+  monoT5 score;
+- ``T5Seq2Seq``: the same parameters under teacher forcing over any decoder
+  ids, with ``shift_right``, ``seq2seq_loss`` and ``greedy_generate``
+  (query generation, ``research/qg.py``).
 
 Precision points, each the JAX module's:
 
@@ -52,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.gumbel import categorical
 from .bert import ACT2FN, dropout, linear
 from .hf_convert import read_hf_state_dict
 
@@ -167,11 +171,14 @@ def relative_position_bucket(relative_position: np.ndarray,
 def _bucket_table(q_len: int, k_len: int, bidirectional: bool,
                   num_buckets: int, max_distance: int,
                   device: torch.device) -> torch.Tensor:
-    """[q_len, k_len] int64 buckets of ``memory - query`` on ``device``."""
+    """[q_len, k_len] int64 buckets of ``memory - query`` on ``device``.
+    Built outside inference mode: a cached inference tensor could not index
+    a table whose gradient a later training step takes."""
     rel = np.arange(k_len)[None, :] - np.arange(q_len)[:, None]
     table = relative_position_bucket(rel, bidirectional, num_buckets,
                                      max_distance)
-    return torch.from_numpy(table.astype(np.int64)).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(table.astype(np.int64)).to(device)
 
 
 def position_bias(table: torch.Tensor, q_len: int, k_len: int,
@@ -363,15 +370,124 @@ class T5EncoderDecoderStep(_T5Stack):
                            generator)
         hidden = dropout(self.dec_final_ln(hidden), cfg.dropout_rate,
                          generator)
-        if self.lm_head is None:
-            scale = torch.tensor(cfg.d_model ** -0.5, dtype=self.dtype,
-                                 device=hidden.device)
-            logits = F.linear(hidden * scale,
-                              self.shared.weight.to(self.dtype))
-        else:
-            logits = linear(hidden, self.lm_head)
-        return {"decoder_hidden": hidden, "logits": logits,
+        return {"decoder_hidden": hidden, "logits": self._lm_logits(hidden),
                 "last_hidden_state": enc_hidden}
+
+    def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            scale = torch.tensor(self.config.d_model ** -0.5,
+                                 dtype=self.dtype, device=hidden.device)
+            return F.linear(hidden * scale, self.shared.weight.to(self.dtype))
+        return linear(hidden, self.lm_head)
+
+
+class T5Seq2Seq(T5EncoderDecoderStep):
+    """The encoder-decoder with teacher forcing over any decoder ids (JAX
+    ``T5Seq2Seq``). Its parameters are ``T5EncoderDecoderStep``'s, so
+    ``encdec_state_from_hf``, ``load_t5_encdec`` and
+    ``jax_convert.t5_state_from_jax`` serve it.
+
+    ``forward(input_ids, attention_mask, decoder_input_ids,
+    decoder_attention_mask=None)`` returns {"logits": [B, T, V],
+    "decoder_hidden", "last_hidden_state"}. The decoder's self-attention
+    bias is the position bias plus the causal bias (``finfo(float32).min``
+    above the diagonal), plus the decoder mask's bias when one is given,
+    added in that order in fp32: where both masks apply the sum is
+    ``-inf``, as in JAX. ``encode`` and ``decode`` split the two halves
+    for ``greedy_generate``, which encodes once per batch."""
+
+    def encode(self, input_ids, attention_mask, generator=None):
+        return self._encode(input_ids, attention_mask, self.enc_rel_bias,
+                            self.enc_layers, self.enc_final_ln, generator)
+
+    def decode(self, enc_hidden, attention_mask, decoder_input_ids,
+               decoder_attention_mask=None, generator=None):
+        """(decoder_hidden [B, T, d], logits [B, T, V])."""
+        cfg = self.config
+        T = decoder_input_ids.shape[1]
+        hidden = self._embed(decoder_input_ids, generator)
+        pos = torch.arange(T, device=hidden.device)
+        causal = torch.where(pos[None, :] <= pos[:, None], 0.0,
+                             torch.finfo(torch.float32).min)[None, None]
+        self_bias = position_bias(self.dec_rel_bias, T, T, False,
+                                  cfg) + causal
+        if decoder_attention_mask is not None:
+            self_bias = self_bias + mask_bias(decoder_attention_mask)
+        cross_bias = mask_bias(attention_mask)  # no position bias
+        for layer in self.dec_layers:
+            hidden = layer(hidden, self_bias, enc_hidden, cross_bias,
+                           generator)
+        hidden = dropout(self.dec_final_ln(hidden), cfg.dropout_rate,
+                         generator)
+        return hidden, self._lm_logits(hidden)
+
+    def forward(self, input_ids, attention_mask, decoder_input_ids,
+                decoder_attention_mask=None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """``generator`` turns dropout on, in training mode only."""
+        if not self.training:
+            generator = None
+        enc_hidden = self.encode(input_ids, attention_mask, generator)
+        hidden, logits = self.decode(enc_hidden, attention_mask,
+                                     decoder_input_ids,
+                                     decoder_attention_mask, generator)
+        return {"logits": logits, "decoder_hidden": hidden,
+                "last_hidden_state": enc_hidden}
+
+
+def shift_right(ids: torch.Tensor, start_token_id: int,
+                pad_token_id: int = 0) -> torch.Tensor:
+    """Teacher-forcing decoder inputs: [start, y_0, ..., y_{T-2}], -100
+    read as pad."""
+    shifted = torch.roll(ids, 1, dims=-1)
+    shifted[:, 0] = start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
+
+
+def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross-entropy over labelled positions (mask 0 = pad); the
+    labels are clamped at 0, as optax's integer-label loss is fed."""
+    labels = torch.clamp(labels.long(), min=0)
+    losses = torch.logsumexp(logits, -1) - logits.gather(
+        -1, labels[..., None])[..., 0]
+    m = mask.to(torch.float32)
+    return (losses * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+@torch.no_grad()
+def greedy_generate(model: T5Seq2Seq, input_ids, attention_mask,
+                    max_new_tokens: int = 32, eos_token_id: int = 1,
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Autoregressive decode with no KV cache (JAX ``greedy_generate``):
+    the encoder runs once, the decoder recomputes the whole prefix at each
+    step (O(T^2) in the decoder length; fine for queries). Returns
+    [B, max_new_tokens] ids; a row's tokens after its eos are eos.
+
+    ``temperature > 0`` samples from softmax(logits / temperature) with
+    Gumbel noise from ``generator`` (JAX gates sampling on a temperature
+    and a key alike: without ``generator`` it decodes greedily)."""
+    cfg = model.config
+    B = input_ids.shape[0]
+    device = input_ids.device
+    dec = torch.full((B, max_new_tokens + 1), cfg.pad_token_id,
+                     dtype=torch.long, device=device)
+    dec[:, 0] = cfg.decoder_start_token_id
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    enc_hidden = model.encode(input_ids, attention_mask)
+    for t in range(max_new_tokens):
+        logits = model.decode(enc_hidden, attention_mask,
+                              dec[:, : t + 1])[1][:, t, :]
+        if temperature and generator is not None:
+            nxt = categorical(logits / temperature, generator)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(finished, eos_token_id, nxt)
+        dec[:, t + 1] = nxt
+        finished = finished | (nxt == eos_token_id)
+    return dec[:, 1:]
 
 
 # ---- HF checkpoints --------------------------------------------------------

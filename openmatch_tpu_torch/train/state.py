@@ -34,6 +34,7 @@ import json
 import os
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 TRAIN_STATE = "train_state.pt"
@@ -138,6 +139,33 @@ def make_optimizer(params, train_args, total_steps: int
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda count: schedule(count) / lr if lr else 0.0)
     return optimizer, scheduler
+
+
+def optax_state_tree(optimizer: OptaxAdam, named_params, to_jax) -> dict:
+    """optax's chain state for ``make_optimizer``'s chain, as the Flax tree
+    the JAX package serializes in ``train_state.msgpack``:
+    ``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2":
+    {"count"}}}`` for the default clip -> adamw (the clip's state left out
+    without ``max_grad_norm``, a trust-ratio state added for LAMB).
+    ``to_jax({name: tensor}) -> tree`` lays out the moments as the
+    parameters are laid out."""
+    group = optimizer.param_groups[0]
+    count = np.asarray(group["count"], np.int32)
+    moments = {"mu": {}, "nu": {}}
+    for name, p in named_params:
+        state = optimizer.state.get(p)
+        for key in moments:
+            moments[key][name] = state[key] if state else torch.zeros_like(p)
+    inner = [{"count": count, "mu": to_jax(moments["mu"]),
+              "nu": to_jax(moments["nu"])},
+             {}]  # scale_by_adam, add_decayed_weights
+    if group["trust_ratio"]:
+        inner.append({})  # scale_by_trust_ratio
+    inner.append({"count": count})  # the schedule
+    chain = [{str(i): s for i, s in enumerate(inner)}]
+    if group["max_grad_norm"] and group["max_grad_norm"] > 0:
+        chain.insert(0, {})  # clip_by_global_norm
+    return {str(i): s for i, s in enumerate(chain)}
 
 
 def save_train_state(step: int, optimizer, scheduler, output_dir: str):

@@ -35,7 +35,7 @@ from ..device import resolve_device
 from ..models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from ..models.jax_convert import v1_params_from_jax, v1_params_to_jax
 from .dr_trainer import _MULTI_PROCESS_TODO, world_size
-from .state import make_optimizer
+from .state import make_optimizer, optax_state_tree
 
 logger = logging.getLogger(__name__)
 
@@ -157,29 +157,6 @@ class V1Trainer:
         return {"losses": losses, "final_step": self.step,
                 "best_metric": best_metric}
 
-    def _opt_state_tree(self) -> dict:
-        """optax's chain state for ``make_optimizer``'s chain, as the Flax
-        tree the JAX package serializes."""
-        group = self.optimizer.param_groups[0]
-        count = np.asarray(group["count"], np.int32)
-        heads = self.model.num_heads
-        moments = {}
-        for key in ("mu", "nu"):
-            named = {}
-            for name, p in self.model.named_parameters():
-                state = self.optimizer.state.get(p)
-                named[name] = state[key] if state else torch.zeros_like(p)
-            moments[key] = v1_params_to_jax(named, heads)
-        inner = [{"count": count, "mu": moments["mu"], "nu": moments["nu"]},
-                 {}]  # scale_by_adam, add_decayed_weights
-        if group["trust_ratio"]:
-            inner.append({})  # scale_by_trust_ratio
-        inner.append({"count": count})  # the schedule
-        chain = [{str(i): s for i, s in enumerate(inner)}]
-        if group["max_grad_norm"] and group["max_grad_norm"] > 0:
-            chain.insert(0, {})  # clip_by_global_norm
-        return {str(i): s for i, s in enumerate(chain)}
-
     def save_checkpoint(self, output_dir: Optional[str] = None) -> str:
         out = output_dir or os.path.join(self.args.output_dir,
                                          f"checkpoint-{self.step}")
@@ -188,7 +165,9 @@ class V1Trainer:
             "step": np.asarray(self.step, np.int32),
             "params": v1_params_to_jax(self.model.state_dict(),
                                        self.model.num_heads),
-            "opt_state": self._opt_state_tree(),
+            "opt_state": optax_state_tree(
+                self.optimizer, self.model.named_parameters(),
+                lambda named: v1_params_to_jax(named, self.model.num_heads)),
         }
         write_flax_msgpack(payload, os.path.join(out, TRAIN_STATE))
         with open(os.path.join(out, "train_state.json"), "w") as f:

@@ -689,10 +689,24 @@ def test_gen_feature_matches_jax(files, tmp_path, kind):
 
 
 def test_reinfoselect_refused(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="P12"):
-        ptrain_v1.main(model_flags("knrm", files) + train_flags(
-            files, str(tmp_path / "x")) + ["-reinfoselect", "--device",
-                                            "cpu"])
+    """-reinfoselect is no longer refused: it trains (keep rates in [0, 1],
+    a best checkpoint that loads) and refuses only a run without -dev and
+    -qrels, whose metric is its reward."""
+    flags = model_flags("knrm", files) + train_flags(
+        files, str(tmp_path / "x")) + ["-reinfoselect", "--device", "cpu"]
+    with pytest.raises(ValueError, match="-dev and -qrels"):
+        ptrain_v1.main(flags)
+    out = ptrain_v1.main(flags + ["-dev", str(files / "dev.jsonl"),
+                                  "-qrels", str(files / "qrels"), "-res",
+                                  str(tmp_path / "res.trec")])
+    assert out["final_step"] == 2 and len(out["keep_rates"]) == 2
+    assert all(0.0 <= r <= 1.0 for r in out["keep_rates"])
+    args = argparse.ArgumentParser()
+    ptrain_v1.add_model_args(args)
+    parsed = args.parse_args(model_flags("knrm", files))
+    pv1.load_v1_params(ptrain_v1.build_v1_model(
+        parsed, ptrain_v1.build_v1_tokenizer(parsed)),
+        str(tmp_path / "x" / "best"))
 
 
 # ---- the copied data modules ---------------------------------------------------
