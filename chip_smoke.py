@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, training, rerank, ANCE, BEIR, v1
-reranking and research-recipe paths on one card.
+reranking and research-recipe paths on one card, and its multi-rank paths
+as two ranks on it.
 
     python3 chip_smoke.py
 
@@ -198,11 +199,39 @@ Phases, in order; any failure raises and the script exits non-zero:
             at every refresh from the first nonzero reward on, the best
             checkpoint reloads and scores. Step times and peaks are
             printed. It launches no hand-written kernel.
+13. mesh    the multi-rank paths over torch.distributed: first, in this
+            process, the one-process references (BERT-base fp32 with TF32
+            off, seeded weights, mean pooling: 3 DRTrainer steps over a
+            global batch of 8 queries x 4 passages, and the mean of its
+            two halves' losses; a single-buffer Searcher over the seeded
+            8,841,823 x 768 bf16 index at Q=64, k=1000; one-process
+            Reranker scores of 2,048 pairs at S=128), the kernels built,
+            every buffer freed; then 2 ranks (parallel/mesh.spawn_ranks:
+            gloo when they share the card, the collectives through host
+            memory; NCCL with a card each). Each rank trains in 4 modes,
+            local negatives (dp=2), global negatives (dp=2), GradCache with
+            global negatives (dp=2) and tp=2 with global negatives: the
+            losses and every parameter within 1e-5 x max|value| of one
+            process, and the parameters bit-identical across ranks. Then
+            train_dr's main on both ranks (2 steps, each rank its data
+            shard; rank 0's saved model, loaded again, encodes bit-equal to
+            the trained one); the docs partition from each rank's own rows
+            (4.42M of them, 6.32 GiB a rank) and the queries partition with
+            2 segments (the whole 12.65 GiB a rank), each search's K1/K3
+            (docs) or K4/K5 (queries) launches counted with the counts set
+            to 0 just before and read just after, its ids equal to one
+            process above the tie band; each rank's K1, K3, K4 and K5 held
+            to their plain versions over 2^20 of its rows; last,
+            Reranker(mesh=) over the 2,048 pairs within 1e-5 x max|score|
+            of one process. With four cards a dp=2 x tp=2 world trains as
+            well. Step ms, search ms (CUDA events), pairs/s, peaks and the
+            phase's wall time are printed beside the card and the backend.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
 kernel table's launches of K1 and K3 include the train, rerank, ance and
-beir phases' searches.
+beir phases' searches, and those of K1, K3, K4 and K5 the mesh phase's
+ranks' searches.
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -3808,8 +3837,596 @@ def reinfoselect_batches(flags: list, tok, root: str):
                and k not in ("retrieval_score", "label")}
 
 
+# ---------------------------------------------------------------------------
+# mesh: the port over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_WORLD = 2
+MESH_TIMEOUT = 900.0  # s: the ranks' deadline (a hung rank fails the phase)
+MESH_STEPS = 3
+MESH_REL = 1e-5  # a rank vs one process, fp32 with TF32 off: the loss, and
+# each parameter tensor's max abs difference, x max|value|
+MESH_LR = 1e-4
+MESH_Q, MESH_PSG = 8, 4  # the global batch of the training audits
+MESH_RR_Q, MESH_RR_D, MESH_RR_BATCH = 64, 32, 64  # 2,048 pairs; per rank
+MESH_CHUNK = 1 << 20  # rows of one seeded chunk of the index
+MESH_MODES = {  # mode -> (dp, tp, TrainingArguments fields)
+    "local": (2, 1, {}),
+    "x_device": (2, 1, dict(negatives_x_device=True)),
+    "gc_x_device": (2, 1, dict(negatives_x_device=True, grad_cache=True,
+                               gc_q_chunk_size=2, gc_p_chunk_size=8)),
+    "tp": (1, 2, dict(negatives_x_device=True)),
+}
+MESH_MODES_4 = {"dp2_tp2": (2, 2, dict(negatives_x_device=True))}
+
+
+def seeded_state(module: torch.nn.Module, seed: int) -> dict:
+    """Every parameter of ``module`` drawn from a seed: N(0, 0.02), norm
+    weights 1 + N(0, 0.02) (so no tensor is all zeros or all ones), word
+    embeddings N(0, 1). With those and mean pooling the passages' reps
+    differ as a trained model's do; near-equal reps (small embeddings, or
+    the [CLS] rep of random layers) make the contrastive gradient a
+    difference of near-equal sums, which a 1e-7 change of the weights moves
+    by 1e-3 (measured on the CPU), beyond any 1e-5 audit."""
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, p in module.state_dict().items():
+        x = torch.randn(p.shape, generator=g)
+        if name.endswith("word_embeddings.weight"):
+            state[name] = x
+        else:
+            state[name] = x * 0.02 + (1.0 if name.endswith("_ln.weight")
+                                      else 0.0)
+    return state
+
+
+def seeded_rows(lo: int, hi: int, n_docs: int, dev,
+                out=None) -> torch.Tensor:
+    """Rows [lo, hi) of the seeded n_docs x 768 bf16 index, made on ``dev``
+    (into ``out`` when given) chunk by chunk (chunk c from seed 1000 + c),
+    so every rank makes its own rows alike."""
+    if out is None:
+        out = torch.empty((hi - lo, D), dtype=torch.bfloat16, device=dev)
+    for c in range(lo // MESH_CHUNK, -(-hi // MESH_CHUNK)):
+        a, b = c * MESH_CHUNK, min((c + 1) * MESH_CHUNK, n_docs)
+        g = torch.Generator(device=dev).manual_seed(1000 + c)
+        rows = torch.randn((b - a, D), generator=g, device=dev)
+        x, y = max(a, lo), min(b, hi)
+        out[x - lo:y - lo] = rows[x - a:y - a].to(torch.bfloat16)
+        del rows
+    return out
+
+
+def mesh_queries(dev, n: int) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(99)
+    return torch.randn((n, D), generator=g, device=dev).to(torch.bfloat16)
+
+
+def mesh_ms(fn, dev) -> float:
+    """Median time of ``fn`` in ms: CUDA events on the card (a search's
+    collectives sync the host, so the events span them), the host's clock
+    in a CPU rehearsal."""
+    if dev.type == "cuda":
+        return cuda_time_ms(fn, 1, 5)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1000)
+    return float(np.median(times))
+
+
+def peak_gib(dev) -> float:
+    return (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else float("nan"))
+
+
+def mesh_batch(step: int, vocab: int) -> dict:
+    """Step ``step``'s global batch: MESH_Q queries of 32 tokens, MESH_PSG
+    passages of 128 each."""
+    rng = np.random.default_rng(500 + step)
+
+    def part(n, s):
+        ids = rng.integers(1000, vocab, (n, s)).astype(np.int64)
+        ids[:, 0] = 101
+        return {"input_ids": ids, "attention_mask": np.ones_like(ids)}
+
+    return {"query": part(MESH_Q, Q_LEN), "passage":
+            part(MESH_Q * MESH_PSG, P_LEN)}
+
+
+def mesh_args(dp: int, fields: dict, **extra):
+    from openmatch_tpu_torch.config import TrainingArguments
+
+    # adam_epsilon 1e-4: a gradient that is 0 but for float noise (the key
+    # bias's) would otherwise become a full +-lr step of either sign
+    return TrainingArguments(**dict(
+        dict(learning_rate=MESH_LR, weight_decay=0.01, warmup_steps=0,
+             warmup_ratio=0.0, adam_epsilon=1e-4, max_grad_norm=1.0,
+             seed=0, per_device_train_batch_size=MESH_Q // dp,
+             logging_steps=MESH_STEPS, save_steps=0), **fields, **extra))
+
+
+def mesh_rerank_inputs(vocab: int):
+    """2,048 (query, doc) pairs of id-list texts, every pair cut to 128."""
+    rng = np.random.default_rng(31)
+    queries = {f"q{i}": {"text": rng.integers(1000, vocab, 30).tolist()}
+               for i in range(MESH_RR_Q)}
+    corpus = {f"d{i}": {"text": rng.integers(1000, vocab, 120).tolist()}
+              for i in range(MESH_RR_Q * MESH_RR_D)}
+    run = {f"q{i}": {f"d{i * MESH_RR_D + j}": 1.0 for j in range(MESH_RR_D)}
+           for i in range(MESH_RR_Q)}
+    return queries, corpus, run
+
+
+def mesh_reranker(model, cfg, mesh=None):
+    from openmatch_tpu_torch.config import DataArguments, InferenceArguments
+    from openmatch_tpu_torch.retriever.reranker import Reranker
+
+    return Reranker(model, WhitespaceTokenizer(cfg.vocab_size), DataArguments(
+        q_max_len=Q_LEN, p_max_len=P_LEN - Q_LEN - 2, query_template="",
+        doc_template=""), InferenceArguments(
+            per_device_eval_batch_size=MESH_RR_BATCH), mesh=mesh)
+
+
+def mesh_references(dev, cfg, root: str) -> dict:
+    """One process on the card, before any rank starts: the training
+    references (fp32, TF32 off; "global" over the whole batch, "local" the
+    mean of the two half batches' losses), the single-buffer Searcher's
+    answer over the seeded index and one-process Reranker scores; written
+    under ``root`` for the ranks. Returns the paths and the one-process
+    times."""
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.models.rr_model import RRModel
+    from openmatch_tpu_torch.ops.mips import Searcher
+    from openmatch_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from openmatch_tpu_torch.train.dr_trainer import DRTrainer
+
+    # sizes travel in the spec: the ranks import this file afresh
+    spec = {"root": root, "cfg": dataclasses.asdict(cfg), "n": N_MSMARCO,
+            "k": K, "q": MAX_BATCH}
+    init = seeded_state(DRModel(cfg, pooling="mean"), 14)
+    spec["init"] = os.path.join(root, "init.pt")
+    torch.save(init, spec["init"])
+    for kind in ("global", "local"):
+        model = DRModel(cfg, pooling="mean")
+        model.load_state_dict(init)
+        trainer = DRTrainer(model, mesh_args(1, {}), MESH_STEPS, device=dev)
+        losses = []
+        for step in range(MESH_STEPS):
+            batch = mesh_batch(step, cfg.vocab_size)
+            if kind == "global":
+                losses.append(float(trainer.train_step(batch)))
+                continue
+            trainer.optimizer.zero_grad(set_to_none=True)
+            loss = 0.0
+            for r in range(2):  # the halves' mean: each half's loss / 2
+                half = shard_batch(batch, Mesh(dp=2, tp=1, rank=r))
+                q, p = (trainer._to_device(half[x])
+                        for x in ("query", "passage"))
+                part = trainer.loss_fn(trainer._encode_q(q),
+                                       trainer._encode_p(p)) / 2
+                part.backward()
+                loss += float(part.detach())
+            trainer.optimizer.step()
+            trainer.scheduler.step()
+            trainer.step += 1
+            losses.append(loss)
+        spec[f"ref_{kind}"] = os.path.join(root, f"ref_{kind}.pt")
+        torch.save({"losses": losses, "state": {
+            k: v.cpu() for k, v in trainer.model.state_dict().items()}},
+            spec[f"ref_{kind}"])
+        del trainer, model
+    torch.cuda.empty_cache()
+
+    index = seeded_rows(0, N_MSMARCO, N_MSMARCO, dev)
+    searcher = Searcher(index, k=K, method="kernel")
+    q = mesh_queries(dev, MAX_BATCH)
+    s, i = searcher.search(q)
+    spec["search_ms"] = mesh_ms(lambda: searcher.search(q), dev)
+    spec["ref_search"] = os.path.join(root, "ref_search.pt")
+    torch.save((s.cpu(), i.cpu()), spec["ref_search"])
+    del searcher, index, s, i
+    torch.cuda.empty_cache()
+
+    rr = RRModel(cfg, head_in_dim=cfg.hidden_size)
+    rr.load_state_dict(seeded_state(rr, 15))
+    spec["rr"] = os.path.join(root, "rr.pt")
+    torch.save(rr.state_dict(), spec["rr"])
+    reranker = mesh_reranker(rr.to(dev).eval(), cfg)
+    inputs = mesh_rerank_inputs(cfg.vocab_size)
+    reranker.rerank(*inputs)  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    scores = reranker.rerank(*inputs)
+    sync(dev)
+    spec["rerank_pairs_s"] = MESH_RR_Q * MESH_RR_D / (time.perf_counter()
+                                                       - t0)
+    spec["ref_rerank"] = os.path.join(root, "ref_rerank.pt")
+    torch.save(scores, spec["ref_rerank"])
+    del rr, reranker
+    torch.cuda.empty_cache()
+
+    hf = os.path.join(root, "hf")
+    hf_bert_base(np.random.default_rng(16), cfg, hf)
+    rng = np.random.default_rng(17)
+    with open(os.path.join(root, "train.jsonl"), "w") as f:
+        for _ in range(64):
+            rows = rng.integers(1000, cfg.vocab_size, (N_PSG, P_LEN - 2))
+            f.write(json.dumps({
+                "query": rows[0, :Q_LEN - 2].tolist(),
+                "positives": [rows[0].tolist()],
+                "negatives": rows[1:].tolist()}) + "\n")
+    spec["hf"], spec["train"] = hf, os.path.join(root, "train.jsonl")
+    return spec
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.to(got.device)
+    scale = want.abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(scale,
+                                                                 1e-30)
+
+
+def mesh_train(dev, spec, modes: dict) -> dict:
+    """Each mode's MESH_STEPS steps on this rank: losses and the full
+    parameters against the one-process reference (MESH_REL), and the
+    parameters bit-identical on every rank."""
+    import torch.distributed as dist
+
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.parallel.mesh import (broadcast, make_mesh,
+                                                   shard_batch)
+    from openmatch_tpu_torch.train.dr_trainer import DRTrainer
+
+    cfg = BertConfig(**spec["cfg"])
+    init = torch.load(spec["init"], weights_only=True)
+    out = {}
+    for mode, (dp, tp, fields) in modes.items():
+        mesh = make_mesh(dp, tp, dev)
+        ref = torch.load(spec["ref_local" if mode == "local"
+                              else "ref_global"], weights_only=True,
+                         mmap=True)
+        model = DRModel(cfg, pooling="mean")
+        model.load_state_dict(init)
+        trainer = DRTrainer(model, mesh_args(dp, fields), MESH_STEPS,
+                            device=dev, mesh=mesh)
+        losses, times = [], []
+        for step in range(MESH_STEPS):
+            batch = shard_batch(mesh_batch(step, cfg.vocab_size), mesh)
+            sync(dev)
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch)))
+            times.append((time.perf_counter() - t0) * 1000)
+        state = trainer.full_state()
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+            losses, ref["losses"]))
+        errs = {k: rel_err(v, ref["state"][k]) for k, v in state.items()}
+        worst = max(errs, key=errs.get)
+        flat = torch.cat([v.reshape(-1) for v in state.values()])
+        theirs = broadcast(flat.clone(), mesh)
+        if loss_err > MESH_REL or errs[worst] > MESH_REL:
+            raise AssertionError(
+                f"mesh {mode}: rank {dist.get_rank()} vs one process: loss "
+                f"rel err {loss_err:.3e}, {worst} rel err "
+                f"{errs[worst]:.3e} (> {MESH_REL})")
+        if not torch.equal(flat, theirs):
+            raise AssertionError(f"mesh {mode}: rank {dist.get_rank()}'s "
+                                 "parameters differ from rank 0's")
+        out[mode] = dict(step_ms=float(np.median(times[1:])), losses=losses,
+                         loss_err=loss_err, param_err=errs[worst],
+                         worst=worst)
+        del trainer, model, state, flat, theirs, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_driver(dev, spec) -> dict:
+    """train_dr's main on every rank for 2 steps; rank 0's saved model,
+    loaded in this process, encodes bit-equal to the trained model."""
+    from openmatch_tpu_torch.drivers import train_dr
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.parallel.mesh import world_size
+    from openmatch_tpu_torch.train import dr_trainer
+
+    out_dir = os.path.join(spec["root"], "driver")
+    real_step, seen = dr_trainer.DRTrainer.train_step, []
+
+    def step(self, batch):
+        seen[:] = [self]
+        return real_step(self, batch)
+
+    dr_trainer.DRTrainer.train_step = step
+    try:
+        result = train_dr.main([
+            "--model_name_or_path", spec["hf"], "--output_dir", out_dir,
+            "--train_path", spec["train"], "--pooling", "mean",
+            "--dtype", "bfloat16", "--per_device_train_batch_size", "4",
+            "--train_n_passages", str(N_PSG), "--q_max_len", str(Q_LEN),
+            "--p_max_len", str(P_LEN), "--max_steps", "2",
+            "--logging_steps", "1", "--negatives_x_device",
+            "--learning_rate", str(TRAIN_LR), "--device", dev.type],
+            tokenizer=WhitespaceTokenizer(30522))
+    finally:
+        dr_trainer.DRTrainer.train_step = real_step
+    (trainer,) = seen
+    if result["final_step"] != 2 or not np.isfinite(result["losses"]).all() \
+            or trainer.mesh.shape["data"] != world_size():
+        raise AssertionError(f"mesh: train_dr on {world_size()} ranks: "
+                             f"{result}")
+    same = None
+    if trainer.mesh.rank == 0:
+        loaded = DRModel.load(out_dir, dtype=torch.bfloat16, device=dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in mesh_batch(
+            7, spec["cfg"]["vocab_size"])["passage"].items()}
+        with torch.inference_mode():
+            a = loaded.encode_passage(batch["input_ids"],
+                                      batch["attention_mask"])
+            b = trainer.model.eval().encode_passage(batch["input_ids"],
+                                                    batch["attention_mask"])
+        same = torch.equal(a, b)
+        if not same:
+            raise AssertionError("mesh: rank 0's saved model does not "
+                                 "encode bit-equal to the trained model")
+    return dict(losses=result["losses"], saved_equal=same)
+
+
+def hold_mesh_kernels(searcher, q: torch.Tensor) -> dict:
+    """The kernels of a mesh Searcher's last search against their plain
+    versions on its own operands: the docs partition's K1 and K3 over this
+    rank's shard with the shard's valid blocks, the queries partition's K4
+    and K5 over the replica's segments for this rank's slice of ``q``; K3
+    and K5 at the selection K1 and K4 give. Called after the search's
+    launches were read, so these are not counted. Returns each kernel's
+    max abs error; on the CPU (the plain path ran) nothing is held."""
+    if q.device.type != "cuda":
+        return {}
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops.mips import (FANOUT, _local_queries,
+                                              _select_groups,
+                                              pyramid_fanouts)
+
+    mesh, k = searcher.mesh, searcher.k
+    tag = f"mesh rank {mesh.rank}, {searcher.partition} partition:"
+    if searcher.partition == "docs":
+        body = searcher.corpus
+        rows = body.shape[0]
+        valid = min(max(searcher.n_docs - mesh.data_index * rows, 0), rows)
+        nb, k = rows // 8, min(k, rows)
+        # _plain_topk_core's masking: the blocks from the partial one on
+        nb_valid = valid // 8 if valid < rows else None
+        names, gmax, gmax_ref = (("plain_gmax", "gather_rescore"),
+                                 cm.fused_plain_gmax, cm.plain_gmax_reference)
+    else:
+        body = searcher._prep.plain
+        q = _local_queries(q, mesh, searcher.axis)
+        nb, nb_valid = sum(x.shape[0] for x in body) // 8, None
+        names, gmax, gmax_ref = (("plain_gmax_segs", "gather_rescore_seg"),
+                                 cm.fused_plain_gmax_segs,
+                                 cm.plain_gmax_segs_reference)
+    emit_l1 = FANOUT if pyramid_fanouts(nb, k) else 0
+    if not emit_l1 or nb // 2 <= k:
+        raise AssertionError(f"{tag} {nb} blocks at k={k} do not take the "
+                             "K1 path")
+    size = f"Q={q.shape[0]} NB={nb} nb_valid={nb_valid}"
+    g, l1 = gmax(q, body, emit_l1=emit_l1, nb_valid=nb_valid)
+    rg, rl1 = gmax_ref(q, body, emit_l1=emit_l1, nb_valid=nb_valid)
+    err = {names[0]: max(compare(f"{tag} {names[0]} {size}", g, rg),
+                         compare(f"{tag} {names[0]} l1", l1, rl1))}
+    del rg, rl1
+    bid = _select_groups(g, k, l1=l1).to(torch.int32)
+    err[names[1]] = compare(f"{tag} {names[1]} k={k}",
+                            cm.gather_rescore(q, body, bid),
+                            cm.gather_rescore_reference(q, body, bid))
+    return err
+
+
+def mesh_search(dev, spec) -> dict:
+    """Both partitions over the seeded 8,841,823-row index on this rank:
+    "docs" from a host index of which this rank makes and reads only its
+    own rows (the whole index never on one device), "queries" with 2
+    segments; each search's launches counted, its answer equal to one
+    process above the tie band, its time; then its kernels held to their
+    plain versions on the Searcher's own operands."""
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops.mips import (TILE_ROWS, Searcher,
+                                              shard_rows_for)
+    from openmatch_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MESH_WORLD, 1, dev)
+    n_docs, k = spec["n"], spec["k"]
+    ref_s, ref_i = (t.to(dev) for t in torch.load(spec["ref_search"],
+                                                  weights_only=True))
+    q = mesh_queries(dev, spec["q"])
+    out = {"launches": {}, "kernel_err": {}}
+    for part in ("docs", "queries"):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        if part == "docs":
+            # a host index, as Retriever hands one over; the Searcher
+            # (shard_corpus) reads only this rank's rows, so only they are
+            # made: the others' pages are never written or read
+            rows = shard_rows_for(n_docs, MESH_WORLD, TILE_ROWS)
+            lo = mesh.data_index * rows
+            host = torch.empty((n_docs, D), dtype=torch.bfloat16)
+            seeded_rows(lo, min(lo + rows, n_docs), n_docs, dev,
+                        out=host[lo:lo + rows])
+            searcher = Searcher(host, k=k, mesh=mesh, method="kernel")
+            del host
+            held = searcher.corpus.numel() * 2
+        else:
+            index = seeded_rows(0, n_docs, n_docs, dev)
+            searcher = Searcher(index, k=k, mesh=mesh, method="kernel",
+                                partition="queries", n_segs=2)
+            del index
+            torch.cuda.empty_cache()
+            held = sum(s.numel() * 2 for s in searcher._prep.plain)
+        searcher.search(q)  # warm
+        reset_launches(cm)
+        s, i = searcher.search(q)
+        sync(dev)
+        n = read_launches(cm)
+        want = (("plain_gmax", "gather_rescore") if part == "docs"
+                else ("plain_gmax_segs", "gather_rescore_seg"))
+        # CPU tensors (a rehearsal) run the plain versions: no launches
+        if dev.type == "cuda" and (any(n[x] < 1 for x in want) or any(
+                v for x, v in n.items() if x not in want)):
+            raise AssertionError(f"mesh {part}: launches {n}")
+        for x in want:
+            out["launches"][x] = out["launches"].get(x, 0) + n[x]
+        same_above_band(f"{part} partition, rank {mesh.rank}", s, i, ref_s,
+                        ref_i, phase="mesh")
+        out[part] = dict(
+            dispatch=searcher.last_dispatch, held_gib=held / 2**30,
+            ms=mesh_ms(lambda: searcher.search(q), dev),
+            peak_gib=peak_gib(dev))
+        out["kernel_err"].update(hold_mesh_kernels(searcher, q))
+        del searcher, s, i
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rerank(dev, spec) -> dict:
+    """Reranker(mesh=) over the 2,048 pairs, fp32 monoBERT-base: the scores
+    within MESH_REL x max|score| of one process; pairs/s."""
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.rr_model import RRModel
+    from openmatch_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = BertConfig(**spec["cfg"])
+    rr = RRModel(cfg, head_in_dim=cfg.hidden_size)
+    rr.load_state_dict(torch.load(spec["rr"], weights_only=True))
+    reranker = mesh_reranker(rr.to(dev).eval(), cfg,
+                             make_mesh(MESH_WORLD, 1, dev))
+    inputs = mesh_rerank_inputs(cfg.vocab_size)
+    reranker.rerank(*inputs)  # warm
+    sync(dev)
+    t0 = time.perf_counter()
+    got = reranker.rerank(*inputs)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    want = torch.load(spec["ref_rerank"], weights_only=True)
+    scale = max(abs(v) for d in want.values() for v in d.values())
+    err = max(abs(got[q][d] - v) for q in want for d, v in want[q].items())
+    if got.keys() != want.keys() or err > MESH_REL * scale:
+        raise AssertionError(f"mesh rerank: max err {err} > {MESH_REL} x "
+                             f"{scale}")
+    return dict(pairs_s=MESH_RR_Q * MESH_RR_D / dt, err=err, scale=scale,
+                batch=reranker.batch_size)
+
+
+def mesh_rank(dev, spec) -> dict:
+    """One rank of the mesh phase (``spawn_ranks`` runs it in a fresh
+    process that initialised CUDA and joined the group itself)."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "device": str(dev)}
+    out["train"] = mesh_train(dev, spec, MESH_MODES)
+    out["driver"] = mesh_driver(dev, spec)
+    out["search"] = mesh_search(dev, spec)
+    out["rerank"] = mesh_rerank(dev, spec)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_rank4(dev, spec) -> dict:
+    """The dp = 2 x tp = 2 training audit on four cards."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"backend": dist.get_backend(),
+            "train": mesh_train(dev, spec, MESH_MODES_4)}
+
+
+def phase_mesh(dev, smi: str, cfg=None) -> dict:
+    """The port's multi-rank paths on MESH_WORLD ranks (one process each,
+    spawned; gloo when they share this card): DRTrainer in every mode,
+    train_dr's main, both Searcher partitions over the 8.8M index and
+    Reranker(mesh=), each against one process on the card. Returns the
+    ranks' kernel launches on the mesh search's main path."""
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.ops import _build
+    from openmatch_tpu_torch.parallel.mesh import spawn_ranks
+
+    cfg = cfg or BertConfig()
+    cuda = dev.type == "cuda"
+    if cuda:
+        _build.load_library()  # the ranks load this build; none builds one
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        spec = mesh_references(dev, cfg, root)
+        log(f"mesh: one-process references in {time.perf_counter() - t0:.2f}"
+            f" s: search {spec['search_ms']:.3f} ms (Q={MAX_BATCH}, k={K}, "
+            f"{N_MSMARCO} docs, one buffer), rerank "
+            f"{spec['rerank_pairs_s']:.1f} pairs/s ({smi})")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_rank, MESH_WORLD, args=(spec,),
+                            device=dev.type, timeout_s=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        four = None
+        if cuda and torch.cuda.device_count() >= 4:
+            four = spawn_ranks(mesh_rank4, 4, args=(spec,), device="cuda",
+                               timeout_s=MESH_TIMEOUT)
+    r0 = ranks[0]
+    shared = len({r["device"] for r in ranks}) == 1
+    label = (f"({smi}; {r0['backend']}, {MESH_WORLD} ranks on "
+             + ("one card)" if shared else f"{MESH_WORLD} cards)"))
+    log(f"mesh: backend {r0['backend']}, world {MESH_WORLD}, devices "
+        f"{[r['device'] for r in ranks]}; the ranks ran {wall:.2f} s from "
+        f"spawn to join {label}")
+    for mode, (dp, tp, _) in MESH_MODES.items():
+        t = [r["train"][mode] for r in ranks]
+        log(f"mesh: train {mode} (dp={dp}, tp={tp}, BERT-base fp32, "
+            f"{MESH_Q} x {MESH_PSG} global batch): step ms by rank "
+            f"{[round(x['step_ms'], 3) for x in t]}, losses "
+            f"{t[0]['losses']}, loss rel err {max(x['loss_err'] for x in t):.3e}"
+            f", worst parameter rel err "
+            f"{max(x['param_err'] for x in t):.3e} ({t[0]['worst']}); "
+            f"parameters bit-identical across ranks {label}")
+    if four:
+        t = four[0]["train"]["dp2_tp2"]
+        log(f"mesh: train dp2_tp2 on 4 cards ({four[0]['backend']}): step "
+            f"{t['step_ms']:.3f} ms, loss rel err {t['loss_err']:.3e}, "
+            f"parameter rel err {t['param_err']:.3e} ({smi})")
+    log(f"mesh: train_dr on {MESH_WORLD} ranks (2 steps, dp=2): losses "
+        f"{r0['driver']['losses']}; rank 0's saved model encodes bit-equal "
+        "to the trained one")
+    launches = {}
+    for part in ("docs", "queries"):
+        x = [r["search"][part] for r in ranks]
+        log(f"mesh: search {part} partition ({x[0]['dispatch']}, Q="
+            f"{MAX_BATCH}, k={K}, {N_MSMARCO} x {D} bf16): ms by rank "
+            f"{[round(v['ms'], 3) for v in x]} (CUDA events; one process "
+            f"{spec['search_ms']:.3f} ms), each rank holds "
+            f"{x[0]['held_gib']:.2f} GiB, peaks "
+            f"{[round(v['peak_gib'], 2) for v in x]} GiB {label}")
+    for r in ranks:
+        for k, n in r["search"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    log(f"mesh: kernel launches on the mesh searches, summed over ranks: "
+        f"{launches}; kernel vs plain max abs err by rank "
+        f"{[r['search']['kernel_err'] for r in ranks]}")
+    rr = [r["rerank"] for r in ranks]
+    log(f"mesh: Reranker(mesh=) {MESH_RR_Q * MESH_RR_D} pairs at S={P_LEN}, "
+        f"batch {rr[0]['batch']}: {rr[0]['pairs_s']:.1f} pairs/s (one "
+        f"process {spec['rerank_pairs_s']:.1f}), max err "
+        f"{max(x['err'] for x in rr):.3e} of max|score| {rr[0]['scale']:.3e}"
+        f" {label}")
+    log(f"mesh: rank seconds {[round(r['seconds'], 2) for r in ranks]}")
+    return launches
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank", "ance", "beir", "v1", "research")
+          "rerank", "ance", "beir", "v1", "research", "mesh")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -3872,12 +4489,16 @@ def main(argv=None) -> int:
         launches.update(n)
     if "stages" in phases and replay:
         run_phase("stages", phase_stages, dev, replay)
-    # the chains' retrieves add their K1 and K3 launches to the table's
-    for name, fn in (("train", phase_train), ("rerank", phase_rerank),
-                     ("ance", phase_ance), ("beir", phase_beir),
-                     ("v1", phase_v1), ("research", phase_research)):
+    # the chains' retrieves add their K1 and K3 launches to the table's,
+    # the mesh phase its ranks' K1, K3, K4 and K5
+    for name, fn, args in (("train", phase_train, ()),
+                           ("rerank", phase_rerank, ()),
+                           ("ance", phase_ance, ()), ("beir", phase_beir, ()),
+                           ("v1", phase_v1, ()),
+                           ("research", phase_research, ()),
+                           ("mesh", phase_mesh, (info["smi"],))):
         if name in phases:
-            for kernel, n in run_phase(name, fn, dev).items():
+            for kernel, n in run_phase(name, fn, dev, *args).items():
                 launches[kernel] = launches.get(kernel, 0) + n
     if rows:
         print(json.dumps({"kernels": [

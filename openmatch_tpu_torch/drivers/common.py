@@ -1,6 +1,6 @@
 """Shared driver plumbing: logging, tokenizers, the ``--device`` flag, the
-process count, the trainers' epoch loop and the v1 drivers' dataset specs
-(``DictOrStr``, ``build_v1_tokenizer``)."""
+ranks of a ``torchrun`` job, the trainers' epoch loop and the v1 drivers'
+dataset specs (``DictOrStr``, ``build_v1_tokenizer``)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,11 @@ import os
 import sys
 from typing import List, Optional, Tuple
 
-from ..device import resolve_device
+import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import (env_world_size, init_distributed, rank_device,
+                             world_size)
 
 
 def setup_logging():
@@ -20,19 +24,28 @@ def setup_logging():
     )
 
 
-def maybe_init_distributed() -> Tuple[int, int]:
-    """(process index, process count) of this job: (0, 1), the one process
-    the port runs on. A launcher's ``WORLD_SIZE`` above 1, or an
-    initialised ``torch.distributed`` of more than one process, raises
-    rather than run the same job on every rank (multi-process runs are
-    ROADMAP P10)."""
-    from ..train.dr_trainer import _MULTI_PROCESS_TODO, world_size
-
-    count = max(int(os.environ.get("WORLD_SIZE", "1")), world_size())
-    if count > 1:
-        raise NotImplementedError(_MULTI_PROCESS_TODO.format(
-            f"a job of {count} processes"))
+def maybe_init_distributed(device) -> Tuple[int, int]:
+    """(rank, world size) of this job (JAX ``maybe_init_distributed``).
+    Under a launcher (``torchrun`` sets ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``) with ``WORLD_SIZE`` above 1, the default process group
+    is initialised here if it is not yet, with the backend
+    ``parallel.mesh.choose_backend`` picks for this rank's ``device``;
+    without one the job is the one process (0, 1)."""
+    if env_world_size() > 1 and not dist.is_initialized():
+        init_distributed(torch.device(device))
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
     return 0, 1
+
+
+def refuse_ranks(what: str):
+    """Raise when this job runs on more than one rank: ``what`` does not
+    run over ranks yet."""
+    count = max(env_world_size(), world_size())
+    if count > 1:
+        raise NotImplementedError(
+            f"{what} over {count} ranks is not ported to PyTorch yet "
+            "(ROADMAP.md, P10)")
 
 
 def _auto_tokenizer():
@@ -93,13 +106,15 @@ def build_v1_tokenizer(args):
 
 def split_device_flag(argv: Optional[List[str]]) -> Tuple[object, List[str]]:
     """Take ``--device`` (default ``cuda``) off the command line; the rest
-    are the JAX drivers' flags. The CPU runs only when named."""
+    are the JAX drivers' flags. The CPU runs only when named. Under a
+    launcher of several ranks ``cuda`` is this rank's card
+    (``parallel.mesh.rank_device``)."""
     extra = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     extra.add_argument("--device", default="cuda",
                        help="cuda | cuda:N | cpu (default cuda)")
     args, rest = extra.parse_known_args(
         list(argv) if argv is not None else sys.argv[1:])
-    return resolve_device(args.device), rest
+    return rank_device(args.device), rest
 
 
 def epochs_iterator(dataset, collator, batch_size: int, num_epochs: int,

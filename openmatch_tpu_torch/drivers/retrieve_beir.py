@@ -20,7 +20,7 @@ from ..retriever.retriever import Retriever
 from ..templates import fill_template
 from ..utils.metrics import evaluate_run
 from ..utils.trec import save_as_trec
-from .common import (load_tokenizer, maybe_init_distributed, setup_logging,
+from .common import (load_tokenizer, refuse_ranks, setup_logging,
                      split_device_flag)
 
 BEIR_DOC_TEMPLATE = "Title: <title> Text: <text>"
@@ -34,7 +34,7 @@ def main(argv=None, tokenizer=None):
     parser = ArgumentParser((ModelArguments, DataArguments,
                              InferenceArguments))
     model_args, data_args, infer_args = parser.parse(rest)
-    maybe_init_distributed()
+    refuse_ranks("retrieve_beir")
 
     if tokenizer is None:
         tokenizer = load_tokenizer(model_args)

@@ -35,7 +35,7 @@ from ..models.hf_convert import load_bert_encoder
 from ..models.jax_convert import mlm_params_to_jax
 from ..research.mlm import MLMModel, mask_tokens, mlm_logits, mlm_loss
 from ..train.state import make_optimizer, optax_state_tree
-from .common import (load_tokenizer, maybe_init_distributed, setup_logging,
+from .common import (load_tokenizer, refuse_ranks, setup_logging,
                      split_device_flag)
 
 TRAIN_STATE = "train_state.msgpack"
@@ -78,7 +78,7 @@ def main(argv=None, tokenizer=None):
     parser = ArgumentParser((ModelArguments, DataArguments,
                              TrainingArguments))
     model_args, data_args, train_args = parser.parse(rest)
-    maybe_init_distributed()
+    refuse_ranks("train_mlm")
 
     if tokenizer is None:
         tokenizer = load_tokenizer(model_args)

@@ -8,8 +8,11 @@
 ``--model_name_or_path`` is an OpenMatch reranker checkpoint or a raw
 HuggingFace BERT-family or T5 directory (monoT5 needs ``--pos_token`` and
 ``--neg_token``). A step takes ``per_device_train_batch_size`` positive and
-as many negative pairs on one device and one process. A ``checkpoint-N``
-under ``--output_dir`` written by this port is resumed.
+as many negative pairs on each rank; under ``torchrun`` each rank reads the
+dataset shard of its data index and steps are counted in global batches of
+``per_device_train_batch_size x dp`` (``tp_size`` > 1 is refused). Rank 0
+writes the model. A ``checkpoint-N`` under ``--output_dir`` written by this
+port is resumed.
 """
 
 from __future__ import annotations
@@ -21,9 +24,10 @@ from ..config import (ArgumentParser, DataArguments, ModelArguments,
 from ..data.collators import PairCollator
 from ..data.train_dataset import RRTrainDataset
 from ..models.rr_model import RRModel
+from ..parallel.mesh import make_mesh
 from ..train.rr_trainer import RRTrainer
-from .common import (epochs_iterator, load_tokenizer, setup_logging,
-                     split_device_flag)
+from .common import (epochs_iterator, load_tokenizer, maybe_init_distributed,
+                     setup_logging, split_device_flag)
 
 
 def main(argv=None, tokenizer=None):
@@ -34,21 +38,26 @@ def main(argv=None, tokenizer=None):
     parser = ArgumentParser((ModelArguments, DataArguments,
                              TrainingArguments))
     model_args, data_args, train_args = parser.parse(rest)
+    maybe_init_distributed(device)
+    mesh = make_mesh(train_args.dp_size, train_args.tp_size, device)
 
     if tokenizer is None:
         tokenizer = load_tokenizer(model_args)
     model = RRModel.build(model_args, train_args, tokenizer=tokenizer,
                           device=device)
     dataset = RRTrainDataset(tokenizer, data_args,
-                             shuffle_seed=train_args.seed)
+                             shuffle_seed=train_args.seed,
+                             shard_index=mesh.data_index,
+                             num_shards=mesh.shape["data"])
     batch = train_args.per_device_train_batch_size
-    steps_per_epoch = max(len(dataset) // max(batch, 1), 1)
+    global_batch = batch * mesh.shape["data"]
+    steps_per_epoch = max(len(dataset) // max(global_batch, 1), 1)
     num_epochs = int(math.ceil(train_args.num_train_epochs))
     total_steps = (train_args.max_steps if train_args.max_steps > 0
                    else steps_per_epoch * num_epochs)
 
     trainer = RRTrainer(model, train_args, total_steps=total_steps,
-                        device=device)
+                        device=device, mesh=mesh)
     trainer.maybe_resume()
     collator = PairCollator(pad_token_id=tokenizer.pad_token_id or 0,
                             q_max_len=data_args.q_max_len,
@@ -57,7 +66,7 @@ def main(argv=None, tokenizer=None):
                                 train_args.seed)
     result = trainer.train(data_iter)
     trainer.save_model()
-    if hasattr(tokenizer, "save_pretrained"):
+    if mesh.rank == 0 and hasattr(tokenizer, "save_pretrained"):
         tokenizer.save_pretrained(train_args.output_dir)
     return result
 

@@ -19,6 +19,12 @@ dropout-free serving graph.
 Parameter layout follows PyTorch (``nn.Linear.weight`` is [out, in]); the
 fused QKV projection is one [3*d, d] linear whose rows are q, k, v, each
 head-major. ``models/jax_convert.py`` maps the Flax tree onto it.
+
+Tensor parallelism (``parallel/tp.py``): the attention reads its head count
+from its local ``qkv`` rows, so one module serves tp = 1 and tp > 1; a
+block's ``tp`` (None unless ``tp.shard_model`` set it) puts the
+copy-to-model-group before the column-parallel products and the
+reduce-from-model-group after the row-parallel ones.
 """
 
 from __future__ import annotations
@@ -93,21 +99,38 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+def copy_in(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` entering column-parallel products (``tp``: a ``TPContext`` or
+    None)."""
+    return x if tp is None else tp.copy_in(x)
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, tp) -> torch.Tensor:
+    """A row-parallel ``linear``: under ``tp`` the partial products are
+    summed over the model group, then the bias is added once."""
+    if tp is None:
+        return linear(x, layer)
+    y = tp.reduce_out(F.linear(x, layer.weight.to(x.dtype)))
+    return y + layer.bias.to(x.dtype) if layer.bias is not None else y
+
+
 class BertSelfAttention(nn.Module):
+    tp = None
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.probs_rate = cfg.attention_probs_dropout_prob
-        self.n_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size)
         self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size)
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, S, d = hidden.shape
+        B, S, _ = hidden.shape
         dtype = hidden.dtype
-        qkv = linear(hidden, self.qkv).view(B, S, 3, self.n_heads,
-                                            self.head_dim)
+        n_heads = self.qkv.weight.shape[0] // (3 * self.head_dim)  # local
+        qkv = linear(copy_in(hidden, self.tp), self.qkv).view(
+            B, S, 3, n_heads, self.head_dim)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B,H,S,hd]
         # 1 / sqrt(hd) rounded as the JAX version rounds it
         scale = 1.0 / torch.tensor(float(self.head_dim)).sqrt().to(dtype)
@@ -118,11 +141,13 @@ class BertSelfAttention(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(dtype)
         probs = dropout(probs, self.probs_rate, generator)
         ctx = (probs.float() @ v.float()).to(dtype)  # [B, H, S, hd]
-        ctx = ctx.transpose(1, 2).reshape(B, S, d)
-        return linear(ctx, self.out)
+        ctx = ctx.transpose(1, 2).reshape(B, S, -1)
+        return row_linear(ctx, self.out, self.tp)
 
 
 class BertLayer(nn.Module):
+    tp = None
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.attention = BertSelfAttention(cfg)
@@ -137,7 +162,9 @@ class BertLayer(nn.Module):
         attn = self.attention(hidden, attention_bias, generator)
         attn = dropout(attn, self.hidden_rate, generator)
         hidden = self.attention_ln(hidden + attn)
-        ffn = linear(self.act(linear(hidden, self.intermediate)), self.output)
+        ffn = row_linear(self.act(linear(copy_in(hidden, self.tp),
+                                         self.intermediate)),
+                         self.output, self.tp)
         ffn = dropout(ffn, self.hidden_rate, generator)
         return self.output_ln(hidden + ffn)
 

@@ -187,19 +187,27 @@ class DRModel(nn.Module):
         model.load_weights(ckpt_dir)
         return model.to(device).eval()
 
+    @staticmethod
+    def read_tree(ckpt_dir: str) -> dict:
+        """The Flax parameter tree of ``ckpt_dir/params.msgpack``."""
+        return read_flax_msgpack(os.path.join(ckpt_dir, "params.msgpack"))
+
     def load_weights(self, ckpt_dir: str):
         """Copy the weights of ``ckpt_dir/params.msgpack`` into this model's
         parameters in place (they keep their device)."""
-        tree = read_flax_msgpack(os.path.join(ckpt_dir, "params.msgpack"))
-        self.load_state_dict(params_from_jax(tree), strict=True)
+        self.load_state_dict(params_from_jax(self.read_tree(ckpt_dir)),
+                             strict=True)
 
-    def save(self, output_dir: str):
+    def save(self, output_dir: str, state_dict=None):
         """Write ``openmatch_config.json`` and fp32 ``params.msgpack`` in
-        the JAX package's layout (JAX ``DRModel.save``)."""
+        the JAX package's layout (JAX ``DRModel.save``): of ``state_dict``
+        when given (a tensor-parallel trainer's gathered parameters), else
+        of the model's own."""
         os.makedirs(output_dir, exist_ok=True)
         with open(os.path.join(output_dir, OPENMATCH_CONFIG), "w") as f:
             json.dump(self.config_dict(), f, indent=4)
-        tree = params_to_jax(self.state_dict(),
+        tree = params_to_jax(self.state_dict() if state_dict is None
+                             else state_dict,
                              num_heads(self.encoder_config))
         write_flax_msgpack(tree, os.path.join(output_dir, "params.msgpack"))
 

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.gumbel import categorical
-from .bert import ACT2FN, dropout, linear
+from .bert import ACT2FN, copy_in, dropout, linear, row_linear
 from .hf_convert import read_hf_state_dict
 
 
@@ -199,10 +199,16 @@ def mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
 
 
 class T5Attention(nn.Module):
+    """Heads are counted from the local ``q`` rows, so the module serves
+    tensor parallelism (``parallel/tp.py``) as it is; ``tp`` is set by
+    ``tp.shard_model``."""
+
+    tp = None
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
-        self.n_heads, self.d_kv = cfg.num_heads, cfg.d_kv
+        self.d_kv = cfg.d_kv
         self.rate = cfg.dropout_rate
         self.q = nn.Linear(cfg.d_model, inner, bias=False)
         self.k = nn.Linear(cfg.d_model, inner, bias=False)
@@ -211,14 +217,18 @@ class T5Attention(nn.Module):
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
-        return x.view(B, S, self.n_heads, self.d_kv).transpose(1, 2)
+        return x.view(B, S, -1, self.d_kv).transpose(1, 2)
 
     def forward(self, hidden, kv_hidden, bias, generator=None):
         """bias: [1 or B, H or 1, Sq, Skv] fp32, position bias plus mask."""
         dtype = hidden.dtype
-        q = self._heads(linear(hidden, self.q))
-        k = self._heads(linear(kv_hidden, self.k))
-        v = self._heads(linear(kv_hidden, self.v))
+        x = copy_in(hidden, self.tp)
+        kv = x if kv_hidden is hidden else copy_in(kv_hidden, self.tp)
+        q = self._heads(linear(x, self.q))
+        k = self._heads(linear(kv, self.k))
+        v = self._heads(linear(kv, self.v))
+        if self.tp is not None:
+            bias = self.tp.heads(bias, q.shape[1])
         # bf16 operands are exact in fp32: the einsum with
         # preferred_element_type=float32
         logits = q.float() @ k.float().transpose(-1, -2) + bias
@@ -226,10 +236,13 @@ class T5Attention(nn.Module):
         probs = dropout(probs, self.rate, generator)
         ctx = (probs.float() @ v.float()).to(dtype)  # [B, H, Sq, d_kv]
         B, _, S, _ = ctx.shape
-        return linear(ctx.transpose(1, 2).reshape(B, S, -1), self.o)
+        return row_linear(ctx.transpose(1, 2).reshape(B, S, -1), self.o,
+                          self.tp)
 
 
 class T5FeedForward(nn.Module):
+    tp = None
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         self.act = ACT2FN["gelu_new" if cfg.ff_act == "gelu" else cfg.ff_act]
@@ -243,13 +256,14 @@ class T5FeedForward(nn.Module):
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
     def forward(self, hidden, generator=None):
+        hidden = copy_in(hidden, self.tp)
         if self.gated:
             hidden = self.act(linear(hidden, self.wi_0)) * linear(hidden,
                                                                  self.wi_1)
         else:
             hidden = self.act(linear(hidden, self.wi))
         hidden = dropout(hidden, self.rate, generator)
-        return linear(hidden, self.wo)
+        return row_linear(hidden, self.wo, self.tp)
 
 
 class T5Block(nn.Module):
@@ -283,7 +297,17 @@ class T5Block(nn.Module):
 
 
 class _T5Stack(nn.Module):
-    """What both modules share: the embedding and the encoder stack."""
+    """What both modules share: the embedding and the encoder stack. Under
+    tensor parallelism (``tp`` set) a position table enters the attentions,
+    which take their heads' columns of it, through the
+    copy-to-model-group, so each rank's table gradient is the full one."""
+
+    tp = None
+
+    def _position_bias(self, table, q_len: int, k_len: int,
+                       bidirectional: bool) -> torch.Tensor:
+        return position_bias(copy_in(table, self.tp), q_len, k_len,
+                             bidirectional, self.config)
 
     def _embed(self, ids: torch.Tensor, generator) -> torch.Tensor:
         return dropout(self.shared(ids.long()).to(self.dtype),
@@ -293,7 +317,7 @@ class _T5Stack(nn.Module):
                 generator):
         cfg = self.config
         S = input_ids.shape[1]
-        bias = position_bias(table, S, S, True, cfg) + mask_bias(
+        bias = self._position_bias(table, S, S, True) + mask_bias(
             attention_mask)
         hidden = self._embed(input_ids, generator)
         for layer in layers:
@@ -363,7 +387,7 @@ class T5EncoderDecoderStep(_T5Stack):
         dec_ids = torch.full((B, 1), cfg.decoder_start_token_id,
                              dtype=torch.long, device=input_ids.device)
         hidden = self._embed(dec_ids, generator)
-        self_bias = position_bias(self.dec_rel_bias, 1, 1, False, cfg)
+        self_bias = self._position_bias(self.dec_rel_bias, 1, 1, False)
         cross_bias = mask_bias(attention_mask)  # no position bias
         for layer in self.dec_layers:
             hidden = layer(hidden, self_bias, enc_hidden, cross_bias,
@@ -409,8 +433,8 @@ class T5Seq2Seq(T5EncoderDecoderStep):
         pos = torch.arange(T, device=hidden.device)
         causal = torch.where(pos[None, :] <= pos[:, None], 0.0,
                              torch.finfo(torch.float32).min)[None, None]
-        self_bias = position_bias(self.dec_rel_bias, T, T, False,
-                                  cfg) + causal
+        self_bias = self._position_bias(self.dec_rel_bias, T, T,
+                                        False) + causal
         if decoder_attention_mask is not None:
             self_bias = self_bias + mask_bias(decoder_attention_mask)
         cross_bias = mask_bias(attention_mask)  # no position bias

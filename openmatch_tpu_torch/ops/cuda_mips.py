@@ -108,7 +108,8 @@ def split_tiles(total_tiles: int, n_segs: int) -> list:
     return seg_tiles
 
 
-def prepare_plain_corpus(corpus: torch.Tensor, n_segs: int = 1) -> BlockCorpus:
+def prepare_plain_corpus(corpus: torch.Tensor, n_segs: int = 1,
+                         device=None) -> BlockCorpus:
     """Split [N, D] into the 8-doc-block body and the ragged tail.
 
     With ``n_segs`` = 1 both are views of ``corpus``: nothing is copied or
@@ -119,7 +120,11 @@ def prepare_plain_corpus(corpus: torch.Tensor, n_segs: int = 1) -> BlockCorpus:
     ``MAX_SEGS`` (the kernels' segment table) is cut to ``MAX_SEGS`` with
     a warning: the search is exact at any cut, so the answers do not
     change. Every segment and the tail are copies, each its own
-    allocation, so the caller's ``corpus`` can be freed."""
+    allocation, so the caller's ``corpus`` can be freed.
+
+    ``device`` (default: the corpus's) holds the layout; from another
+    device (a host corpus) each part is copied over on its own, so no
+    second whole copy is made on either side."""
     if corpus.dim() != 2:
         raise ValueError(f"corpus must be [N, D], got {tuple(corpus.shape)}")
     if n_segs < 1:
@@ -132,15 +137,22 @@ def prepare_plain_corpus(corpus: torch.Tensor, n_segs: int = 1) -> BlockCorpus:
                        "most the kernels' segment table takes", n_segs,
                        MAX_SEGS)
         n_segs = MAX_SEGS
+    device = corpus.device if device is None else torch.device(device)
+
+    def copy(t):
+        return t.clone() if t.device == device else t.to(device)
+
     body, tail = corpus[:NB * GROUP], corpus[NB * GROUP:]
     if n_segs == 1:
+        if corpus.device != device:
+            body, tail = body.to(device), tail.to(device)
         return BlockCorpus(tail=tail, n_docs=N, plain=body)
     segs, lo = [], 0
     for nt in split_tiles(tiles, n_segs):
         hi = min(lo + nt * SEG_TILE_BLOCKS, NB)
-        segs.append(body[lo * GROUP:hi * GROUP].clone())
+        segs.append(copy(body[lo * GROUP:hi * GROUP]))
         lo = hi
-    return BlockCorpus(tail=tail.clone(), n_docs=N, plain=tuple(segs))
+    return BlockCorpus(tail=copy(tail), n_docs=N, plain=tuple(segs))
 
 
 def _segments(body: Body) -> Tuple[torch.Tensor, ...]:
@@ -601,6 +613,71 @@ def plain_topk_prepared(queries: torch.Tensor, prep: BlockCorpus,
         return exact_search(queries, corpus, k=k)
     return _plain_topk_core(queries, prep.plain, prep.tail, prep.n_docs, k,
                             pipeline, c_split)
+
+
+# ---------------------------------------------------------------------------
+# A shard's search: a tile-aligned corpus with a per-shard valid-row count
+# ---------------------------------------------------------------------------
+
+
+def pad_plain(corpus: torch.Tensor, tile_g: int = SEG_TILE_BLOCKS,
+              device=None) -> torch.Tensor:
+    """[N, D] rows zero-padded up to a multiple of ``tile_g`` blocks (the
+    JAX package's ``pad_plain``): the operand of ``plain_topk_valid``, on
+    ``device`` (default: the corpus's). The ragged tail stays in the
+    array, so it is one buffer that a mesh Searcher replicates as it is.
+    The rows are copied once, straight into the padded buffer; aligned
+    rows already on ``device`` are returned as they are."""
+    device = corpus.device if device is None else torch.device(device)
+    N = corpus.shape[0]
+    rows = N + (-N) % (tile_g * GROUP)
+    if rows == N and corpus.device == device:
+        return corpus
+    out = torch.zeros((rows, corpus.shape[1]), dtype=corpus.dtype,
+                      device=device)
+    out[:N].copy_(corpus)
+    return out
+
+
+def plain_topk_valid_reference(queries: torch.Tensor, plain: torch.Tensor,
+                               valid: int, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``plain_topk_valid``: an exact top-k over
+    the first ``valid`` rows, -inf past them."""
+    return exact_search(queries, plain, k=min(k, plain.shape[0]),
+                        valid_rows=valid)
+
+
+def plain_topk_valid(queries: torch.Tensor, plain: torch.Tensor, valid: int,
+                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a tile-aligned corpus whose first ``valid`` rows are
+    real and whose others are zero padding (JAX ``plain_topk_valid``): the
+    body of a mesh Searcher's rank, whose valid count differs per shard.
+
+    ``_plain_topk_core`` over the first ``valid`` rows: the gmax kernel
+    (K1) masks every block from the partial one on out of selection, the
+    rescore kernel (K3) scores the selected blocks, and the partial block's
+    real rows are scored densely as the ragged tail. So a zero pad row can
+    never displace a real doc with a negative score. Slots that no valid
+    row fills (a shard with fewer than k valid rows, or none) score -inf,
+    where JAX leaves finfo.min: a selected partial block's masked ids
+    repeat the tail's, and must read as empty slots. A corpus with
+    ``NB // 2 <= k`` blocks is scanned exactly instead.
+
+    queries [Q, D]; plain [Np, D], Np a multiple of 256 blocks. Returns
+    (scores [Q, min(k, Np)] fp32 descending, shard-local ids int64)."""
+    Np = plain.shape[0]
+    if Np % (SEG_TILE_BLOCKS * GROUP):
+        raise ValueError(f"corpus rows {Np} are not a multiple of "
+                         f"{SEG_TILE_BLOCKS * GROUP} (pad_plain)")
+    if not 0 <= valid <= Np:
+        raise ValueError(f"valid={valid} outside [0, {Np}]")
+    k = min(k, Np)
+    if Np // GROUP // 2 <= k:
+        return plain_topk_valid_reference(queries, plain, valid, k)
+    s, i = _plain_topk_core(queries, plain,
+                            plain[valid // GROUP * GROUP:valid], valid, k)
+    return s.masked_fill(s == NEG, float("-inf")), i
 
 
 # ---------------------------------------------------------------------------

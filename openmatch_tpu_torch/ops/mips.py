@@ -1,6 +1,7 @@
 """Exact maximum-inner-product search (MIPS) in PyTorch.
 
-Port of ``openmatch_tpu/ops/mips.py`` for one device:
+Port of ``openmatch_tpu/ops/mips.py``, on one device or over the ranks of a
+``parallel.mesh.Mesh``:
 
 - ``exact_search``: chunked running top-k over [Q, D] x [N, D]; the plain
   path, and the fallback of the kernel path for tiny corpora. ``method``
@@ -11,7 +12,11 @@ Port of ``openmatch_tpu/ops/mips.py`` for one device:
 - ``_hier_topk``, ``_hier2_topk``, ``_pyramid_topk``: exact two-level,
   three-level and max-pyramid top-k over a score matrix (``_hier_topk`` is
   also the fallback of ``hier2_search`` for small corpora).
-- ``Searcher``: a fixed index answering repeated query batches.
+- ``Searcher``: a fixed index answering repeated query batches; with a
+  mesh, partition "docs" (``sharded_search``: each rank holds and searches
+  its row shard, the candidates are all-gathered and merged) or "queries"
+  (``query_sharded_search``: each rank holds the whole index and searches
+  its slice of the queries, the answers are all-gathered).
 
 The pyramid uses a uniform fanout (8 unless the caller passes another,
 as the hier2 paths may) and adds a level while ``width // fanout > k``; a
@@ -25,7 +30,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from ..parallel.mesh import DATA_AXIS, Mesh, all_gather
 
 NEG = torch.finfo(torch.float32).min  # pallas_mips masks with this, not -inf
 FANOUT = 8
@@ -243,56 +251,218 @@ def _select_groups(gmax: torch.Tensor, k: int,
     return ids
 
 
+# ---------------------------------------------------------------------------
+# Over a mesh: one process per rank, each answering for all of them
+# ---------------------------------------------------------------------------
+
+TILE_ROWS = 256 * 8  # JAX's tile_g blocks of 8 docs: the kernel shards' unit
+
+
+def shard_rows_for(n_docs: int, n_shards: int, unit: int = 1) -> int:
+    """Rows of each of ``n_shards`` equal shards of ``n_docs`` rows, a
+    multiple of ``unit``."""
+    per_shard = -(-n_docs // n_shards)
+    return -(-per_shard // unit) * unit
+
+
+def _as_tensor(corpus) -> torch.Tensor:
+    return torch.from_numpy(corpus) if isinstance(corpus, np.ndarray) \
+        else corpus
+
+
+def shard_corpus(corpus, mesh: Mesh, axis: str = DATA_AXIS,
+                 unit: int = 1) -> torch.Tensor:
+    """This rank's row shard of a corpus (numpy, a CPU tensor, or a tensor
+    on a device): rows ``index * shard_rows`` on, moved to ``mesh.device``
+    and zero-padded to ``shard_rows_for(N, ranks, unit)``. Only the shard
+    is read and copied to the device, never the whole corpus. ``unit``:
+    shard rows are its multiple (``TILE_ROWS`` for the kernel path)."""
+    corpus = _as_tensor(corpus)
+    N = corpus.shape[0]
+    rows = shard_rows_for(N, mesh.size(axis), unit)
+    lo = min(mesh.index(axis) * rows, N)
+    hi = min(lo + rows, N)
+    shard = torch.zeros((rows, corpus.shape[1]), dtype=corpus.dtype,
+                        device=mesh.device)
+    shard[:hi - lo].copy_(corpus[lo:hi])
+    return shard
+
+
+def _merge(s: torch.Tensor, i: torch.Tensor, mesh: Mesh, axis: str,
+           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' [Q, k_local] candidates all-gathered and merged into the
+    top k of every query, on every rank."""
+    n, (Q, k_local) = mesh.size(axis), s.shape
+    all_s = all_gather(s.contiguous(), mesh, axis).view(n, Q, k_local)
+    all_i = all_gather(i.contiguous(), mesh, axis).view(n, Q, k_local)
+    all_s = all_s.transpose(0, 1).reshape(Q, n * k_local)
+    all_i = all_i.transpose(0, 1).reshape(Q, n * k_local)
+    best, pos = torch.topk(all_s, k, dim=1)
+    return best, torch.gather(all_i, 1, pos)
+
+
+def sharded_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                   mesh: Mesh, axis: str = DATA_AXIS, chunk_size: int = 0,
+                   method: str = "plain", n_valid: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k with the corpus row-sharded over ``mesh``'s ``axis``
+    (JAX ``sharded_search``): ``corpus`` is this rank's shard (equal rows
+    on every rank, zero-padded at the end) and ``queries`` every rank's
+    same batch. Each rank searches its shard at ``k_local = min(k,
+    shard_rows)`` over its valid rows ``clip(n_valid - index * rows, 0,
+    rows)`` and adds its id offset; the [ranks, Q, k_local] candidates are
+    all-gathered and the top ``min(k, ranks * k_local)`` kept, on every
+    rank. ``method`` "kernel" runs ``cuda_mips.plain_topk_valid`` (the
+    shard must be a multiple of ``TILE_ROWS``), "plain" ``exact_search``.
+    Slots no valid row fills score -inf."""
+    rows = corpus.shape[0]
+    n = mesh.size(axis)
+    total = n * rows if n_valid is None else n_valid
+    valid = min(max(total - mesh.index(axis) * rows, 0), rows)
+    k_local = min(k, rows)
+    k_final = min(k, n * k_local)
+    if method == "kernel":
+        from .cuda_mips import plain_topk_valid
+
+        s, i = plain_topk_valid(queries, corpus, valid, k_local)
+    else:
+        s, i = exact_search(queries, corpus, k_local, chunk_size,
+                            valid_rows=valid)
+    return _merge(s, i + mesh.index(axis) * rows, mesh, axis, k_final)
+
+
+def _local_queries(queries: torch.Tensor, mesh: Mesh,
+                   axis: str) -> torch.Tensor:
+    n = mesh.size(axis)
+    if queries.shape[0] % n:
+        raise ValueError(f"query rows {queries.shape[0]} % shards {n} != 0")
+    rows = queries.shape[0] // n
+    lo = mesh.index(axis) * rows
+    return queries[lo:lo + rows]
+
+
+def query_sharded_search(queries: torch.Tensor, corpus: torch.Tensor,
+                         k: int, mesh: Mesh, axis: str = DATA_AXIS,
+                         chunk_size: int = 0, method: str = "plain",
+                         n_valid: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k with the corpus replicated and the queries split over
+    ``axis`` (JAX ``query_sharded_search``): each rank searches the whole
+    corpus for its contiguous slice of the queries (their count a multiple
+    of the axis: pad upstream), and the answers are all-gathered in query
+    order. ``method`` "kernel" runs ``cuda_mips.plain_topk_valid`` over a
+    ``pad_plain`` corpus, "plain" ``exact_search``."""
+    q = _local_queries(queries, mesh, axis)
+    valid = corpus.shape[0] if n_valid is None else n_valid
+    if method == "kernel":
+        from .cuda_mips import plain_topk_valid
+
+        s, i = plain_topk_valid(q, corpus, valid, k)
+    else:
+        s, i = exact_search(q, corpus, min(k, corpus.shape[0]), chunk_size,
+                            valid_rows=valid)
+    return (all_gather(s.contiguous(), mesh, axis),
+            all_gather(i.contiguous(), mesh, axis))
+
+
+def _replicated_prep(corpus, mesh: Mesh, n_segs: int):
+    """The whole corpus as a ``prepare_plain_corpus`` layout on this rank's
+    device, its body in ``n_segs`` segments cut where the one-device
+    layout cuts them, each its own allocation: the queries partition's
+    segmented index (K4 and K5 run on each rank). A host corpus is copied
+    over segment by segment."""
+    from .cuda_mips import prepare_plain_corpus
+
+    return prepare_plain_corpus(_as_tensor(corpus), n_segs=n_segs,
+                                device=mesh.device)
+
+
 class Searcher:
-    """A fixed single-device index answering repeated query batches.
+    """A fixed index answering repeated query batches.
 
     ``method``: "kernel" holds the prepared doc-major layout and searches
     it with the gmax kernel, pyramid selection and the gather-rescore
     kernel (``ops/cuda_mips.py``); "plain" runs ``exact_search``; "auto"
-    takes "kernel" when the corpus is a CUDA tensor and "plain" when the
-    caller put it on the CPU. The kernel wrappers run their plain PyTorch
-    versions on CPU tensors, so "kernel" on the CPU runs the same pipeline
-    without CUDA.
+    takes "kernel" when the index lies on a CUDA device and "plain" on the
+    CPU. The kernel wrappers run their plain PyTorch versions on CPU
+    tensors, so "kernel" on the CPU runs the same pipeline without CUDA.
 
     ``n_segs`` > 1 holds the prepared index as that many segment
     allocations (``prepare_plain_corpus``): the same search, but no single
     allocation holds more than about 1/n_segs of the index. The count is
     clamped to one segment per 256-block tile, as in the JAX package, and
     then to the kernels' 64 with a logged warning; the answers are the
-    same at any count. It needs the kernel path, as the JAX package's
-    needs its Pallas path."""
+    same at any count. It needs the kernel path, and over a mesh the
+    queries partition, as the JAX package's needs its Pallas path.
 
-    def __init__(self, corpus: torch.Tensor, k: int = 100,
-                 chunk_size: int = 0, method: str = "auto", n_segs: int = 1):
+    ``mesh`` (one process per rank, every rank constructing and calling
+    the Searcher alike): ``partition="docs"`` gives each rank its row
+    shard of ``axis`` (``shard_corpus``: from a host corpus only the shard
+    is copied, so the whole corpus is never on one device) and merges the
+    ranks' candidates (``sharded_search``); ``partition="queries"`` holds the whole index on
+    every rank and splits each query batch, padded to a multiple of the
+    axis (``query_sharded_search``). Every rank returns the whole answer.
+    ``last_dispatch`` names the path a search took: "kernel-mesh-docs",
+    "kernel-mesh-queries", "kernel-mesh-queries-seg" or
+    "plain-mesh-{partition}:plain"."""
+
+    def __init__(self, corpus, k: int = 100, chunk_size: int = 0,
+                 method: str = "auto", n_segs: int = 1,
+                 mesh: Optional[Mesh] = None, axis: str = DATA_AXIS,
+                 partition: str = "docs"):
+        if partition not in ("docs", "queries"):
+            raise ValueError(f"unknown partition {partition!r}")
+        corpus = _as_tensor(corpus)
+        device = corpus.device if mesh is None else mesh.device
         if method == "auto":
-            method = "kernel" if corpus.is_cuda else "plain"
+            method = "kernel" if device.type == "cuda" else "plain"
         if method not in ("kernel", "plain"):
             raise ValueError(f"unknown search method {method!r} "
                              "(auto | kernel | plain)")
-        if n_segs > 1 and method != "kernel":
-            # refuse rather than silently ignore, as the JAX package does
-            raise ValueError(f"n_segs={n_segs} requires method='kernel' "
-                             f"(got method={method!r})")
+        if n_segs > 1 and not (method == "kernel" and (
+                mesh is None or partition == "queries")):
+            # refuse rather than silently ignore, as the JAX package does:
+            # the docs partition already splits the corpus per rank
+            raise ValueError(
+                f"n_segs={n_segs} requires method='kernel' and either no "
+                f"mesh or partition='queries' (got method={method!r}, "
+                f"mesh={'set' if mesh is not None else 'None'}, "
+                f"partition={partition!r})")
         self.k = k
         self.chunk_size = chunk_size
         self.method = method
-        self.dtype = corpus.dtype
-        self.device = corpus.device
-        self.n_docs = corpus.shape[0]
+        self.mesh, self.axis, self.partition = mesh, axis, partition
+        self.device = device
         self.n_segs = n_segs
         self.last_dispatch = None
         self._prep = None
         self.corpus = None
-        if method == "kernel":
-            from .cuda_mips import prepare_plain_corpus
+        self.dtype, self.n_docs = corpus.dtype, corpus.shape[0]
+        if mesh is None:
+            if method == "kernel":
+                from .cuda_mips import prepare_plain_corpus
 
-            self._prep = prepare_plain_corpus(corpus, n_segs=n_segs)
+                self._prep = prepare_plain_corpus(corpus, n_segs=n_segs)
+            else:
+                self.corpus = corpus
+        elif partition == "docs":
+            self.corpus = shard_corpus(
+                corpus, mesh, axis,
+                TILE_ROWS if method == "kernel" else 1)
+        elif method == "kernel" and n_segs > 1:
+            self._prep = _replicated_prep(corpus, mesh, n_segs)
+        elif method == "kernel":
+            from .cuda_mips import pad_plain
+
+            self.corpus = pad_plain(corpus, device=device)
         else:
-            self.corpus = corpus
+            self.corpus = corpus.to(device)
 
     def search(self, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         # pooled reps are often strided views; the kernels take dense rows
         queries = queries.to(device=self.device, dtype=self.dtype).contiguous()
+        if self.mesh is not None:
+            return self._mesh_search(queries)
         if self.method == "kernel":
             from .cuda_mips import plain_topk_prepared
 
@@ -301,3 +471,33 @@ class Searcher:
             return plain_topk_prepared(queries, self._prep, self.k)
         self.last_dispatch = f"plain:{self.device.type}"
         return exact_search(queries, self.corpus, self.k, self.chunk_size)
+
+    def _mesh_search(self, queries: torch.Tensor):
+        mesh, axis = self.mesh, self.axis
+        kernel = self.method == "kernel"
+        if self.partition == "docs":
+            self.last_dispatch = ("kernel-mesh-docs" if kernel
+                                  else "plain-mesh-docs:plain")
+            return sharded_search(queries, self.corpus, self.k, mesh, axis,
+                                  self.chunk_size, self.method, self.n_docs)
+        Q = queries.shape[0]
+        q_pad = (-Q) % mesh.size(axis)
+        if q_pad:
+            queries = torch.cat([queries, queries.new_zeros(
+                (q_pad, queries.shape[1]))])
+        if self._prep is not None:
+            from .cuda_mips import plain_topk_prepared
+
+            self.last_dispatch = "kernel-mesh-queries-seg"
+            q = _local_queries(queries, mesh, axis)
+            s, i = plain_topk_prepared(q, self._prep, self.k)
+            s, i = (all_gather(s.contiguous(), mesh, axis),
+                    all_gather(i.contiguous(), mesh, axis))
+        else:
+            self.last_dispatch = ("kernel-mesh-queries" if kernel
+                                  else "plain-mesh-queries:plain")
+            s, i = query_sharded_search(queries, self.corpus,
+                                        min(self.k, self.n_docs), mesh,
+                                        axis, self.chunk_size, self.method,
+                                        self.n_docs)
+        return s[:Q], i[:Q]

@@ -1,2 +1,3 @@
-"""GradCache (``grad_cache``). Import the module itself; this package
+"""Ranks and their collectives (``mesh``), tensor parallelism (``tp``) and
+GradCache (``grad_cache``). Import the modules themselves; this package
 imports nothing."""

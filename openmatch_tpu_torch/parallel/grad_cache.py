@@ -15,6 +15,13 @@ follows:
 
 The accumulated gradient equals the plain ``loss(encode(batch))`` gradient
 (to float rounding) while the activation memory is one chunk's.
+
+Over ranks the loss may all-gather the reps first (``DRTrainer`` with
+``negatives_x_device`` passes ``rep_loss(all_gather_rows(q),
+all_gather_rows(p))``, as JAX's ``gc_loss`` gathers them): pass 2's rep
+gradients are then this rank's rows of the global loss's, and the replayed
+parameter gradients are this rank's share, summed over the data group
+after the passes.
 """
 
 from __future__ import annotations

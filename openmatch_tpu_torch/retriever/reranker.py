@@ -15,8 +15,11 @@ JAX package chose the 128 alignment for the TPU. The port keeps the same
 buckets; their cost on the card is measured by ``chip_smoke.py``'s
 ``rerank`` phase (PERF.md).
 
-The reranker runs on the model's device, on one card: a ``mesh`` (the JAX
-package's data-parallel scoring) is refused.
+The reranker runs on the model's device. With a ``mesh`` (one process
+per rank, each running the same rerank: the JAX package's data-parallel
+scoring) a batch holds ``per_device_eval_batch_size x dp`` pairs, each rank
+scores its contiguous rows, and the scores are all-gathered, so every rank
+returns what one process would.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from ..data.collators import pad_ids
 from ..data.loader import prefetch
 from ..data.tokenization import encode_pair_with_segments
+from ..parallel.mesh import DATA_AXIS, all_gather, shard_batch
 from ..templates import fill_template, find_all_markers
 
 RankResult = Dict[str, Dict[str, float]]
@@ -89,16 +93,16 @@ def score_batch(model, batch: dict, device) -> torch.Tensor:
 class Reranker:
     def __init__(self, model, tokenizer, data_args, inference_args,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel reranking over a mesh is not ported to "
-                "PyTorch yet: the port reranks on one card (ROADMAP.md, P10)")
+        """``mesh``: this rank's ``parallel.mesh.Mesh`` for data-parallel
+        scoring over its "data" axis."""
         self.model = model.eval()
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.tokenizer = tokenizer
         self.data_args = data_args
         self.args = inference_args
-        self.batch_size = inference_args.per_device_eval_batch_size
+        self.batch_size = inference_args.per_device_eval_batch_size * (
+            mesh.shape[DATA_AXIS] if mesh is not None else 1)
         self.max_len = data_args.q_max_len + data_args.p_max_len + 2
         self.device_len = device_pair_len(self.max_len,
                                           _model_max_positions(model))
@@ -166,7 +170,12 @@ class Reranker:
         result: RankResult = {}
         stream = self._batches(self._pair_stream(queries, corpus, run))
         for keys, batch, n_valid in prefetch(stream, depth=4):
-            scores = score_batch(self.model, batch, self.device)
+            if self.mesh is None:
+                scores = score_batch(self.model, batch, self.device)
+            else:
+                scores = all_gather(score_batch(
+                    self.model, shard_batch(batch, self.mesh), self.device),
+                    self.mesh, DATA_AXIS)
             scores = scores[:n_valid].cpu().numpy()
             for (qid, did), s in zip(keys[:n_valid], scores):
                 result.setdefault(qid, {})[did] = float(s)

@@ -1,10 +1,14 @@
 """Dense retrieval runtime: encode corpus and queries, exact top-k, results.
 
 Port of ``Retriever`` and ``SuccessiveRetriever`` from
-``openmatch_tpu/retriever/retriever.py`` for one device. ``Retriever``'s
-index is the corpus embedding matrix held on the device by a ``Searcher``
+``openmatch_tpu/retriever/retriever.py``. ``Retriever``'s index is the
+corpus embedding matrix held on the device by a ``Searcher``
 (``ops/mips.py``): the kernel path on a CUDA device, the plain path on the
-CPU. ``SuccessiveRetriever`` holds one embedding shard at a time.
+CPU. With a ``mesh`` (one process per rank, each running the same
+retrieval) the Searcher is the mesh's, partitioned by ``search_partition``:
+"docs" gives each rank its row shard (only the shard is copied to its
+device), "queries" the whole index. ``SuccessiveRetriever`` holds one
+embedding shard at a time.
 """
 
 from __future__ import annotations
@@ -44,11 +48,16 @@ def searcher_method(inference_args) -> str:
     return SEARCH_METHODS[name]
 
 
-def build_searcher(index: torch.Tensor, inference_args, k: int) -> Searcher:
+def build_searcher(index: torch.Tensor, inference_args, k: int,
+                   mesh=None) -> Searcher:
     """The ``Searcher`` the inference arguments ask for over ``index``:
-    ``search_method`` and ``search_n_segs``."""
+    ``search_method`` and ``search_n_segs``, and with a ``mesh``
+    ``search_partition``."""
     return Searcher(index, k=k, method=searcher_method(inference_args),
-                    n_segs=getattr(inference_args, "search_n_segs", 1))
+                    n_segs=getattr(inference_args, "search_n_segs", 1),
+                    mesh=mesh,
+                    partition=getattr(inference_args, "search_partition",
+                                      "docs"))
 
 
 def _to_result(scores: np.ndarray, indices: np.ndarray, qids: List[str],
@@ -65,13 +74,15 @@ def _to_result(scores: np.ndarray, indices: np.ndarray, qids: List[str],
 
 class Retriever:
     def __init__(self, model, data_args, inference_args, pad_token_id: int,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, mesh=None):
         """``device`` holds the index and runs the encoder; by default the
-        device of the model's parameters."""
+        device of the model's parameters. ``mesh``: this rank's
+        ``parallel.mesh.Mesh``, for a Searcher over the ranks."""
         self.model = model
         self.data_args = data_args
         self.args = inference_args
         self.pad_token_id = pad_token_id
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
         self.doc_embeddings: Optional[np.ndarray] = None
@@ -128,13 +139,14 @@ class Retriever:
 
     # ---- search ---------------------------------------------------------
 
-    def index_tensor(self, search_dtype=torch.bfloat16) -> torch.Tensor:
-        """The corpus embeddings on the device in ``search_dtype``. The cast
-        runs on the host before the upload: uploading the stored fp32 array
-        first would put a second, twice as large copy of the index on the
-        device beside the one kept."""
+    def index_tensor(self, search_dtype=torch.bfloat16,
+                     device=None) -> torch.Tensor:
+        """The corpus embeddings on ``device`` (by default the retriever's)
+        in ``search_dtype``. The cast runs on the host before the upload:
+        uploading the stored fp32 array first would put a second, twice as
+        large copy of the index on the device beside the one kept."""
         emb = torch.from_numpy(np.ascontiguousarray(self.doc_embeddings))
-        return emb.to(search_dtype).to(self.device)
+        return emb.to(search_dtype).to(device or self.device)
 
     def search(self, q_embeddings: np.ndarray, qids: List[str],
                topk: int = 100, search_dtype=torch.bfloat16) -> RankResult:
@@ -147,8 +159,12 @@ class Retriever:
         if self._searcher_key != key:
             self._searcher = None
             self._searcher_key = None
-            self._searcher = build_searcher(self.index_tensor(search_dtype),
-                                            self.args, topk)
+            # over a mesh the Searcher copies each rank's part itself
+            index = self.index_tensor(
+                search_dtype, "cpu" if self.mesh is not None else None)
+            self._searcher = build_searcher(index, self.args, topk,
+                                            self.mesh)
+            del index
             self._searcher_key = key
         q = torch.from_numpy(np.ascontiguousarray(q_embeddings))
         with torch.inference_mode():
@@ -166,8 +182,8 @@ class Retriever:
 
     @classmethod
     def build_all(cls, model, corpus_dataset, data_args, inference_args,
-                  pad_token_id, device=None) -> "Retriever":
-        r = cls(model, data_args, inference_args, pad_token_id, device)
+                  pad_token_id, device=None, mesh=None) -> "Retriever":
+        r = cls(model, data_args, inference_args, pad_token_id, device, mesh)
         r.encode_corpus(corpus_dataset,
                         save_dir=inference_args.encoded_save_path)
         return r
@@ -175,8 +191,8 @@ class Retriever:
     @classmethod
     def build_embeddings(cls, model, corpus_dataset, data_args,
                          inference_args, pad_token_id, shard_index: int = 0,
-                         device=None) -> "Retriever":
-        r = cls(model, data_args, inference_args, pad_token_id, device)
+                         device=None, mesh=None) -> "Retriever":
+        r = cls(model, data_args, inference_args, pad_token_id, device, mesh)
         r.encode_corpus(corpus_dataset,
                         save_dir=inference_args.encoded_save_path,
                         shard_index=shard_index)
@@ -184,8 +200,8 @@ class Retriever:
 
     @classmethod
     def from_embeddings(cls, model, data_args, inference_args, pad_token_id,
-                        device=None) -> "Retriever":
-        r = cls(model, data_args, inference_args, pad_token_id, device)
+                        device=None, mesh=None) -> "Retriever":
+        r = cls(model, data_args, inference_args, pad_token_id, device, mesh)
         r.load_corpus_shards(inference_args.encoded_save_path)
         return r
 
@@ -198,9 +214,10 @@ class SuccessiveRetriever(Retriever):
 
     @classmethod
     def from_embeddings(cls, model, data_args, inference_args, pad_token_id,
-                        device=None) -> "SuccessiveRetriever":
+                        device=None, mesh=None) -> "SuccessiveRetriever":
         # no shard is loaded up front: that is the point
-        return cls(model, data_args, inference_args, pad_token_id, device)
+        return cls(model, data_args, inference_args, pad_token_id, device,
+                   mesh)
 
     def retrieve(self, query_dataset: Iterable[dict],
                  topk: int = 100) -> RankResult:

@@ -1,19 +1,35 @@
-"""Dense-retrieval trainer on one device (port of
-``openmatch_tpu/train/dr_trainer.py``).
+"""Dense-retrieval trainer (port of ``openmatch_tpu/train/dr_trainer.py``).
 
-On one process the JAX package's five step builders collapse to two: the
-plain step (``loss(encode(batch))``, one backward) and the GradCache step
-(``parallel/grad_cache.py``); each takes the ``dual_learning`` loss when
-asked. With one process, ``negatives_x_device`` computes the same global
-loss as local negatives, so the flag is accepted; more than one process,
-``dp_size > 1`` or ``tp_size > 1`` raise (multi-process training is
-ROADMAP P10).
+One process per rank over ``torch.distributed`` (``parallel/mesh.py``):
+``dp x tp`` ranks, each holding its rows of the global batch (``train_step``
+takes this rank's rows; ``shard_batch`` cuts them from a global batch).
+The JAX package's step builders, each also with ``dual_learning``:
+
+- local negatives: each rank's contrastive loss over its own rows; loss
+  and gradients averaged over the data group (JAX's ``pmean``);
+- ``negatives_x_device``: q and p reps all-gathered over the data group
+  (``all_gather_rows``), the loss over the global score matrix on every
+  rank, gradients summed over the data group (``psum``): the same update
+  as one process over the global batch. Rank d's queries and passages
+  land at matching offsets, so query g's positive stays at g * stride;
+- GradCache (``parallel/grad_cache.py``), local (``pmean``) or with the
+  reps gathered (``psum``);
+- tensor parallelism (``tp_size > 1``, ``parallel/tp.py``): each rank holds
+  its slices of the attention and FFN weights; it needs
+  ``negatives_x_device``, as in JAX.
+
+The gradients are reduced by one flat all-reduce after backward (not DDP,
+so GradCache's two passes stay as they are), then clipped, so every rank of
+a data group steps the same optimizer on the same gradients and the
+parameters stay replicated. Parameters start as rank 0's.
 
 Parameters are fp32 and the encoder computes in ``model.dtype`` (bf16 by
 default), casting the weights on each call. Dropout, when the encoder's
 config carries nonzero rates, draws its masks from a generator on the
-trainer's device seeded from (``seed``, step), so a resumed run replays the
-same masks. The loss stays on the device between logging steps.
+trainer's device seeded from (``seed``, step, data index): the ranks of a
+model group share masks, so their replicated activations stay equal, and a
+resumed run replays the same masks. The loss stays on the device between
+logging steps. Only rank 0 writes checkpoints, in the one-process layout.
 """
 
 from __future__ import annotations
@@ -25,55 +41,71 @@ import time
 from typing import Any, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..losses import dual_contrastive_loss, simple_contrastive_loss
+from ..models.jax_convert import params_from_jax
+from ..parallel import tp as tp_mod
 from ..parallel.grad_cache import grad_cache_backward
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather_rows,
+                             all_reduce, flat_all_reduce, make_mesh,
+                             replicate)
 from .state import (latest_checkpoint, load_train_state, make_optimizer,
                     save_train_state)
 
 logger = logging.getLogger(__name__)
 
-_MULTI_PROCESS_TODO = ("{} is not ported to PyTorch yet: the port trains on "
-                       "one process and one device (ROADMAP.md, P10)")
-
-
-def world_size() -> int:
-    """The ``torch.distributed`` world size; 1 when it is not initialised."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
 
 class DRTrainer:
-    def __init__(self, model, train_args, total_steps: int, device="cuda"):
+    def __init__(self, model, train_args, total_steps: int, device="cuda",
+                 mesh: Optional[Mesh] = None):
         """``model``: a ``DRModel`` (an ``RRModel`` for ``RRTrainer``) whose
         fp32 parameters are trained in place, moved to ``device`` (the card
-        unless the caller names the CPU)."""
+        unless the caller names the CPU). ``mesh``: this rank's place
+        among the job's ranks; by default ``make_mesh(dp_size, tp_size)``
+        over every rank of the initialised process group (one without)."""
         self.device = resolve_device(device)
-        if world_size() > 1:
-            raise NotImplementedError(_MULTI_PROCESS_TODO.format(
-                f"training on {world_size()} processes"))
-        if train_args.dp_size > 1 or train_args.tp_size > 1:
-            raise NotImplementedError(_MULTI_PROCESS_TODO.format(
-                f"dp_size={train_args.dp_size}, tp_size={train_args.tp_size}"))
+        self.mesh = mesh if mesh is not None else make_mesh(
+            train_args.dp_size, train_args.tp_size, self.device)
+        self.tp_size = self.mesh.shape[MODEL_AXIS]
+        if self.tp_size > 1 and not train_args.negatives_x_device:
+            raise ValueError(
+                "tensor parallelism (tp_size > 1) requires "
+                "negatives_x_device=True (the local-negatives shard_map "
+                "path assumes replicated params); grad_cache composes "
+                "with TP through the jit path")
         self.model = model.to(self.device).train()
+        replicate(list(self.model.parameters()), self.mesh)
+        tp_mod.shard_model(self.model, self.mesh)
+        self._hd = tp_mod.head_dim(self.model.encoder_config)
+        self._param_specs = tp_mod.param_partition_specs(
+            self.model.state_dict(), self._hd)
         self.args = train_args
         self.total_steps = total_steps
         self.step = 0
         self.optimizer, self.scheduler = make_optimizer(
             list(self.model.parameters()), train_args, total_steps)
+        if self.tp_size > 1:
+            self.optimizer.set_tensor_parallel(
+                [p for n, p in self.model.named_parameters()
+                 if self._param_specs[n] is not None],
+                lambda t: all_reduce(t, self.mesh, MODEL_AXIS))
         self._generator = (torch.Generator(device=self.device)
                            if model.dropout_active else None)
         if train_args.dual_learning:
-            self.loss_fn = functools.partial(
+            rep_loss = functools.partial(
                 dual_contrastive_loss, dual_weight=train_args.dual_weight,
                 temperature=train_args.score_temperature)
         else:
-            self.loss_fn = functools.partial(
+            rep_loss = functools.partial(
                 simple_contrastive_loss,
                 temperature=train_args.score_temperature)
+        if train_args.negatives_x_device:
+            self.loss_fn = lambda q, p: rep_loss(
+                all_gather_rows(q, self.mesh), all_gather_rows(p, self.mesh))
+        else:
+            self.loss_fn = rep_loss
 
     # ------------------------------------------------------------------
 
@@ -92,12 +124,22 @@ class DRTrainer:
     def _step_generator(self) -> Optional[torch.Generator]:
         if self._generator is None:
             return None
-        return self._generator.manual_seed(self.args.seed * 2**32 + self.step)
+        seed = self.args.seed * 2**32 + self.step
+        d = self.mesh.data_index
+        if d:
+            seed = (seed * 1_000_003 + d) % 2**63
+        return self._generator.manual_seed(seed)
+
+    def _grads_summed(self) -> bool:
+        """Whether the data group's gradients are summed (each rank's loss
+        is the global one) rather than averaged."""
+        return bool(self.args.negatives_x_device)
 
     def loss_and_grads(self, batch) -> torch.Tensor:
-        """The step's loss (detached, on the device), with d loss / d params
-        in the parameters' ``.grad``: GradCache when ``grad_cache`` is set,
-        else one forward and backward."""
+        """This rank's part of the step: the loss (detached, on the
+        device), with d loss / d params in the parameters' ``.grad``;
+        GradCache when ``grad_cache`` is set, else one forward and
+        backward. ``step`` reduces both over the data group."""
         args = self.args
         q, p = self._to_device(batch["query"]), self._to_device(
             batch["passage"])
@@ -116,9 +158,39 @@ class DRTrainer:
         loss.backward()
         return loss.detach()
 
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """Gradients and loss over the data group, in one flat all-reduce:
+        the gradients summed or averaged (``_grads_summed``), the loss
+        averaged (under summed gradients every rank's loss is the global
+        one already). Under tp the replicated parameters' gradients are
+        first averaged over the model group: each rank computed them
+        alone, and the card's atomic adds (an embedding's backward) sum in
+        any order, so they differ in the last bits and the replicas would
+        drift apart."""
+        params = list(self.model.parameters())
+        if self.tp_size > 1:
+            flat_all_reduce(
+                [p.grad for n, p in self.model.named_parameters()
+                 if self._param_specs[n] is None and p.grad is not None],
+                self.mesh, MODEL_AXIS, op="mean")
+        if self.mesh.group(DATA_AXIS) is None:
+            return loss
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        loss = loss.reshape(1).float().clone()
+        parts = [p.grad for p in params] + [loss]
+        if self._grads_summed():
+            flat_all_reduce(parts, self.mesh, DATA_AXIS)
+            loss /= self.mesh.shape[DATA_AXIS]
+        else:
+            flat_all_reduce(parts, self.mesh, DATA_AXIS, op="mean")
+        return loss[0]
+
     def train_step(self, batch) -> torch.Tensor:
-        """One update; returns the loss as a device scalar (no host sync)."""
-        loss = self.loss_and_grads(batch)
+        """One update from this rank's rows of the global batch; returns
+        the step's loss as a device scalar (no host sync)."""
+        loss = self._reduce(self.loss_and_grads(batch))
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
@@ -147,33 +219,95 @@ class DRTrainer:
                 eval_fn(self)
         return {"losses": losses, "final_step": self.step}
 
-    # ------------------------------------------------------------------
+    # ---- checkpoints: the one-process layout, written by rank 0 --------
+
+    def full_state(self) -> Dict[str, torch.Tensor]:
+        """The model's full parameters (under tp gathered over the model
+        group: every rank of the group must call it)."""
+        return tp_mod.gather_params(self.model.state_dict(), self.mesh,
+                                    self._hd)
+
+    def _full_optimizer_state(self) -> dict:
+        """The optimizer state in the one-process layout: under tp each
+        sharded moment gathered over the model group (new dicts: the
+        optimizer's own state is left as it is)."""
+        state = self.optimizer.state_dict()
+        if self.tp_size == 1:
+            return state
+        names = [n for n, _ in self.model.named_parameters()]
+        state["state"] = {i: dict(s) for i, s in state["state"].items()}
+        for key in ("mu", "nu"):
+            local = {names[i]: s[key] for i, s in state["state"].items()
+                     if key in s}
+            full = tp_mod.gather_params(local, self.mesh, self._hd)
+            for i, s in state["state"].items():
+                if key in s:
+                    s[key] = full[names[i]]
+        return state
+
+    def _cut_optimizer_state(self, state: dict) -> dict:
+        """A one-process optimizer state cut to this rank's slices."""
+        names = [n for n, _ in self.model.named_parameters()]
+        for i, s in state["state"].items():
+            for key in ("mu", "nu"):
+                if key in s:
+                    s[key] = tp_mod.local_slice(s[key],
+                                                self._param_specs[names[i]],
+                                                self.tp_size,
+                                                self.mesh.model_index)
+        return state
+
+    def _save_model(self, out: str):
+        state = self.full_state() if self.tp_size > 1 else None  # collective
+        if self.mesh.rank == 0:
+            if state is None:
+                self.model.save(out)
+            else:
+                self.model.save(out, state_dict=state)
+
+    def _barrier(self):
+        if self.mesh.group("world") is not None:
+            dist.barrier()
 
     def save_checkpoint(self, output_dir: Optional[str] = None) -> str:
         """The model in the JAX package's format plus ``train_state.pt``,
         in ``output_dir`` or ``<output_dir>/checkpoint-<step>``."""
         out = output_dir or os.path.join(self.args.output_dir,
                                          f"checkpoint-{self.step}")
-        self.model.save(out)
-        save_train_state(self.step, self.optimizer, self.scheduler, out)
-        logger.info(f"saved checkpoint to {out}")
+        self._save_model(out)
+        opt_state = self._full_optimizer_state()
+        if self.mesh.rank == 0:
+            save_train_state(self.step, self.optimizer, self.scheduler, out,
+                             optimizer_state=opt_state)
+            logger.info(f"saved checkpoint to {out}")
+        self._barrier()
         return out
 
     def save_model(self, output_dir: Optional[str] = None) -> str:
         out = output_dir or self.args.output_dir
-        self.model.save(out)
+        self._save_model(out)
+        self._barrier()
         return out
 
     def maybe_resume(self) -> bool:
-        """Load the newest ``checkpoint-N`` of ``output_dir``, if any: the
-        parameters from its ``params.msgpack``, the optimizer, schedule and
-        step from its ``train_state.pt``."""
+        """Load the newest ``checkpoint-N`` of ``output_dir``, if any, on
+        every rank: the parameters from its ``params.msgpack`` (cut to this
+        rank's slices under tp), the optimizer, schedule and step from its
+        ``train_state.pt``."""
         ckpt = latest_checkpoint(self.args.output_dir)
         if ckpt is None:
             return False
-        self.model.load_weights(ckpt)
-        self.step = load_train_state(ckpt, self.optimizer, self.scheduler,
-                                     self.device)
+        if self.tp_size == 1:
+            self.model.load_weights(ckpt)
+        else:
+            local = tp_mod.place_params(
+                params_from_jax(self.model.read_tree(ckpt)), self.mesh,
+                self._hd)
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    p.copy_(local[name])
+        self.step = load_train_state(
+            ckpt, self.optimizer, self.scheduler, self.device,
+            cut=self._cut_optimizer_state if self.tp_size > 1 else None)
         logger.info(f"resumed from {ckpt} at step {self.step}")
         return True
-

@@ -21,10 +21,18 @@ updates agree with optax's to float rounding:
 A parameter without a gradient counts as a zero gradient, as in optax,
 whose update covers every leaf.
 
+Under tensor parallelism (``set_tensor_parallel``) a sharded parameter holds
+this rank's slice: the clip's global norm and LAMB's per-tensor norms sum
+its squares over the model group, so they are the full tensors' norms, as
+optax computes them over the GSPMD-sharded tree. Every other step of the
+chain is elementwise.
+
 Checkpoints: the model goes into the directory in the JAX package's format
 (``DRModel.save``), so both packages load it; the optimizer and schedule
 go into the port's own ``train_state.pt`` (``torch.save`` of the step, the
 optimizer state and the scheduler state) beside a ``train_state.json``.
+Over ranks the trainer passes the optimizer state in the one-process
+layout (``optimizer_state``) and cuts it again on load (``cut``).
 Resuming from the JAX package's ``train_state.msgpack`` is not ported.
 """
 
@@ -73,6 +81,25 @@ class OptaxAdam(torch.optim.Optimizer):
         super().__init__(params, defaults)
         if len(self.param_groups) != 1:
             raise ValueError("OptaxAdam takes one parameter group")
+        self._sharded: set = set()
+        self._model_sum: Optional[Callable] = None
+
+    def set_tensor_parallel(self, sharded, model_sum: Callable):
+        """``sharded``: the parameters that hold this rank's slice;
+        ``model_sum(t)``: ``t`` summed over the model group."""
+        self._sharded = {id(p) for p in sharded}
+        self._model_sum = model_sum
+
+    def _norms(self, tensors, params) -> torch.Tensor:
+        """The full tensors' norms [n] of per-rank ``tensors``."""
+        norms = torch.stack(torch._foreach_norm(tensors))
+        if self._model_sum is None:
+            return norms
+        sharded = torch.tensor([id(p) in self._sharded for p in params],
+                               device=norms.device)
+        sq = norms.square()
+        full = self._model_sum(torch.where(sharded, sq, 0.0))
+        return torch.where(sharded, full, sq).sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -84,8 +111,7 @@ class OptaxAdam(torch.optim.Optimizer):
                  for p in params]
         max_norm = group["max_grad_norm"]
         if max_norm and max_norm > 0:
-            g_norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            g_norm = torch.linalg.vector_norm(self._norms(grads, params))
             scale = torch.where(g_norm < max_norm, torch.ones_like(g_norm),
                                 max_norm / g_norm)
             grads = torch._foreach_mul(grads, scale)
@@ -110,9 +136,13 @@ class OptaxAdam(torch.optim.Optimizer):
         if group["weight_decay"]:
             torch._foreach_add_(updates, params, alpha=group["weight_decay"])
         if group["trust_ratio"]:
-            for p, u in zip(params, updates):
-                p_norm, u_norm = torch.linalg.vector_norm(p), \
-                    torch.linalg.vector_norm(u)
+            if self._model_sum is None:
+                p_norms = [torch.linalg.vector_norm(p) for p in params]
+                u_norms = [torch.linalg.vector_norm(u) for u in updates]
+            else:
+                p_norms = self._norms(params, params)
+                u_norms = self._norms(updates, params)
+            for u, p_norm, u_norm in zip(updates, p_norms, u_norms):
                 ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                     torch.ones_like(p_norm), p_norm / u_norm)
                 u.mul_(ratio)
@@ -168,11 +198,15 @@ def optax_state_tree(optimizer: OptaxAdam, named_params, to_jax) -> dict:
     return {str(i): s for i, s in enumerate(chain)}
 
 
-def save_train_state(step: int, optimizer, scheduler, output_dir: str):
+def save_train_state(step: int, optimizer, scheduler, output_dir: str,
+                     optimizer_state: Optional[dict] = None):
     """``train_state.pt`` (step, optimizer and scheduler state) and
-    ``train_state.json`` ({"step"}) in ``output_dir``."""
+    ``train_state.json`` ({"step"}) in ``output_dir``; ``optimizer_state``
+    in place of ``optimizer.state_dict()`` when given."""
     os.makedirs(output_dir, exist_ok=True)
-    torch.save({"step": int(step), "optimizer": optimizer.state_dict(),
+    if optimizer_state is None:
+        optimizer_state = optimizer.state_dict()
+    torch.save({"step": int(step), "optimizer": optimizer_state,
                 "scheduler": scheduler.state_dict()},
                os.path.join(output_dir, TRAIN_STATE))
     with open(os.path.join(output_dir, "train_state.json"), "w") as f:
@@ -180,12 +214,14 @@ def save_train_state(step: int, optimizer, scheduler, output_dir: str):
 
 
 def load_train_state(ckpt_dir: str, optimizer, scheduler,
-                     device=None) -> int:
+                     device=None, cut: Optional[Callable] = None) -> int:
     """Restore the optimizer and scheduler from ``train_state.pt``, tensors
-    on ``device``; returns the step."""
+    on ``device``, the optimizer state passed through ``cut`` first when
+    given; returns the step."""
     payload = torch.load(os.path.join(ckpt_dir, TRAIN_STATE),
                          map_location=device, weights_only=True)
-    optimizer.load_state_dict(payload["optimizer"])
+    state = payload["optimizer"]
+    optimizer.load_state_dict(cut(state) if cut is not None else state)
     scheduler.load_state_dict(payload["scheduler"])
     return int(payload["step"])
 

@@ -17,7 +17,8 @@
   reads it; the port's ``load_v1_params`` reads the ``params`` of either
   package's file.
 
-One process and one device: more, or ``dp_size > 1``, raises (ROADMAP P10).
+One process and one device: more, or ``dp_size > 1``, raises (the V1,
+Meta-LTR and ReInfoSelect trainers over ranks are ROADMAP P10's rest).
 """
 
 from __future__ import annotations
@@ -34,10 +35,15 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from ..models.jax_convert import v1_params_from_jax, v1_params_to_jax
-from .dr_trainer import _MULTI_PROCESS_TODO, world_size
+from ..parallel.mesh import world_size
 from .state import make_optimizer, optax_state_tree
 
 logger = logging.getLogger(__name__)
+
+_MULTI_PROCESS_TODO = ("{} is not ported to PyTorch yet: the V1, Meta-LTR "
+                       "and ReInfoSelect trainers train on one process and "
+                       "one device (ROADMAP.md, P10: the trainers over "
+                       "ranks)")
 
 TRAIN_STATE = "train_state.msgpack"
 

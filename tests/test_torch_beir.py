@@ -151,13 +151,25 @@ def test_retrieve_beir_matches_jax(beir_run_inputs, monkeypatch):
 
 
 def test_maybe_init_distributed(monkeypatch, beir_run_inputs):
+    """One process is (0, 1); in a 2-rank gloo group each rank gets (rank,
+    2); a launcher's WORLD_SIZE=2 without its rendezvous address raises
+    (the rank cannot join). retrieve_beir still runs on one rank only:
+    its multi-rank form is ROADMAP P10's rest."""
+    import torch_ranks
+
+    from openmatch_tpu_torch.parallel.mesh import spawn_ranks
+
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    assert common.maybe_init_distributed() == (0, 1)
+    assert common.maybe_init_distributed("cpu") == (0, 1)
     monkeypatch.setenv("WORLD_SIZE", "1")
-    assert common.maybe_init_distributed() == (0, 1)
+    assert common.maybe_init_distributed("cpu") == (0, 1)
+    monkeypatch.delenv("WORLD_SIZE")
+    assert spawn_ranks(torch_ranks.maybe_init_rank, 2,
+                       timeout_s=120) == [(0, 2), (1, 2)]
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="P10"):
-        common.maybe_init_distributed()
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        common.maybe_init_distributed("cpu")
     root, tok = beir_run_inputs
     with pytest.raises(NotImplementedError, match="P10"):
         retrieve_beir.main(["--model_name_or_path", "/nonexistent",

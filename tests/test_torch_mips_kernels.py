@@ -593,3 +593,68 @@ def test_cuda_depth_extremes(cuda_device, Q, D):
     assert_kernel_close(l1, want_l1)
     assert_kernel_close(cm.fused_scores(q, body),
                         cm.scores_reference(q, body))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("valid", [2048 * 3, 2048 * 3 - 5, 13, 0])
+def test_cuda_mesh_shard_search(cuda_device, valid):
+    """A docs-partition rank's search (``plain_topk_valid``) over a shard
+    of 3 tiles with ``valid`` real rows: K1 with the shard's nb_valid and
+    K3 at the selection its maxima give against their plain versions, and
+    the answer equal to an fp32 top-k over the valid rows above the k-th
+    score's tie band."""
+    shard = torch.zeros(2048 * 3, 768, dtype=torch.bfloat16,
+                        device=cuda_device)
+    shard[:valid] = card_data(cuda_device, 70, 2048 * 3, 768)[:valid]
+    q = card_data(cuda_device, 71, 64, 768)
+    k, nb_full = 50, valid // 8
+    g1, l1 = cm.fused_plain_gmax(q, shard, emit_l1=8, nb_valid=nb_full)
+    want, want_l1 = cm.plain_gmax_reference(q, shard, emit_l1=8,
+                                            nb_valid=nb_full)
+    if nb_full:
+        assert_kernel_close(g1, want)
+        assert_kernel_close(l1, want_l1)
+    else:  # every block masked
+        assert (g1 == cm.NEG).all() and (l1 == cm.NEG).all()
+    bid = cm._select_groups(g1, k, l1=l1).to(torch.int32)
+    got = cm.gather_rescore(q, shard, bid)
+    ref = cm.gather_rescore_reference(q, shard, bid)
+    assert (got - ref).abs().max() <= REL * ref.abs().max()
+    s, i = cm.plain_topk_valid(q, shard, valid, k)
+    rs, ri = cm.plain_topk_valid_reference(q, shard, valid, k)
+    n = min(valid, k)
+    assert torch.isneginf(s[:, n:]).all() and (i[:, :n] < valid).all()
+    if n:
+        tol = REL * rs[:, :n].abs().max()
+        assert (s[:, :n] - rs[:, :n]).abs().max() <= tol
+        above = rs[:, :n] > rs[:, n - 1:n] + tol
+        for row in range(q.shape[0]):
+            assert set(ri[row, :n][above[row]].tolist()) \
+                <= set(i[row, :n].tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_segmented_replica(cuda_device):
+    """A queries-partition rank's segmented index (``_replicated_prep``,
+    2 segments copied from the host): K4 and K5 against their plain
+    versions, the answer equal to the single-buffer kernel path's."""
+    from openmatch_tpu_torch.ops.mips import _replicated_prep
+    from openmatch_tpu_torch.parallel.mesh import Mesh
+
+    host = card_data(cuda_device, 72, 8 * 600 + 5, 768).cpu()
+    prep = _replicated_prep(host, Mesh(dp=1, tp=1, device=cuda_device), 2)
+    segs = prep.plain
+    assert isinstance(segs, tuple) and len(segs) == 2
+    q = card_data(cuda_device, 73, 64, 768)
+    g4, l4 = cm.fused_plain_gmax_segs(q, segs, emit_l1=8)
+    want, want_l1 = cm.plain_gmax_segs_reference(q, segs, emit_l1=8)
+    assert_kernel_close(g4, want)
+    assert_kernel_close(l4, want_l1)
+    bid = cm._select_groups(g4, 50, l1=l4).to(torch.int32)
+    got = cm.gather_rescore(q, segs, bid)
+    ref = cm.gather_rescore_reference(q, segs, bid)
+    assert (got - ref).abs().max() <= REL * ref.abs().max()
+    s, i = cm.plain_topk_prepared(q, prep, 50)
+    s1, i1 = cm.plain_topk_prepared(
+        q, cm.prepare_plain_corpus(host.to(cuda_device)), 50)
+    assert torch.equal(s, s1) and torch.equal(i, i1)

@@ -339,9 +339,23 @@ def test_reranker_matches_jax(tok, name):
 
 
 def test_reranker_refuses_a_mesh(tok):
+    """A mesh is taken now: its global batch is per-device x dp, and on a
+    one-rank mesh the scores are those without one (2-rank runs against
+    JAX's mesh Reranker: tests/test_torch_mesh.py)."""
+    from openmatch_tpu_torch.parallel.mesh import Mesh, make_mesh
+
     _, _, pm = rr_pair("bert")
-    with pytest.raises(NotImplementedError, match="P10"):
-        Reranker(pm, tok, DataArguments(), InferenceArguments(), mesh=object())
+    args = InferenceArguments(per_device_eval_batch_size=2)
+    assert Reranker(pm, tok, DataArguments(), args,
+                    mesh=Mesh(dp=2, tp=1)).batch_size == 4
+    queries = {"q": {"text": "w1 w2 w3"}}
+    corpus = {f"d{i}": {"text": " ".join(WORDS[i:i + 6])} for i in range(5)}
+    run = {"q": {d: 1.0 for d in corpus}}
+    want = Reranker(pm, tok, DataArguments(), args).rerank(queries, corpus,
+                                                          run)
+    got = Reranker(pm, tok, DataArguments(), args,
+                   mesh=make_mesh(device="cpu")).rerank(queries, corpus, run)
+    assert got == want and len(got["q"]) == 5
 
 
 def test_pair_segments_are_cut_and_zero_padded(tok):
@@ -399,11 +413,20 @@ def test_train_step_matches_jax_trainer(backbone, loss_fn):
 
 
 def test_trainer_refuses_multi_device_settings():
+    """RRTrainer refuses tensor parallelism, with JAX's message; one
+    process refuses dp_size=2 as make_mesh does (the 2-rank runs are in
+    tests/test_torch_mesh.py)."""
+    from openmatch_tpu_torch.parallel.mesh import Mesh
+
     _, _, pm = rr_pair("bert")
-    for kw in (dict(dp_size=2), dict(tp_size=2)):
-        with pytest.raises(NotImplementedError, match="P10"):
-            RRTrainer(pm, TrainingArguments(**kw), total_steps=1,
-                      device="cpu")
+    with pytest.raises(ValueError, match="does not implement tensor "
+                                         "parallelism"):
+        RRTrainer(pm, TrainingArguments(), total_steps=1, device="cpu",
+                  mesh=Mesh(dp=1, tp=2))
+    with pytest.raises(ValueError, match=r"dp\(2\) \* tp\(1\) != "
+                                         r"devices\(1\)"):
+        RRTrainer(pm, TrainingArguments(dp_size=2), total_steps=1,
+                  device="cpu")
 
 
 def test_trainer_resumes_its_checkpoint(tmp_path):

@@ -537,8 +537,13 @@ def test_trainer_and_driver_default_to_the_card(monkeypatch, tmp_path):
 
 
 def test_trainer_refuses_multi_device_settings():
+    """One process is a mesh of one rank: more ranks on either axis are
+    refused with the JAX make_mesh's messages (tests/test_torch_mesh.py
+    trains over 2 and 4 ranks)."""
     pm = DRModel(BertConfig(**SMALL))
-    for kw in (dict(dp_size=2), dict(tp_size=2)):
-        with pytest.raises(NotImplementedError, match="P10"):
+    for kw, msg in ((dict(dp_size=2), r"dp\(2\) \* tp\(1\) != devices\(1\)"),
+                    (dict(tp_size=2, negatives_x_device=True),
+                     r"1 devices not divisible by tp=2")):
+        with pytest.raises(ValueError, match=msg):
             DRTrainer(pm, TrainingArguments(**kw), total_steps=1,
                       device="cpu")
