@@ -221,11 +221,31 @@ Phases, in order; any failure raises and the script exits non-zero:
             (docs) or K4/K5 (queries) launches counted with the counts set
             to 0 just before and read just after, its ids equal to one
             process above the tie band; each rank's K1, K3, K4 and K5 held
-            to their plain versions over 2^20 of its rows; last,
+            to their plain versions on the search's own operands. Each
+            partition's Searcher is then served over the ranks as
+            serve.main serves it: rank 0 a RetrievalService (the
+            BERT-base query encoder, max_batch 64, the ControlChannel)
+            behind the HTTP front answers 8 concurrent /search requests
+            of 8 queries at k=1000 while rank 1 follows; the launches of
+            both ranks are counted, the answers equal one process's above
+            the tie band. serve.main itself runs on both ranks through its
+            flags over a 16,384-row encoded index (queries partition, 2
+            segments), answers one /search and stops on SIGTERM. Then
             Reranker(mesh=) over the 2,048 pairs within 1e-5 x max|score|
-            of one process. With four cards a dp=2 x tp=2 world trains as
-            well. Step ms, search ms (CUDA events), pairs/s, peaks and the
-            phase's wall time are printed beside the card and the backend.
+            of one process, and the v1 family at dp=2 against one process:
+            V1Trainer with KNRM (400,001 x 300 embeddings, 16 pairs of 10
+            and 256 words) and with BertRanker (BERT-base fp32, 8 pairs of
+            128), MetaLTRTrainer and ReInfoSelectTrainer (a Conv-KNRM
+            policy, one refresh) on KNRM, 3 steps each: losses within
+            1e-5, parameters within rtol = atol = 1e-5, meta weights
+            within 1e-4, keep decisions equal, parameters bit-identical on
+            both ranks. With four cards a dp=2 x tp=2 world trains as
+            well. Last, in this process, the mesh paths' perf twins:
+            perf/mesh_parity at its defaults, perf/sharded_merge over 2
+            ranks and perf/serve_load for 5 s over 1,000,000 docs. Step
+            ms, search ms (CUDA events), request ms, pairs/s, peaks and
+            the phase's wall time are printed beside the card and the
+            backend.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -1752,7 +1772,8 @@ def phase_train(dev, cfg=None) -> dict:
             f"max_memory_allocated {peak / 2**30:.2f} GiB, of which "
             f"{resident / 2**30:.2f} GiB were allocated before train_dr")
         for d in ("checkpoint-15", "checkpoint-30"):
-            if not os.path.exists(os.path.join(out, d, "train_state.pt")):
+            if not os.path.exists(os.path.join(out, d,
+                                               "train_state.msgpack")):
                 raise AssertionError(f"train: {d} was not written")
 
         # 7 (first, while the trainer's model is at hand): the saved
@@ -3858,6 +3879,28 @@ MESH_MODES = {  # mode -> (dp, tp, TrainingArguments fields)
     "tp": (1, 2, dict(negatives_x_device=True)),
 }
 MESH_MODES_4 = {"dp2_tp2": (2, 2, dict(negatives_x_device=True))}
+# serving over the ranks: the served queries, and serve.main's small index
+MESH_SERVE_CLIENTS, MESH_SERVE_QUERIES = 8, 8
+MESH_SMALL_INDEX = 16_384
+# the v1 family over the ranks: KNRM at docs/v1-rerankers.md's widths (the
+# GloVe 6B 300d table and its pad row; train_v1's -max_query_len and
+# -max_doc_len), BertRanker at BERT-base; global batches, fp32, TF32 off
+MESH_V1_VOCAB = V1_VOCAB + 1
+MESH_V1_QLEN, MESH_V1_DLEN, MESH_V1_BATCH = 10, 256, 16
+MESH_BERT_PAIRS, MESH_BERT_LEN = 8, 128
+MESH_V1_STEPS = 3  # the first has warmup's lr 0 (and Meta-LTR zero weights)
+MESH_V1_LR = 1e-4  # Adam moves an entry whose gradient is rounding noise by
+# up to the lr (the policy's plain Adam has optax's epsilon 1e-8): 1e-4 keeps
+# that below the audit's 1e-5
+MESH_RIS_REWARD = 0.1  # the REINFORCE refresh after the second step
+MESH_V1_MODES = ("knrm", "bert", "meta", "reinfoselect")
+# the sizes a rank takes from the parent (it imports this file afresh), so
+# a rehearsal that shrinks them shrinks them on every rank
+MESH_SIZES = ("D", "K", "MAX_BATCH", "N_MSMARCO", "V1_EMBED", "MESH_V1_VOCAB",
+              "MESH_V1_QLEN", "MESH_V1_DLEN", "MESH_V1_BATCH",
+              "MESH_BERT_PAIRS", "MESH_BERT_LEN", "MESH_V1_STEPS",
+              "MESH_SMALL_INDEX", "MESH_SERVE_CLIENTS", "MESH_SERVE_QUERIES",
+              "MESH_RR_Q", "MESH_RR_D", "MESH_RR_BATCH")
 
 
 def seeded_state(module: torch.nn.Module, seed: int) -> dict:
@@ -3984,7 +4027,8 @@ def mesh_references(dev, cfg, root: str) -> dict:
 
     # sizes travel in the spec: the ranks import this file afresh
     spec = {"root": root, "cfg": dataclasses.asdict(cfg), "n": N_MSMARCO,
-            "k": K, "q": MAX_BATCH}
+            "k": K, "q": MAX_BATCH,
+            "sizes": {name: globals()[name] for name in MESH_SIZES}}
     init = seeded_state(DRModel(cfg, pooling="mean"), 14)
     spec["init"] = os.path.join(root, "init.pt")
     torch.save(init, spec["init"])
@@ -4026,7 +4070,23 @@ def mesh_references(dev, cfg, root: str) -> dict:
     spec["search_ms"] = mesh_ms(lambda: searcher.search(q), dev)
     spec["ref_search"] = os.path.join(root, "ref_search.pt")
     torch.save((s.cpu(), i.cpu()), spec["ref_search"])
-    del searcher, index, s, i
+    # the served queries' one-process answer: encoded as a RetrievalService
+    # encodes them (padded to max_batch), searched in one buffer
+    from openmatch_tpu_torch.drivers.serve import RetrievalService
+
+    service = RetrievalService(mesh_serve_model(dev, spec),
+                               WhitespaceTokenizer(cfg.vocab_size), searcher,
+                               SyntheticDocIds([], N_MSMARCO),
+                               q_max_len=Q_LEN, max_batch=MAX_BATCH)
+    flat = [x for qs in mesh_serve_requests() for x in qs]
+    with torch.inference_mode():
+        reps = torch.cat([service.encode_queries(flat[a:a + MAX_BATCH])
+                          for a in range(0, len(flat), MAX_BATCH)])
+        s, i = searcher.search(reps.contiguous())
+    service.close()
+    spec["ref_serve"] = os.path.join(root, "ref_serve.pt")
+    torch.save((s.cpu(), i.cpu()), spec["ref_serve"])
+    del service, searcher, index, s, i, reps
     torch.cuda.empty_cache()
 
     rr = RRModel(cfg, head_in_dim=cfg.hidden_size)
@@ -4058,6 +4118,25 @@ def mesh_references(dev, cfg, root: str) -> dict:
                 "positives": [rows[0].tolist()],
                 "negatives": rows[1:].tolist()}) + "\n")
     spec["hf"], spec["train"] = hf, os.path.join(root, "train.jsonl")
+
+    # serve.main's small encoded index
+    from openmatch_tpu_torch.retriever.encoder import (save_embeddings,
+                                                       shard_path)
+
+    spec["small_index"] = os.path.join(root, "small_index")
+    rows = np.random.default_rng(18).standard_normal(
+        (MESH_SMALL_INDEX, cfg.hidden_size), dtype=np.float32)
+    save_embeddings(rows, [f"s{j}" for j in range(MESH_SMALL_INDEX)],
+                    shard_path(spec["small_index"], "corpus", 0),
+                    num_shards=1)
+
+    # the v1 family on one process
+    for mode in MESH_V1_MODES:
+        ref = mesh_v1_run(dev, mode, spec["cfg"])
+        spec[f"v1_ms_{mode}"] = float(np.median(ref["ms"][1:]))
+        spec[f"ref_v1_{mode}"] = os.path.join(root, f"ref_v1_{mode}.pt")
+        torch.save(ref, spec[f"ref_v1_{mode}"])
+        del ref
     return spec
 
 
@@ -4282,6 +4361,14 @@ def mesh_search(dev, spec) -> dict:
             ms=mesh_ms(lambda: searcher.search(q), dev),
             peak_gib=peak_gib(dev))
         out["kernel_err"].update(hold_mesh_kernels(searcher, q))
+        out[part]["serve"] = served = mesh_serve(dev, spec, mesh, searcher,
+                                                 part)
+        n = served["launches"]
+        if dev.type == "cuda" and (any(n[x] < 1 for x in want) or any(
+                v for x, v in n.items() if x not in want)):
+            raise AssertionError(f"mesh serve {part}: launches {n}")
+        for x in want:
+            out["launches"][x] += n[x]
         del searcher, s, i
         torch.cuda.empty_cache()
     return out
@@ -4316,6 +4403,323 @@ def mesh_rerank(dev, spec) -> dict:
                 batch=reranker.batch_size)
 
 
+def mesh_serve_requests() -> list:
+    """The served requests: MESH_SERVE_CLIENTS of MESH_SERVE_QUERIES."""
+    rng = np.random.default_rng(41)
+    words = [f"t{i}" for i in range(20000)]
+    return [[" ".join(rng.choice(words, rng.integers(3, 9)))
+             for _ in range(MESH_SERVE_QUERIES)]
+            for _ in range(MESH_SERVE_CLIENTS)]
+
+
+def mesh_serve_model(dev, spec):
+    """The served BERT-base query encoder: the training audit's seeded
+    weights, mean pooling, bf16 compute."""
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+
+    model = DRModel(BertConfig(**spec["cfg"]), pooling="mean",
+                    dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(spec["init"], weights_only=True))
+    return model.to(dev).eval()
+
+
+def mesh_serve(dev, spec, mesh, searcher, part: str) -> dict:
+    """Serving over the ranks with this rank's mesh Searcher, as serve.main
+    runs it: rank 0 a RetrievalService (the BERT-base query encoder,
+    max_batch 64, the ControlChannel) behind the HTTP front, answering
+    MESH_SERVE_CLIENTS concurrent /search requests at k=1000; the other
+    rank follows. Each rank's launches are counted from the warmup to the
+    stop; rank 0's answers equal one process's above the tie band."""
+    from openmatch_tpu_torch.drivers.serve import (RetrievalService,
+                                                   ServingHTTPServer, follow,
+                                                   make_handler)
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.parallel.mesh import ControlChannel
+
+    channel = ControlChannel(mesh, searcher.dim, searcher.dtype)
+    reset_launches(cm)
+    if mesh.rank:
+        n = follow(searcher, channel)
+        sync(dev)
+        return {"follower_searches": n, "launches": read_launches(cm)}
+    service = RetrievalService(
+        mesh_serve_model(dev, spec), WhitespaceTokenizer(spec["cfg"][
+            "vocab_size"]), searcher, SyntheticDocIds([], searcher.n_docs),
+        q_max_len=Q_LEN, max_batch=MAX_BATCH, channel=channel)
+    requests = mesh_serve_requests()
+    try:
+        service.warmup()
+        service.timeline = []
+        service.stats.update(dispatch_groups=0, requests=0, max_coalesced=0)
+        server = ServingHTTPServer(("127.0.0.1", 0),
+                                   make_handler(service, K))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            with ThreadPoolExecutor(max_workers=len(requests)) as pool:
+                answers = [f.result() for f in [
+                    pool.submit(http_json, base + "/search",
+                                {"queries": qs, "k": K})
+                    for qs in requests]]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    finally:
+        service.close()  # "stop": the follower returns
+    sync(dev)
+    launches = read_launches(cm)
+    if any(st != 200 for st, _, _ in answers):
+        raise AssertionError(f"mesh serve {part}: HTTP "
+                             f"{[st for st, _, _ in answers]}")
+    results = [res for _, body, _ in answers for res in body["results"]]
+    s, i = answers_tensor(results, lambda d: int(d[3:]), dev)
+    ref_s, ref_i = (t.to(dev) for t in torch.load(spec["ref_serve"],
+                                                  weights_only=True))
+    same_above_band(f"served {part} partition over {mesh.size('world')} "
+                    "ranks", s, i, ref_s, ref_i, phase="mesh")
+    return {"latency_ms": [sec * 1000 for _, _, sec in answers],
+            "launches": launches, "stats": dict(service.stats),
+            "dispatches": [(t["rows"], t["exec_s"] * 1000)
+                           for t in service.timeline]}
+
+
+def mesh_serve_main(dev, spec) -> dict:
+    """serve.main through its real flags on every rank over the small
+    encoded index (queries partition, 2 segments): rank 0's /search
+    answered over HTTP, then SIGTERM to rank 0 stops the server and the
+    follower; every rank returns from main."""
+    import signal
+    import socket
+
+    from openmatch_tpu_torch.drivers import serve
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.parallel.mesh import world_size
+
+    port, seen = 0, {}
+    rank0 = torch.distributed.get_rank() == 0
+    if rank0:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+
+        def drive():
+            base = f"http://127.0.0.1:{port}"
+            try:
+                end = time.monotonic() + 300
+                while True:
+                    try:
+                        seen["health"] = http_json(base + "/health")[1]
+                        break
+                    except OSError:
+                        if time.monotonic() > end:
+                            raise
+                        time.sleep(0.2)
+                status, body, sec = http_json(base + "/search", {
+                    "queries": mesh_serve_requests()[0], "k": 10})
+                seen.update(status=status, results=body["results"],
+                            ms=sec * 1000)
+            except Exception as e:  # noqa: BLE001  (reported below)
+                seen["error"] = repr(e)
+            finally:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        threading.Thread(target=drive, daemon=True).start()
+    reset_launches(cm)
+    t0 = time.perf_counter()
+    serve.main(["--model_name_or_path", spec["hf"], "--encoded_save_path",
+                spec["small_index"], "--port", str(port), "--max_batch", "8",
+                "--q_max_len", str(Q_LEN), "--retrieve_depth", "100",
+                "--pooling", "mean", "--dtype", "bfloat16",
+                "--search_partition", "queries", "--search_n_segs", "2",
+                "--search_method", "kernel", "--device", dev.type],
+               tokenizer=WhitespaceTokenizer(spec["cfg"]["vocab_size"]))
+    sync(dev)
+    out = {"launches": read_launches(cm), "seconds": time.perf_counter() - t0,
+           "world": world_size()}
+    if rank0:
+        if "error" in seen or seen.get("status") != 200:
+            raise AssertionError(f"mesh serve.main: {seen}")
+        for res in seen["results"]:
+            sc = np.array([x["score"] for x in res])
+            if len(res) != 10 or not np.isfinite(sc).all() \
+                    or (np.diff(sc) > 0).any():
+                raise AssertionError("mesh serve.main: a response is not 10 "
+                                     "finite non-increasing scores")
+        out.update(health=seen["health"], ms=seen["ms"])
+    return out
+
+
+def seed_params(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter (not the buffers: the kernel matcher's mus and
+    sigmas stay) drawn from a seed: embeddings N(0, 1), LayerNorm weights
+    1 + N(0, 0.02), the rest N(0, 0.02); returns ``module``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            x = torch.randn(p.shape, generator=g)
+            if name.endswith("embedding") or name.endswith("embeddings.weight"):
+                p.copy_(x)
+            else:
+                p.copy_(x * 0.02 + (1.0 if name.endswith("_ln.weight")
+                                    else 0.0))
+    return module
+
+
+def mesh_v1_batch(mode: str, step: int, vocab: int) -> dict:
+    """Step ``step``'s global batch of ``mode``: word ranking pairs (query
+    and docs ragged under their masks) or BertRanker pos / neg pairs over
+    ``vocab`` word pieces."""
+    rng = np.random.default_rng(600 + step)
+    if mode == "bert":
+        out = {}
+        for side in ("pos", "neg"):
+            ids = rng.integers(1000, vocab, (MESH_BERT_PAIRS, MESH_BERT_LEN))
+            ids[:, 0] = 101
+            segs = np.zeros_like(ids)
+            segs[:, MESH_BERT_LEN // 4:] = 1
+            out.update({f"{side}_input_ids": ids,
+                        f"{side}_input_mask": np.ones_like(ids),
+                        f"{side}_segment_ids": segs})
+        return out
+
+    def words(n):
+        ids = rng.integers(1, MESH_V1_VOCAB, (MESH_V1_BATCH, n))
+        lengths = rng.integers(n // 2, n + 1, MESH_V1_BATCH)
+        mask = (np.arange(n)[None] < lengths[:, None]).astype(np.float32)
+        return ids * mask.astype(np.int64), mask
+
+    q, qm = words(MESH_V1_QLEN)
+    d, dm = words(MESH_V1_DLEN)
+    d2, dm2 = words(MESH_V1_DLEN)
+    return {"query_idx": q, "query_mask": qm, "doc_pos_idx": d,
+            "doc_pos_mask": dm, "doc_neg_idx": d2, "doc_neg_mask": dm2}
+
+
+def mesh_v1_run(dev, mode: str, cfg: dict, mesh=None) -> dict:
+    """MESH_V1_STEPS steps of the v1-family trainer ``mode`` ("knrm" and
+    "bert": V1Trainer; "meta": MetaLTRTrainer; "reinfoselect":
+    ReInfoSelectTrainer with a Conv-KNRM policy, its draws from a generator
+    seeded alike on every rank, one refresh after the second step) on the
+    global batches, on one process or over ``mesh``; BertRanker's encoder
+    is ``cfg`` (BERT-base on the card). Returns the losses, step ms, meta
+    weights or keep decisions, and the parameters."""
+    from openmatch_tpu_torch.config import TrainingArguments
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.train.meta_trainer import MetaLTRTrainer
+    from openmatch_tpu_torch.train.reinfoselect_trainer import \
+        ReInfoSelectTrainer
+    from openmatch_tpu_torch.train.v1_trainer import V1Trainer
+    from openmatch_tpu_torch.v1.models import KNRM, BertRanker, ConvKNRM
+
+    model = seed_params(BertRanker(BertConfig(**cfg), task="ranking")
+                        if mode == "bert" else
+                        KNRM(MESH_V1_VOCAB, V1_EMBED), 20)
+    # adam_epsilon 1e-4: Adam would scale a gradient that is 0 but for
+    # float noise into a full +-lr step, on one process and the ranks alike
+    args = TrainingArguments(learning_rate=MESH_V1_LR, warmup_steps=0,
+                             warmup_ratio=0.0, adam_epsilon=1e-4, seed=0,
+                             logging_steps=100, save_steps=0)
+    kw = {} if mesh is None else {"mesh": mesh}
+    policy = generator = None
+    if mode == "meta":
+        trainer = MetaLTRTrainer(model, args, 10, device=dev, **kw)
+    elif mode == "reinfoselect":
+        policy = seed_params(ConvKNRM(MESH_V1_VOCAB, V1_EMBED,
+                                      task="classification"), 21)
+        trainer = ReInfoSelectTrainer(model, policy, args, 10, device=dev,
+                                      **kw)
+        generator = torch.Generator(device=dev).manual_seed(0)
+    else:
+        trainer = V1Trainer(model, args, 10, device=dev, **kw)
+    out = {"losses": [], "ms": [], "extra": []}
+    for step in range(MESH_V1_STEPS):
+        batch = mesh_v1_batch(mode, step, cfg["vocab_size"])
+        sync(dev)
+        t0 = time.perf_counter()
+        if mode == "meta":
+            loss, extra = trainer.train_step(batch, mesh_v1_batch(
+                mode, 100 + step, cfg["vocab_size"]))
+        elif mode == "reinfoselect":
+            loss, extra = trainer.train_step(batch, generator)
+        else:
+            loss, extra = trainer.train_step(batch), None
+        out["losses"].append(float(loss))
+        out["ms"].append((time.perf_counter() - t0) * 1000)
+        if extra is not None:
+            out["extra"].append(extra.cpu())
+        if mode == "reinfoselect" and step == 1:
+            trainer.refresh_policy(MESH_RIS_REWARD)
+    out["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if policy is not None:
+        out["policy"] = {k: v.detach().cpu()
+                         for k, v in policy.state_dict().items()}
+    del trainer, model, policy
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tol_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (MESH_REL + MESH_REL x |want|) over the entries:
+    at most 1 where ``allclose`` with rtol = atol = MESH_REL holds (the CPU
+    tests' tolerance; a one-entry bias whose pairwise-loss gradient nearly
+    cancels is held absolutely, not to its own tiny scale)."""
+    want = want.to(got.device).float()
+    return ((got.float() - want).abs()
+            / (MESH_REL + MESH_REL * want.abs())).max().item()
+
+
+def mesh_v1(dev, spec) -> dict:
+    """The v1 family over 2 ranks against the one-process references: the
+    loss within MESH_REL, every parameter (the policy's too) within rtol =
+    atol = MESH_REL (``tol_ratio`` <= 1), the meta weights within
+    META_W_ATOL, the keep decisions equal, and the parameters bit-identical
+    on both ranks."""
+    import torch.distributed as dist
+
+    from openmatch_tpu_torch.parallel.mesh import broadcast, make_mesh
+
+    mesh = make_mesh(MESH_WORLD, 1, dev)
+    out = {}
+    for mode in MESH_V1_MODES:
+        got = mesh_v1_run(dev, mode, spec["cfg"], mesh)
+        ref = torch.load(spec[f"ref_v1_{mode}"], weights_only=True,
+                         mmap=True)
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(got["losses"], ref["losses"]))
+        errs = {f"{part}.{k}": tol_ratio(v, ref[part][k])
+                for part in ("state", "policy") if part in got
+                for k, v in got[part].items() if v.is_floating_point()}
+        worst = max(errs, key=errs.get)
+        res = dict(losses=got["losses"], step_ms=float(np.median(
+            got["ms"][1:])), loss_err=loss_err, param_err=errs[worst],
+            worst=worst)
+        if mode == "meta":
+            res["weight_err"] = max(
+                (a - b).abs().max().item()
+                for a, b in zip(got["extra"], ref["extra"]))
+        if mode == "reinfoselect":
+            res["decisions_equal"] = all(torch.equal(a, b) for a, b in zip(
+                got["extra"], ref["extra"]))
+            res["kept"] = [int(a.sum()) for a in got["extra"]]
+        flat = torch.cat([v.reshape(-1).float() for part in ("state",
+                                                             "policy")
+                          if part in got for v in got[part].values()])
+        same = torch.equal(flat, broadcast(flat.clone(), mesh))
+        if loss_err > MESH_REL or errs[worst] > 1.0 \
+                or res.get("weight_err", 0.0) > META_W_ATOL \
+                or not res.get("decisions_equal", True) or not same:
+            raise AssertionError(
+                f"mesh v1 {mode}: rank {dist.get_rank()} vs one process: "
+                f"{res}; parameters equal to rank 0's: {same}")
+        out[mode] = res
+        del got, ref, flat
+    return out
+
+
 def mesh_rank(dev, spec) -> dict:
     """One rank of the mesh phase (``spawn_ranks`` runs it in a fresh
     process that initialised CUDA and joined the group itself)."""
@@ -4323,13 +4727,16 @@ def mesh_rank(dev, spec) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    globals().update(spec["sizes"])
     t0 = time.perf_counter()
     out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
            "device": str(dev)}
     out["train"] = mesh_train(dev, spec, MESH_MODES)
     out["driver"] = mesh_driver(dev, spec)
     out["search"] = mesh_search(dev, spec)
+    out["serve_main"] = mesh_serve_main(dev, spec)
     out["rerank"] = mesh_rerank(dev, spec)
+    out["v1"] = mesh_v1(dev, spec)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4409,10 +4816,32 @@ def phase_mesh(dev, smi: str, cfg=None) -> dict:
             f"{spec['search_ms']:.3f} ms), each rank holds "
             f"{x[0]['held_gib']:.2f} GiB, peaks "
             f"{[round(v['peak_gib'], 2) for v in x]} GiB {label}")
+    for part in ("docs", "queries"):
+        x = ranks[0]["search"][part]["serve"]
+        log(f"mesh: served {part} partition over {MESH_WORLD} ranks (rank 0 "
+            f"encodes, BERT-base bf16; {MESH_SERVE_CLIENTS} concurrent "
+            f"clients x {MESH_SERVE_QUERIES} queries, k={K}, max_batch "
+            f"{MAX_BATCH}, {N_MSMARCO} x {D} bf16): request ms "
+            f"{[round(v, 1) for v in x['latency_ms']]}; dispatches (rows, "
+            f"exec ms) {[(a, round(b, 1)) for a, b in x['dispatches']]}; "
+            f"service {x['stats']}; the follower ran "
+            f"{ranks[1]['search'][part]['serve']['follower_searches']} "
+            f"searches; equal to one process above the tie band {label}")
     for r in ranks:
         for k, n in r["search"]["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    log(f"mesh: kernel launches on the mesh searches, summed over ranks: "
+        for k in ("plain_gmax_segs", "gather_rescore_seg"):
+            launches[k] = launches.get(k, 0) + r["serve_main"]["launches"][k]
+    m = ranks[0]["serve_main"]
+    log(f"mesh: serve.main on {m['world']} ranks (queries partition, 2 "
+        f"segments, {MESH_SMALL_INDEX} docs, BERT-base from an HF "
+        f"directory): /health {m['health']}, one /search of "
+        f"{MESH_SERVE_QUERIES} queries in {m['ms']:.1f} ms, stopped by "
+        f"SIGTERM after {[round(r['serve_main']['seconds'], 2) for r in ranks]}"
+        f" s; launches by rank "
+        f"{[r['serve_main']['launches'] for r in ranks]}")
+    log(f"mesh: kernel launches on the mesh searches and served searches, "
+        f"summed over ranks: "
         f"{launches}; kernel vs plain max abs err by rank "
         f"{[r['search']['kernel_err'] for r in ranks]}")
     rr = [r["rerank"] for r in ranks]
@@ -4421,8 +4850,62 @@ def phase_mesh(dev, smi: str, cfg=None) -> dict:
         f"process {spec['rerank_pairs_s']:.1f}), max err "
         f"{max(x['err'] for x in rr):.3e} of max|score| {rr[0]['scale']:.3e}"
         f" {label}")
+    for mode in MESH_V1_MODES:
+        t = [r["v1"][mode] for r in ranks]
+        extra = ""
+        if mode == "meta":
+            extra = (f", meta weight max abs err "
+                     f"{max(x['weight_err'] for x in t):.3e}")
+        if mode == "reinfoselect":
+            extra = (f", keep decisions equal to one process "
+                     f"{all(x['decisions_equal'] for x in t)} (kept "
+                     f"{t[0]['kept']} of {MESH_V1_BATCH} a step)")
+        log(f"mesh: v1 {mode} (dp=2; {MESH_V1_STEPS} steps, global batch "
+            f"{MESH_BERT_PAIRS if mode == 'bert' else MESH_V1_BATCH} pairs, "
+            + ("BertRanker BERT-base fp32" if mode == "bert" else
+               f"KNRM {MESH_V1_VOCAB} x {V1_EMBED}")
+            + f"): step ms by rank {[round(x['step_ms'], 1) for x in t]} "
+            f"(one process {spec['v1_ms_' + mode]:.1f}), losses "
+            f"{t[0]['losses']}, loss rel err "
+            f"{max(x['loss_err'] for x in t):.3e}, worst parameter error "
+            f"{max(x['param_err'] for x in t):.3f} of its tolerance "
+            f"(rtol = atol = {MESH_REL}; {t[0]['worst']})"
+            f"{extra}; parameters bit-identical across ranks {label}")
     log(f"mesh: rank seconds {[round(r['seconds'], 2) for r in ranks]}")
+    mesh_perf_twins(dev, smi)
     return launches
+
+
+def mesh_perf_twins(dev, smi: str):
+    """The mesh paths' perf twins at short settings, through their
+    ``main(argv)``: mesh_parity at its defaults (2,210,456 docs, Q=128,
+    k=1000), sharded_merge over 2 ranks at the TPU script's sizes, and
+    serve_load for 5 s over 1,000,000 docs."""
+    from openmatch_tpu_torch.perf import mesh_parity, serve_load, sharded_merge
+
+    if dev.type != "cuda":  # a CPU rehearsal: the CPU tests run them
+        return
+    t0 = time.perf_counter()
+    p = mesh_parity.main([])
+    log(f"mesh: perf/mesh_parity: direct {p['direct_ms']:.3f} ms, mesh "
+        f"{p['mesh_ms']:.3f} ms ({p['dispatch']}), ratio {p['ratio']:.3f} "
+        f"({'done' if p['done'] else 'above 5%'}), max score diff "
+        f"{p['max_score_diff']:.3e} ({smi})")
+    m = sharded_merge.main(["--world", str(MESH_WORLD)])
+    log(f"mesh: perf/sharded_merge ({MESH_WORLD} ranks on "
+        f"{'one card' if torch.cuda.device_count() < MESH_WORLD else 'cards'}"
+        f", kernel path, {m['shard_rows']} rows x {m['dim']} a rank): "
+        + "; ".join(f"Q={r['Q']} k={r['k']} full {r['t_full_ms']:.3f} ms, "
+                    f"sharded {r['t_sharded_ms']:.3f} ms"
+                    for r in m["rows"]) + f" ({smi})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = serve_load.main(["--mode", "search", "--n-docs", "1000000",
+                           "--concurrency", "32", "--duration", "5",
+                           "--port", "0"])
+    log(f"mesh: perf/serve_load (one card, 1,000,000 docs, 32 clients, "
+        f"5 s): {json.dumps(out)} ({smi})")
+    log(f"mesh: perf twins {time.perf_counter() - t0:.2f} s")
 
 
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",

@@ -39,13 +39,15 @@ def maybe_init_distributed(device) -> Tuple[int, int]:
 
 
 def refuse_ranks(what: str):
-    """Raise when this job runs on more than one rank: ``what`` does not
-    run over ranks yet."""
+    """Raise when this job runs on more than one rank: ``what`` runs on one
+    process, as the JAX package's driver runs on one device (it builds no
+    mesh)."""
     count = max(env_world_size(), world_size())
     if count > 1:
         raise NotImplementedError(
-            f"{what} over {count} ranks is not ported to PyTorch yet "
-            "(ROADMAP.md, P10)")
+            f"{what} runs on one process, as the JAX package's {what} "
+            f"runs on one device (it builds no mesh); start it without a "
+            f"launcher of several ranks (this job has {count})")
 
 
 def _auto_tokenizer():

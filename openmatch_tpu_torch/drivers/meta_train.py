@@ -19,6 +19,13 @@ when named). The models are ``train_v1``'s. ``main`` takes ``tokenizer=``
 (an HF-style tokenizer for the BERT models, a ``WordTokenizer`` for the
 others) in place of loading one; checkpoints are ``train_state.msgpack``
 in the JAX package's layout.
+
+On N ranks (``torchrun --nproc_per_node=N -m
+openmatch_tpu_torch.drivers.meta_train ...``) every rank reads the same
+source and target batches, the GLOBAL batches as in JAX, and trains on its
+``1/N`` of each one's rows; the meta weights are the global batch's. Rank
+0 alone evaluates (its metric broadcast) and writes checkpoints,
+``weights.txt`` and the dev run.
 """
 
 from __future__ import annotations
@@ -35,8 +42,8 @@ from ..train.v1_trainer import predict_scores
 from ..utils.metrics import evaluate_run, load_qrels
 from ..utils.trec import save_as_trec
 from ..v1.dataset import V1Dataset
-from .common import (DictOrStr, build_v1_tokenizer, setup_logging,
-                     split_device_flag)
+from .common import (DictOrStr, build_v1_tokenizer, maybe_init_distributed,
+                     setup_logging, split_device_flag)
 from .train_v1 import add_model_args, build_v1_collator, build_v1_model
 
 
@@ -70,6 +77,7 @@ def main(argv=None, tokenizer=None):
     parser.add_argument("-save_folder", required=True)
     parser.add_argument("-max_input", type=int, default=1_280_000)
     args = parser.parse_args(rest)
+    maybe_init_distributed(device)
 
     os.makedirs(args.save_folder, exist_ok=True)
     if tokenizer is None:
@@ -129,11 +137,12 @@ def main(argv=None, tokenizer=None):
     out = trainer.train(data_iter(), target_iter, eval_fn=eval_fn)
     trainer.save_checkpoint(os.path.join(args.save_folder, "final"))
     if eval_fn is not None:
-        eval_fn(trainer)
+        trainer.evaluate(eval_fn)
     w = np.concatenate(out["weights"]) if out["weights"] else np.zeros(1)
-    print(f"finished at step {out['final_step']}; "
-          f"mean weight {w.mean():.4f}, zero-weight fraction "
-          f"{(w == 0).mean():.2f}")
+    if trainer.is_main:
+        print(f"finished at step {out['final_step']}; "
+              f"mean weight {w.mean():.4f}, zero-weight fraction "
+              f"{(w == 0).mean():.2f}")
     return out
 
 

@@ -17,6 +17,24 @@ Port of ``openmatch_tpu/drivers/serve.py``:
 
 Either endpoint runs alone: ``--encoded_save_path`` enables /search,
 ``--rr_model_name_or_path`` enables /rerank; a disabled one answers 404.
+
+Over N ranks (JAX's mesh ``Searcher`` on a host of several chips)::
+
+    torchrun --nproc_per_node=N -m openmatch_tpu_torch.drivers.serve \
+        --model_name_or_path ckpt_dr --encoded_save_path embeddings/ \
+        --port 8080 [--search_partition docs|queries] [--search_n_segs 2]
+
+every rank builds the mesh ``Searcher`` (``make_mesh(dp=N, tp=1)``) from
+the host index, copying only its shard ("docs") or its replica's segments
+("queries") to its card. Rank 0 alone encodes queries, runs the
+coalescing queue and the HTTP front on ``--port`` (and /rerank, which
+takes no mesh, as in JAX); before each search it sends the query reps to
+the other ranks over ``parallel.mesh.ControlChannel``, and they run the
+same search in a loop until "stop". An idle rank 0 sends a keep-alive
+every ``KEEPALIVE_S``, well inside the groups' collective timeout.
+SIGTERM or SIGINT to rank 0 stops the server and the followers (exit 0).
+A rank that fails fails the search in flight (HTTP 500) and every later
+one, and the server exits non-zero: rank 0 never searches alone.
 /rerank scores as ``Reranker`` does (``RRModel.score`` then
 ``relevance_logprob``). ``--search_n_segs`` > 1 holds the index as that
 many separate device allocations (the kernel path only: ``--search_method
@@ -33,10 +51,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import queue
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,10 +68,16 @@ from ..data.collators import pad_ids
 from ..models.dr_model import DRModel
 from ..models.rr_model import RRModel
 from ..ops.mips import Searcher
+from ..parallel import mesh as mesh_mod
+from ..parallel.mesh import (OP_KEEPALIVE, OP_SEARCH, OP_STOP,
+                             ControlChannel, make_mesh, world_size)
 from ..retriever.reranker import (_model_max_positions, bucket_lens,
                                   collate_pairs, device_pair_len, encode_pair,
                                   score_batch)
-from .common import load_tokenizer, setup_logging, split_device_flag
+from .common import (load_tokenizer, maybe_init_distributed, setup_logging,
+                     split_device_flag)
+
+logger = logging.getLogger(__name__)
 
 
 class OverloadedError(RuntimeError):
@@ -66,10 +93,14 @@ class _QueueService:
     submitters fail fast with OverloadedError.
 
     Subclasses define ``_rows(args)`` (rows a request contributes) and
-    ``_run_many(requests)`` (batch-execute, one result per request)."""
+    ``_run_many(requests)`` (batch-execute, one result per request), and
+    may define ``_idle()`` (run when nothing arrived for ``idle_s``) and
+    ``_on_close()``. Once ``failed`` is set, every request fails at once."""
 
     max_queue = 256
     coalesce_window_s = 0.002
+    idle_s: Optional[float] = None  # None: wait for work without end
+    failed: Optional[BaseException] = None
 
     def _start_worker(self):
         self._queue: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
@@ -91,10 +122,21 @@ class _QueueService:
         self._queue.put(None)
         self._thread.join()
 
+    def _idle(self):
+        pass
+
+    def _on_close(self):
+        pass
+
     def _serve_one_group(self) -> bool:
         """Serve one coalesced group; False once ``close`` was called."""
-        first = self._queue.get()
+        try:
+            first = self._queue.get(timeout=self.idle_s)
+        except queue.Empty:
+            self._idle()
+            return True
         if first is None:
+            self._on_close()
             return False
         items = [first]
         deadline = time.monotonic() + self.coalesce_window_s
@@ -116,6 +158,8 @@ class _QueueService:
                                           len(items))
         t_exec0 = time.monotonic()
         try:
+            if self.failed is not None:
+                raise RuntimeError(f"the service failed: {self.failed}")
             self._exec_device_s = 0.0  # _run_many accumulates
             results = self._run_many([args for args, _, _ in items])
             for (_, reply, _), res in zip(items, results):
@@ -151,10 +195,19 @@ class _QueueService:
 
 
 class RetrievalService(_QueueService):
-    """Query encoding plus exact search behind a single-consumer queue."""
+    """Query encoding plus exact search behind a single-consumer queue.
+
+    With a ``channel`` (rank 0 of a mesh ``Searcher``'s ranks) every
+    search's reps go to the other ranks first, a keep-alive goes every
+    ``parallel.mesh.KEEPALIVE_S`` while idle, and ``close`` sends "stop".
+    A failure on the channel or in a search over the ranks sets
+    ``failed`` (the ranks are out of step) and calls ``on_failure``."""
+
+    on_failure = None  # called with the error once ``failed`` is set
 
     def __init__(self, model, tokenizer, searcher: Searcher, doc_ids,
-                 q_max_len: int, max_batch: int):
+                 q_max_len: int, max_batch: int,
+                 channel: Optional[ControlChannel] = None):
         """The model runs on the searcher's device, where the index is."""
         self.model = model
         self.tokenizer = tokenizer
@@ -163,7 +216,39 @@ class RetrievalService(_QueueService):
         self.q_max_len = q_max_len
         self.max_batch = max_batch
         self.device = searcher.device
+        self.channel = channel
+        if channel is not None:
+            self.idle_s = mesh_mod.KEEPALIVE_S
         self._start_worker()
+
+    def _fail(self, err: BaseException):
+        if self.failed is None:
+            self.failed = err
+            logger.error("serving over ranks failed: %s: %s",
+                         type(err).__name__, err)
+            if self.on_failure is not None:
+                self.on_failure(err)
+
+    def _over_ranks(self, op: int, reps=None):
+        """Send ``op`` to the other ranks, then run a search's share on
+        this rank; a failure fails the service and is raised."""
+        try:
+            self.channel.send(op, reps)
+            return self.searcher.search(reps) if op == OP_SEARCH else None
+        except Exception as e:
+            self._fail(e)
+            raise
+
+    def _idle(self):
+        if self.channel is not None and self.failed is None:
+            try:
+                self._over_ranks(OP_KEEPALIVE)
+            except Exception:
+                pass  # recorded in ``failed``
+
+    def _on_close(self):
+        if self.channel is not None and self.failed is None:
+            self._over_ranks(OP_STOP)
 
     def warmup(self):
         self.search(["warmup"], k=1)
@@ -198,7 +283,11 @@ class RetrievalService(_QueueService):
             chunk = queries[start:start + self.max_batch]
             t_dev = time.monotonic()  # device span: encode->search->readback
             reps = self.encode_queries(chunk)
-            scores, indices = self.searcher.search(reps)
+            if self.channel is None:
+                scores, indices = self.searcher.search(reps)
+            else:
+                scores, indices = self._over_ranks(
+                    OP_SEARCH, reps.to(self.searcher.dtype).contiguous())
             s_out.append(scores.float().cpu().numpy())
             i_out.append(indices.cpu().numpy())
             self._exec_device_s += time.monotonic() - t_dev
@@ -386,23 +475,53 @@ def make_handler(service, default_k: int, rerank_service=None):
     return Handler
 
 
-def build_service(model_args, data_args, infer_args, max_batch: int,
-                  device, tokenizer=None) -> RetrievalService:
-    """The service over ``--encoded_save_path``; ``tokenizer`` defaults to
-    ``load_tokenizer(model_args)``."""
+def load_searcher(data_args, infer_args, device, mesh=None):
+    """(Searcher, doc ids) over ``--encoded_save_path``: on ``device``, or
+    over ``mesh``'s ranks from the bf16 index cast on the host (JAX
+    ``build_service``), so each rank copies only its part to its card and
+    the whole index is never staged on one."""
     from ..retriever.retriever import Retriever, build_searcher
 
+    retriever = Retriever.from_embeddings(None, data_args, infer_args, 0,
+                                          device, mesh)
+    index = retriever.index_tensor(device="cpu" if mesh is not None
+                                   else None)
+    retriever.doc_embeddings = None  # the Searcher holds the copy we keep
+    searcher = build_searcher(index, infer_args, infer_args.retrieve_depth,
+                              mesh)
+    return searcher, retriever.doc_ids
+
+
+def build_service(model_args, data_args, infer_args, max_batch: int,
+                  device, tokenizer=None, mesh=None) -> RetrievalService:
+    """The service over ``--encoded_save_path``; ``tokenizer`` defaults to
+    ``load_tokenizer(model_args)``. With a ``mesh`` this is rank 0's
+    service: its searches go over the ranks through a ``ControlChannel``
+    (the other ranks run ``follow``)."""
     if tokenizer is None:
         tokenizer = load_tokenizer(model_args)
     model = DRModel.build(model_args, device=device)
-    retriever = Retriever.from_embeddings(
-        model, data_args, infer_args, tokenizer.pad_token_id or 0, device)
-    searcher = build_searcher(retriever.index_tensor(), infer_args,
-                              infer_args.retrieve_depth)
-    retriever.doc_embeddings = None  # the device index is the copy we keep
-    return RetrievalService(model, tokenizer, searcher, retriever.doc_ids,
+    searcher, doc_ids = load_searcher(data_args, infer_args, device, mesh)
+    channel = (None if mesh is None else
+               ControlChannel(mesh, searcher.dim, searcher.dtype))
+    return RetrievalService(model, tokenizer, searcher, doc_ids,
                             q_max_len=data_args.q_max_len,
-                            max_batch=max_batch)
+                            max_batch=max_batch, channel=channel)
+
+
+def follow(searcher: Searcher, channel: ControlChannel) -> int:
+    """The loop of a rank other than 0: each "search" from rank 0 runs
+    ``searcher.search`` on the reps sent, a keep-alive does nothing, and
+    "stop" returns; returns the searches run."""
+    n = 0
+    with torch.inference_mode():
+        while True:
+            op, reps = channel.receive()
+            if op == OP_STOP:
+                return n
+            if op == OP_SEARCH:
+                searcher.search(reps)
+                n += 1
 
 
 def build_rerank_service(rr_path: str, data_args, max_batch: int, device,
@@ -425,9 +544,46 @@ class ServingHTTPServer(ThreadingHTTPServer):
     request_queue_size = 1024
 
 
+def _set_handlers(handlers: dict) -> dict:
+    """Install ``{signal: handler}``; returns the handlers they replace
+    (none off the main thread, where the caller stops the server)."""
+    previous = {}
+    for sig, handler in handlers.items():
+        try:
+            previous[sig] = signal.signal(sig, handler)
+        except ValueError:
+            pass
+    return previous
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def _follower_main(data_args, infer_args, device, mesh) -> None:
+    """A rank other than 0: the mesh Searcher, then ``follow`` until rank
+    0 sends "stop". Signals are left to rank 0, which sends "stop"."""
+    if not infer_args.encoded_save_path:
+        logger.info("rank %d: nothing to serve over ranks (/rerank runs on "
+                    "rank 0)", mesh.rank)
+        return
+    previous = _set_handlers({signal.SIGTERM: signal.SIG_IGN,
+                              signal.SIGINT: signal.SIG_IGN})
+    try:
+        searcher, _ = load_searcher(data_args, infer_args, device, mesh)
+        n = follow(searcher, ControlChannel(mesh, searcher.dim,
+                                            searcher.dtype))
+    finally:
+        _set_handlers(previous)
+    logger.info("rank %d: stopped after %d searches", mesh.rank, n)
+
+
 def main(argv=None, tokenizer=None, rr_tokenizer=None):
     """``tokenizer`` / ``rr_tokenizer``: the retrieval and the rerank
-    model's tokenizers, by default ``load_tokenizer`` of each path."""
+    model's tokenizers, by default ``load_tokenizer`` of each path. Under
+    a launcher of several ranks, rank 0 serves and the others follow (the
+    module docstring); ``main`` returns on every rank once rank 0 was
+    stopped, and raises on rank 0 when a rank failed."""
     setup_logging()
     device, rest = split_device_flag(argv)
     extra = argparse.ArgumentParser(allow_abbrev=False)
@@ -438,10 +594,17 @@ def main(argv=None, tokenizer=None, rr_tokenizer=None):
     extra_args, rest = extra.parse_known_args(rest)
     model_args, data_args, infer_args = ArgumentParser(
         (ModelArguments, DataArguments, InferenceArguments)).parse(rest)
+    maybe_init_distributed(device)
+    mesh = None
+    if world_size() > 1:
+        mesh = make_mesh(world_size(), 1, device)
+        if mesh.rank != 0:
+            return _follower_main(data_args, infer_args, device, mesh)
     service = rerank_service = None
     if infer_args.encoded_save_path:
         service = build_service(model_args, data_args, infer_args,
-                                extra_args.max_batch, device, tokenizer)
+                                extra_args.max_batch, device, tokenizer,
+                                mesh)
         service.warmup()
     if extra_args.rr_model_name_or_path:
         rerank_service = build_rerank_service(
@@ -457,8 +620,31 @@ def main(argv=None, tokenizer=None, rr_tokenizer=None):
         make_handler(service, infer_args.retrieve_depth, rerank_service))
     endpoints = ((["/search"] if service else [])
                  + (["/rerank"] if rerank_service else []))
-    print(f"serving {'+'.join(endpoints)} on :{extra_args.port}")
-    server.serve_forever()
+    print(f"serving {'+'.join(endpoints)} on :{extra_args.port}"
+          + (f" over {mesh.size('world')} ranks" if mesh else ""))
+    if mesh is None:
+        server.serve_forever()
+        return
+    # over ranks: answer what is in flight, then stop the followers
+    server.daemon_threads = False  # server_close() joins the handlers
+    if service is not None:
+        service.on_failure = lambda err: threading.Thread(
+            target=server.shutdown, daemon=True).start()
+    # SIGTERM (a launcher's stop) ends serve_forever as SIGINT does
+    previous = _set_handlers({signal.SIGTERM: _interrupt})
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        _set_handlers(previous)
+        server.server_close()
+        for s in (service, rerank_service):
+            if s is not None:
+                s.close()
+    if service is not None and service.failed is not None:
+        raise RuntimeError("serving over ranks failed: a rank is out of "
+                           "step") from service.failed
 
 
 if __name__ == "__main__":

@@ -21,6 +21,15 @@ the best ranker after each policy update, ``-tau`` is the gumbel-softmax
 temperature.
 ``main`` takes ``tokenizer=`` (an HF-style tokenizer for the BERT models, a
 ``WordTokenizer`` for the others) in place of loading one.
+
+On N ranks (JAX's trainers take every device of the host)::
+
+    torchrun --nproc_per_node=N -m openmatch_tpu_torch.drivers.train_v1 ...
+
+every rank reads the same batches of ``-batch_size`` pairs, the GLOBAL
+batch as in JAX, and trains on its ``1/N`` of the rows (the batch must
+split evenly); rank 0 alone evaluates (its metric broadcast) and writes
+``-save`` and ``-res``.
 """
 
 from __future__ import annotations
@@ -42,8 +51,8 @@ from ..v1.dataset import BertPairCollator, V1Dataset, WordCollator
 from ..v1.long_doc import BertMaxPCollator, EDRMCollator
 from ..v1.models import EDRM, KNRM, TK, BertMaxP, BertRanker, ConvKNRM
 from ..v1.tokenizer import WordTokenizer
-from .common import (DictOrStr, build_v1_tokenizer, setup_logging,
-                     split_device_flag)
+from .common import (DictOrStr, build_v1_tokenizer, maybe_init_distributed,
+                     setup_logging, split_device_flag)
 
 BERT_MODELS = ("bert", "roberta", "electra")
 
@@ -226,6 +235,7 @@ def main(argv=None, tokenizer=None):
     parser.add_argument("-tau", type=float, default=1.0,
                         help="gumbel-softmax temperature")
     args = parser.parse_args(rest)
+    maybe_init_distributed(device)
     if args.maxp and args.reinfoselect:
         raise ValueError("-maxp and -reinfoselect cannot combine (the policy "
                          "scores flat cross-encoder inputs)")
@@ -287,14 +297,16 @@ def main(argv=None, tokenizer=None):
     if args.reinfoselect:
         out = trainer.train(data_iter(), eval_fn)
         rates = out["keep_rates"]
-        print(f"keep-rate {np.mean(rates):.2f} over {len(rates)} selection "
-              "steps")
+        if trainer.is_main:
+            print(f"keep-rate {np.mean(rates):.2f} over {len(rates)} "
+                  "selection steps")
     else:
         out = trainer.train(data_iter(), eval_fn=eval_fn)
     trainer.save_checkpoint(args.save)
     if eval_fn is not None:
-        eval_fn(trainer)
-    print(f"finished at step {out['final_step']}")
+        trainer.evaluate(eval_fn)
+    if trainer.is_main:
+        print(f"finished at step {out['final_step']}")
     return out
 
 

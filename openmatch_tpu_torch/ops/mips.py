@@ -438,6 +438,7 @@ class Searcher:
         self._prep = None
         self.corpus = None
         self.dtype, self.n_docs = corpus.dtype, corpus.shape[0]
+        self.dim = corpus.shape[1]
         if mesh is None:
             if method == "kernel":
                 from .cuda_mips import prepare_plain_corpus

@@ -19,6 +19,11 @@ backends take (``all_reduce``, ``broadcast`` and the list form of
 ``all_gather``). Every process group has a timeout, so a hung collective
 ends the run.
 
+A serving job's ranks follow rank 0 through ``ControlChannel``: a small
+fixed header (an op and a row count) and the query reps, broadcast before
+each search; an idle rank 0 sends a keep-alive well inside the groups'
+timeout, and "stop" ends the followers (``drivers/serve.py``).
+
 Launch: ``torchrun --nproc_per_node=N -m openmatch_tpu_torch.drivers.train_dr
 ...``; tests and ``chip_smoke.py`` use ``spawn_ranks``.
 """
@@ -33,7 +38,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -274,6 +279,97 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh,
     if mesh.group(axis) is None:
         return x
     return _AllGatherRows.apply(x, mesh, axis)
+
+
+def reduce_grads(params, mesh: Mesh, extras=(), op: str = "mean") -> list:
+    """Every parameter's ``.grad`` (a missing one as zeros) and the scalar
+    ``extras`` summed or averaged (``op``) over the data group in one flat
+    all-reduce; returns the extras, reduced (fp32, on their device)."""
+    extras = [torch.as_tensor(e).detach().reshape(1).float().clone()
+              for e in extras]
+    if mesh.group(DATA_AXIS) is None:
+        return extras
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat_all_reduce([p.grad for p in params] + extras, mesh, DATA_AXIS, op)
+    return extras
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *tensors):
+        ctx.mesh, ctx.axis = mesh, axis
+        out = [t.detach().clone() for t in tensors]
+        flat_all_reduce(out, mesh, axis)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.clone() for g in grads]
+        flat_all_reduce(grads, ctx.mesh, ctx.axis)
+        return (None, None, *grads)
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                   axis: str = DATA_AXIS) -> list:
+    """The ranks' ``tensors`` summed over ``axis`` (one flat collective),
+    differentiable: the backward sums the incoming gradients over the axis
+    as well, since every rank's sum feeds every rank's loss (JAX ``psum``
+    under ``grad``). New tensors; the inputs are left as they are."""
+    tensors = list(tensors)
+    if mesh.group(axis) is None or not tensors:
+        return tensors
+    return list(_AllReduceSum.apply(mesh, axis, *tensors))
+
+
+# ---- the serving control channel -------------------------------------------
+
+OP_SEARCH, OP_KEEPALIVE, OP_STOP = 1, 2, 3
+KEEPALIVE_S = TIMEOUT_S / 10  # an idle rank 0 speaks at least this often
+
+
+class ControlChannel:
+    """What rank 0 of a serving job tells the other ranks, over the world
+    group: a header of two int64 (the op and a row count ``Q``), then for
+    "search" the ``[Q, dim]`` query reps. Rank 0 calls ``send``; every
+    other rank waits in ``receive`` and then runs what rank 0 runs (a
+    search's collectives included), in the same order. A rank waiting
+    here longer than the group's timeout fails, so an idle rank 0 sends
+    "keep-alive" every ``KEEPALIVE_S`` (``RetrievalService``), and "stop"
+    ends the followers' loop. The reps travel as their bytes (gloo takes
+    no bf16), so the form works on gloo and NCCL alike, bit for bit."""
+
+    def __init__(self, mesh: Mesh, dim: int, dtype: torch.dtype):
+        self.mesh, self.dim, self.dtype = mesh, dim, dtype
+
+    def _header(self, op: int = 0, rows: int = 0) -> Tuple[int, int]:
+        h = torch.tensor([op, rows], dtype=torch.int64,
+                         device=self.mesh.device)
+        broadcast(h, self.mesh)
+        return int(h[0]), int(h[1])
+
+    @staticmethod
+    def _wire(x: torch.Tensor) -> torch.Tensor:
+        return x.view(torch.uint8)
+
+    def send(self, op: int, reps: Optional[torch.Tensor] = None):
+        """Rank 0: ``op`` (with ``reps`` [Q, dim] for ``OP_SEARCH``)."""
+        self._header(op, 0 if reps is None else reps.shape[0])
+        if reps is not None:
+            broadcast(self._wire(reps.to(self.dtype).contiguous()),
+                      self.mesh)
+
+    def receive(self) -> Tuple[int, Optional[torch.Tensor]]:
+        """Any other rank: (op, reps or None), as rank 0 sent them."""
+        op, rows = self._header()
+        if op != OP_SEARCH:
+            return op, None
+        reps = torch.empty((rows, self.dim), dtype=self.dtype,
+                           device=self.mesh.device)
+        broadcast(self._wire(reps), self.mesh)
+        return op, reps
 
 
 # ---- batches ---------------------------------------------------------------

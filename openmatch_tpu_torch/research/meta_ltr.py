@@ -16,6 +16,16 @@ the BERT encoder is plain matmul and softmax).
 ``per_example_loss_fn(params, batch) -> [B]``,
 ``dev_loss_fn(params, dev_batch) -> scalar``. A parameter the source loss
 does not reach has a zero gradient, as in ``jax.grad``.
+
+Over ranks (a ``mesh`` whose data axis splits both batches) the numbers are
+those of one process over the global batches, as JAX's SPMD step computes
+them: the virtual step's gradient of ``sum(eps * loss)`` is summed over the
+ranks inside the differentiated graph (``parallel.mesh.all_reduce_sum``,
+whose backward sums the dev loss's gradients too), ``dev_loss_fn`` returns
+this rank's share of the global mean (its rows' sum over the global
+count), the normaliser ``weights.sum()`` and its ``> 0`` test are global,
+and the real update's gradient of ``sum(w * loss)`` is summed, not
+averaged. Each rank gets its rows' weights.
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import (DATA_AXIS, all_reduce, all_reduce_sum,
+                             reduce_grads)
 
 
 def meta_reweight_step(
@@ -32,8 +45,10 @@ def meta_reweight_step(
     train_batch,
     dev_batch,
     virtual_lr: float = 1e-3,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(weights [B], weighted_loss) for the real update.
+    """(weights [B], weighted_loss) for the real update; over a ``mesh``,
+    this rank's rows' weights and its part of the loss.
 
     weights = relu(-d dev_loss / d eps) normalised to sum 1: examples whose
     gradient helps the target domain get positive weight, harmful ones
@@ -48,6 +63,9 @@ def meta_reweight_step(
                       device=losses.device, requires_grad=True)
     grads = torch.autograd.grad((eps * losses).sum(), tensors,
                                 create_graph=True, allow_unused=True)
+    if mesh is not None and mesh.group(DATA_AXIS) is not None:
+        grads = all_reduce_sum([torch.zeros_like(p) if g is None else g
+                                for p, g in zip(tensors, grads)], mesh)
     virtual = {n: p if g is None else p - virtual_lr * g
                for n, p, g in zip(names, tensors, grads)}
     (grad_eps,) = torch.autograd.grad(dev_loss_fn(virtual, dev_batch), eps,
@@ -56,6 +74,8 @@ def meta_reweight_step(
         grad_eps = torch.zeros_like(eps)
     weights = torch.relu(-grad_eps.detach())
     norm = weights.sum()
+    if mesh is not None:
+        norm = all_reduce(norm.clone(), mesh, DATA_AXIS)
     weights = torch.where(norm > 0, weights / torch.clamp(norm, min=1e-8),
                           torch.zeros_like(weights))
     return weights, (weights * losses).sum()
@@ -66,22 +86,28 @@ def make_meta_train_step(
     dev_loss_fn: Callable,
     virtual_lr: float = 1e-3,
     schedule: Optional[Callable[[int], float]] = None,
+    mesh=None,
 ):
     """``step(model, optimizer, count, train_batch, dev_batch) -> (loss,
     weights)``: one update of ``model``'s parameters by ``optimizer`` with
     the reweighted gradient. ``schedule(count) -> lr`` overrides
     ``virtual_lr`` with the live learning rate at update ``count`` (the
     reference's virtual step at the scheduler's current lr). The caller
-    steps its scheduler after."""
+    steps its scheduler after. Over a ``mesh`` the batches are this
+    rank's rows, the gradient and the returned loss are summed over the
+    ranks, and the weights are this rank's rows'."""
 
     def step(model, optimizer, count: int, train_batch, dev_batch):
         vlr = schedule(count) if schedule is not None else virtual_lr
         optimizer.zero_grad(set_to_none=True)
         weights, loss = meta_reweight_step(
             dict(model.named_parameters()), per_example_loss_fn,
-            dev_loss_fn, train_batch, dev_batch, vlr)
+            dev_loss_fn, train_batch, dev_batch, vlr, mesh)
         loss.backward()
+        if mesh is not None:
+            (loss,) = reduce_grads(model.parameters(), mesh, [loss],
+                                   op="sum")
         optimizer.step()
-        return loss.detach(), weights
+        return loss.detach().reshape(()), weights
 
     return step

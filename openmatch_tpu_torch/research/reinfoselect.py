@@ -131,14 +131,17 @@ def refresh_step_loss(logits: torch.Tensor, noise: torch.Tensor,
     return (lp_flip * mask).sum() * reward
 
 
-def make_policy_refresh(policy_score_fn: Callable, optimizer, tau: float):
+def make_policy_refresh(policy_score_fn: Callable, optimizer, tau: float,
+                        reduce: Optional[Callable[[], None]] = None):
     """``refresh(buffer, reward)``: the REINFORCE update of the policy over
     ``buffer``, a list of ``(inputs, noise, actions)`` per selection step.
     The loss is a plain sum over the steps, so each step's gradient is
     accumulated into ``.grad`` by its own backward (no step's graph
-    outlives it); then one ``optimizer.step()`` (the port's ``OptaxAdam``,
-    which reads a parameter without a gradient as a zero gradient, as
-    optax does). ``policy_score_fn(inputs) -> [B, 2]``."""
+    outlives it); then ``reduce()`` when given (over ranks: the gradients
+    summed over the ranks, whose buffers hold their rows of each step), and
+    one ``optimizer.step()`` (the port's ``OptaxAdam``, which reads a
+    parameter without a gradient as a zero gradient, as optax does).
+    ``policy_score_fn(inputs) -> [B, 2]``."""
 
     def refresh(buffer, reward: float):
         reward = float(reward)
@@ -147,6 +150,8 @@ def make_policy_refresh(policy_score_fn: Callable, optimizer, tau: float):
             logits = policy_score_fn(inputs)
             refresh_step_loss(logits, noise, actions, reward,
                               tau).backward()
+        if reduce is not None:
+            reduce()
         optimizer.step()
 
     return refresh

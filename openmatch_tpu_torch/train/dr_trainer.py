@@ -29,7 +29,9 @@ config carries nonzero rates, draws its masks from a generator on the
 trainer's device seeded from (``seed``, step, data index): the ranks of a
 model group share masks, so their replicated activations stay equal, and a
 resumed run replays the same masks. The loss stays on the device between
-logging steps. Only rank 0 writes checkpoints, in the one-process layout.
+logging steps. Only rank 0 writes checkpoints, in the one-process layout:
+the JAX package's ``params.msgpack`` and ``train_state.msgpack``, so a run
+of either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -40,19 +42,21 @@ import os
 import time
 from typing import Any, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
 from ..losses import dual_contrastive_loss, simple_contrastive_loss
-from ..models.jax_convert import params_from_jax
+from ..models.dr_model import num_heads
+from ..models.jax_convert import params_from_jax, params_to_jax
 from ..parallel import tp as tp_mod
 from ..parallel.grad_cache import grad_cache_backward
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather_rows,
                              all_reduce, flat_all_reduce, make_mesh,
-                             replicate)
+                             reduce_grads, replicate)
 from .state import (latest_checkpoint, load_train_state, make_optimizer,
-                    save_train_state)
+                    optax_state_tree, restore_optimizer, save_train_state)
 
 logger = logging.getLogger(__name__)
 
@@ -167,7 +171,6 @@ class DRTrainer:
         alone, and the card's atomic adds (an embedding's backward) sum in
         any order, so they differ in the last bits and the replicas would
         drift apart."""
-        params = list(self.model.parameters())
         if self.tp_size > 1:
             flat_all_reduce(
                 [p.grad for n, p in self.model.named_parameters()
@@ -175,17 +178,10 @@ class DRTrainer:
                 self.mesh, MODEL_AXIS, op="mean")
         if self.mesh.group(DATA_AXIS) is None:
             return loss
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        loss = loss.reshape(1).float().clone()
-        parts = [p.grad for p in params] + [loss]
-        if self._grads_summed():
-            flat_all_reduce(parts, self.mesh, DATA_AXIS)
-            loss /= self.mesh.shape[DATA_AXIS]
-        else:
-            flat_all_reduce(parts, self.mesh, DATA_AXIS, op="mean")
-        return loss[0]
+        summed = self._grads_summed()
+        (loss,) = reduce_grads(self.model.parameters(), self.mesh, [loss],
+                               op="sum" if summed else "mean")
+        return loss[0] / self.mesh.shape[DATA_AXIS] if summed else loss[0]
 
     def train_step(self, batch) -> torch.Tensor:
         """One update from this rank's rows of the global batch; returns
@@ -227,58 +223,55 @@ class DRTrainer:
         return tp_mod.gather_params(self.model.state_dict(), self.mesh,
                                     self._hd)
 
-    def _full_optimizer_state(self) -> dict:
-        """The optimizer state in the one-process layout: under tp each
-        sharded moment gathered over the model group (new dicts: the
-        optimizer's own state is left as it is)."""
-        state = self.optimizer.state_dict()
-        if self.tp_size == 1:
-            return state
-        names = [n for n, _ in self.model.named_parameters()]
-        state["state"] = {i: dict(s) for i, s in state["state"].items()}
+    def _to_jax(self, named: Dict[str, torch.Tensor]) -> dict:
+        return params_to_jax(named, num_heads(self.model.encoder_config))
+
+    def _full_moments(self) -> dict:
+        """The Adam moments ``{"mu": {name: tensor}, "nu": ...}`` in the
+        one-process layout: under tp each sharded moment gathered over the
+        model group (every rank of the group must call it)."""
+        moments = {}
         for key in ("mu", "nu"):
-            local = {names[i]: s[key] for i, s in state["state"].items()
-                     if key in s}
-            full = tp_mod.gather_params(local, self.mesh, self._hd)
-            for i, s in state["state"].items():
-                if key in s:
-                    s[key] = full[names[i]]
-        return state
+            local = {n: (self.optimizer.state[p][key]
+                         if self.optimizer.state.get(p)
+                         else torch.zeros_like(p))
+                     for n, p in self.model.named_parameters()}
+            moments[key] = (local if self.tp_size == 1 else
+                            tp_mod.gather_params(local, self.mesh, self._hd))
+        return moments
 
-    def _cut_optimizer_state(self, state: dict) -> dict:
-        """A one-process optimizer state cut to this rank's slices."""
-        names = [n for n, _ in self.model.named_parameters()]
-        for i, s in state["state"].items():
-            for key in ("mu", "nu"):
-                if key in s:
-                    s[key] = tp_mod.local_slice(s[key],
-                                                self._param_specs[names[i]],
-                                                self.tp_size,
-                                                self.mesh.model_index)
-        return state
+    def _cut(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A one-process tensor cut to this rank's slice of ``name``."""
+        return tp_mod.local_slice(t, self._param_specs[name], self.tp_size,
+                                  self.mesh.model_index)
 
-    def _save_model(self, out: str):
+    def _save_model(self, out: str) -> Optional[Dict[str, torch.Tensor]]:
+        """Rank 0 writes the model; returns the full parameters there."""
         state = self.full_state() if self.tp_size > 1 else None  # collective
-        if self.mesh.rank == 0:
-            if state is None:
-                self.model.save(out)
-            else:
-                self.model.save(out, state_dict=state)
+        if self.mesh.rank != 0:
+            return None
+        if state is None:
+            self.model.save(out)
+            return self.model.state_dict()
+        self.model.save(out, state_dict=state)
+        return state
 
     def _barrier(self):
         if self.mesh.group("world") is not None:
             dist.barrier()
 
     def save_checkpoint(self, output_dir: Optional[str] = None) -> str:
-        """The model in the JAX package's format plus ``train_state.pt``,
-        in ``output_dir`` or ``<output_dir>/checkpoint-<step>``."""
+        """The model in the JAX package's format plus its
+        ``train_state.msgpack``, in ``output_dir`` or
+        ``<output_dir>/checkpoint-<step>``."""
         out = output_dir or os.path.join(self.args.output_dir,
                                          f"checkpoint-{self.step}")
-        self._save_model(out)
-        opt_state = self._full_optimizer_state()
+        state = self._save_model(out)
+        moments = self._full_moments()  # collective under tp
         if self.mesh.rank == 0:
-            save_train_state(self.step, self.optimizer, self.scheduler, out,
-                             optimizer_state=opt_state)
+            save_train_state(out, self.step, self._to_jax(state),
+                             optax_state_tree(self.optimizer, None,
+                                              self._to_jax, moments))
             logger.info(f"saved checkpoint to {out}")
         self._barrier()
         return out
@@ -291,23 +284,23 @@ class DRTrainer:
 
     def maybe_resume(self) -> bool:
         """Load the newest ``checkpoint-N`` of ``output_dir``, if any, on
-        every rank: the parameters from its ``params.msgpack`` (cut to this
-        rank's slices under tp), the optimizer, schedule and step from its
-        ``train_state.pt``."""
+        every rank from its ``train_state.msgpack`` (written by either
+        package): the parameters (cut to this rank's slices under tp), the
+        Adam moments, the update count with its learning rate, and the
+        step."""
         ckpt = latest_checkpoint(self.args.output_dir)
         if ckpt is None:
             return False
-        if self.tp_size == 1:
-            self.model.load_weights(ckpt)
-        else:
-            local = tp_mod.place_params(
-                params_from_jax(self.model.read_tree(ckpt)), self.mesh,
-                self._hd)
-            with torch.no_grad():
-                for name, p in self.model.named_parameters():
-                    p.copy_(local[name])
-        self.step = load_train_state(
-            ckpt, self.optimizer, self.scheduler, self.device,
-            cut=self._cut_optimizer_state if self.tp_size > 1 else None)
+        payload = load_train_state(ckpt)
+        full = params_from_jax(payload["params"])
+        cut = self._cut if self.tp_size > 1 else None
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                t = torch.from_numpy(np.array(full[name]))
+                p.copy_(cut(name, t) if cut is not None else t)
+        restore_optimizer(payload["opt_state"], self.optimizer,
+                          self.scheduler, self.model.named_parameters(),
+                          params_from_jax, cut)
+        self.step = int(np.asarray(payload["step"]))
         logger.info(f"resumed from {ckpt} at step {self.step}")
         return True

@@ -10,6 +10,12 @@ of the source batches (``CyclingIterator``); each step's weights can be
 logged to a file, and a dev evaluation every ``eval_steps`` keeps the best
 checkpoint. Checkpoints are ``V1Trainer``'s: ``train_state.msgpack`` in the
 JAX package's layout.
+
+Over ranks (``V1Trainer``'s data mesh) both global batches are split by
+rows and the step computes JAX's SPMD numbers (``research.meta_ltr``): the
+weights over the global batch, the gradient summed. ``train_step``
+returns the global batch's weights in row order on every rank, and rank 0
+alone logs them.
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..parallel.mesh import DATA_AXIS, all_gather
 from ..research.meta_ltr import make_meta_train_step
 from .reinfoselect_trainer import per_example_loss
 from .state import linear_warmup_schedule
-from .v1_trainer import V1Trainer, to_device
+from .v1_trainer import V1Trainer
 
 logger = logging.getLogger(__name__)
 
@@ -64,17 +71,20 @@ class MetaLTRTrainer(V1Trainer):
     def __init__(self, model, train_args, total_steps: int,
                  task: str = "ranking", ranking_loss_kind: str = "margin_loss",
                  pos_neg_split: Optional[Callable] = None,
-                 log_weights_path: Optional[str] = None, device="cuda"):
+                 log_weights_path: Optional[str] = None, device="cuda",
+                 mesh=None):
         super().__init__(model, train_args, total_steps, task=task,
                          ranking_loss_kind=ranking_loss_kind,
-                         pos_neg_split=pos_neg_split, device=device)
+                         pos_neg_split=pos_neg_split, device=device,
+                         mesh=mesh)
         self.log_weights_path = log_weights_path
         warmup = train_args.warmup_steps or int(train_args.warmup_ratio
                                                 * total_steps)
         self.schedule = linear_warmup_schedule(train_args.learning_rate,
                                                total_steps, warmup)
         self._step_fn = make_meta_train_step(
-            self.per_example_loss, self.target_loss, schedule=self.schedule)
+            self.per_example_loss, self.target_loss, schedule=self.schedule,
+            mesh=self.mesh)
 
     def per_example_loss(self, params: Dict[str, torch.Tensor],
                          batch: Dict) -> torch.Tensor:
@@ -86,19 +96,21 @@ class MetaLTRTrainer(V1Trainer):
         return per_example_loss(self, score, batch)
 
     def target_loss(self, params, target_batch) -> torch.Tensor:
-        """The target batch's mean loss."""
-        return self.per_example_loss(params, target_batch).mean()
+        """The global target batch's mean loss (over ranks, this rank's
+        rows' share of it)."""
+        per = self.per_example_loss(params, target_batch)
+        return per.sum() / (per.shape[0] * self.mesh.shape[DATA_AXIS])
 
     def train_step(self, batch: Dict, target_batch: Dict):
-        """One reweighted update: returns (weighted loss, weights [B])."""
+        """One reweighted update from global source and target batches:
+        returns (weighted loss, weights [B]) of the global batch."""
         self.model.train()
         loss, weights = self._step_fn(
-            self.model, self.optimizer, self.step,
-            to_device(batch, self.device),
-            to_device(target_batch, self.device))
+            self.model, self.optimizer, self.step, self.local_batch(batch),
+            self.local_batch(target_batch))
         self.scheduler.step()
         self.step += 1
-        return loss, weights
+        return loss, all_gather(weights, self.mesh, DATA_AXIS)
 
     def train(self, data_iter: Iterable, target_iter: CyclingIterator,
               eval_fn: Optional[Callable] = None) -> Dict[str, Any]:
@@ -112,7 +124,7 @@ class MetaLTRTrainer(V1Trainer):
             w = weights.float().cpu().numpy()
             weight_history.append(w)
             step = self.step
-            if self.log_weights_path:
+            if self.log_weights_path and self.is_main:
                 with open(self.log_weights_path, "a", encoding="utf-8") as f:
                     f.write(str(step) + "\t"
                             + "\t".join(str(x) for x in w.tolist()) + "\n")
@@ -125,7 +137,7 @@ class MetaLTRTrainer(V1Trainer):
                 log_loss = 0.0
             if eval_fn is not None and self.args.eval_steps and step > 0 \
                     and step % self.args.eval_steps == 0:
-                metric = eval_fn(self)
+                metric = self.evaluate(eval_fn)
                 if metric > best_metric:
                     best_metric = metric
                     self.save_checkpoint(os.path.join(self.args.output_dir,

@@ -17,6 +17,17 @@ buffered ``(policy inputs, Gumbel noise, actions)`` of each step);
 ``reset`` then restores the ranker's best parameters. The policy's
 optimizer is plain Adam (the port's ``OptaxAdam`` with no clipping, decay
 or schedule).
+
+Over ranks (``V1Trainer``'s data mesh) the keep decisions, the update and
+the policy equal one process's on the global batch, as JAX's SPMD step:
+each rank's policy scores its rows, the Gumbel noise of the GLOBAL batch
+is drawn from the generator every rank holds alike and sliced to the
+rank's rows; ``kept = max(mask.sum(), 1)`` and the zero-kept skip are
+global, the masked losses' gradients summed. Each rank buffers its rows
+of every step and the refresh sums the policy's gradients over the ranks:
+the global buffer's gradient, the same on every rank, so the policies stay
+equal. The dev metric (the reward) is rank 0's, broadcast; only rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -29,9 +40,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import (DATA_AXIS, all_gather, all_reduce,
+                             reduce_grads, replicate, shard_batch)
 from ..research.reinfoselect import make_policy_refresh, select_pairs
+from ..utils.gumbel import gumbel_noise
 from .state import OptaxAdam
-from .v1_trainer import V1Trainer, to_device
+from .v1_trainer import V1Trainer
 
 logger = logging.getLogger(__name__)
 
@@ -108,20 +122,24 @@ class ReInfoSelectTrainer(V1Trainer):
                  task: str = "ranking", ranking_loss_kind: str = "margin_loss",
                  tau: float = 1.0, reset: bool = False,
                  pos_neg_split: Optional[Callable] = None, device="cuda",
-                 policy_score_fn: Optional[Callable] = None):
+                 policy_score_fn: Optional[Callable] = None, mesh=None):
         super().__init__(model, train_args, total_steps, task=task,
                          ranking_loss_kind=ranking_loss_kind,
-                         pos_neg_split=pos_neg_split, device=device)
+                         pos_neg_split=pos_neg_split, device=device,
+                         mesh=mesh)
         self.tau = tau
         self.reset = reset
         self.policy = policy.to(self.device).train()
+        replicate(list(self.policy.parameters()), self.mesh)
         self.policy_score_fn = policy_score_fn or (
             lambda inputs: self.policy.score_batch(inputs)[0])
         # plain Adam for the policy: no clip, no decay, a constant lr
         self.policy_optimizer = OptaxAdam(list(self.policy.parameters()),
                                           lr=train_args.learning_rate)
         self._refresh_fn = make_policy_refresh(
-            self.policy_score_fn, self.policy_optimizer, tau)
+            self.policy_score_fn, self.policy_optimizer, tau,
+            lambda: reduce_grads(self.policy.parameters(), self.mesh,
+                                 op="sum"))
         self._buffer = []  # (policy inputs, gumbel noise, actions) a step
         self.keep_rates = []  # fraction kept per step
 
@@ -129,39 +147,58 @@ class ReInfoSelectTrainer(V1Trainer):
         return self.model.score_batch(batch)[0]
 
     def train_step(self, batch: Dict[str, Any],
-                   generator: Optional[torch.Generator] = None):
-        """One selection step: returns (loss, actions); the optimizer steps
-        only when a pair is kept, the trainer's step always advances."""
+                   generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   action_noise: Optional[torch.Tensor] = None):
+        """One selection step on a global batch: returns (loss, actions),
+        both of the global batch; the optimizer steps only when a pair is
+        kept, the trainer's step always advances. ``noise`` and
+        ``action_noise`` ([B, 2] of the global batch) are drawn from
+        ``generator`` when not given, in that order."""
         self.model.train()
-        batch = to_device(batch, self.device)
+        batch = self.local_batch(batch)
         inputs = policy_inputs_from_batch(batch)
         with torch.no_grad():
             logits = self.policy_score_fn(inputs)
-        actions, noise = select_pairs(logits, self.tau, generator)
+        shape = (logits.shape[0] * self.mesh.shape[DATA_AXIS], 2)
+        draws = []
+        for given in (noise, action_noise):
+            if given is None:
+                given = gumbel_noise(shape, generator, logits.device,
+                                     logits.dtype)
+            draws.append(shard_batch(torch.as_tensor(given).to(logits),
+                                     self.mesh))
+        actions, noise = select_pairs(logits, self.tau, noise=draws[0],
+                                      action_noise=draws[1])
         mask = actions.to(torch.float32)
-        kept = float(mask.sum())
+        kept = float(all_reduce(mask.sum(), self.mesh, DATA_AXIS))
         self.optimizer.zero_grad(set_to_none=True)
         per = per_example_loss(self, self._score, batch)
         loss = (per * mask).sum() / max(kept, 1.0)
         if kept > 0:
             loss.backward()
+            (loss,) = reduce_grads(self.model.parameters(), self.mesh,
+                                   [loss], op="sum")
             self.optimizer.step()
             self.scheduler.step()
+        else:
+            loss = loss.detach().reshape(1)
         self.step += 1
         self._buffer.append((inputs, noise, actions))
-        return loss.detach(), actions
+        return loss[0], all_gather(actions, self.mesh, DATA_AXIS)
 
     def train(self, data_iter: Iterable, eval_fn: Callable,
               generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-        """``eval_fn(trainer) -> dev metric``: called before training (the
-        initial dev pass) and every ``args.eval_steps`` steps for the
-        REINFORCE reward. ``generator`` (default: seeded with
-        ``args.seed`` on the device) draws the selections."""
+        """``eval_fn(trainer) -> dev metric``: called (on rank 0) before
+        training (the initial dev pass) and every ``args.eval_steps`` steps
+        for the REINFORCE reward. ``generator`` (default: seeded with
+        ``args.seed`` on the device, alike on every rank) draws the
+        selections."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 self.args.seed)
         best_dir = os.path.join(self.args.output_dir, "best")
-        best_mes = last_mes = eval_fn(self)
+        best_mes = last_mes = self.evaluate(eval_fn)
         self.save_checkpoint(best_dir)
         logger.info(f"initial dev metric {best_mes:.4f}")
         best_state = _snapshot(self.model)
@@ -175,7 +212,7 @@ class ReInfoSelectTrainer(V1Trainer):
             step = self.step
             if self.args.eval_steps and step % self.args.eval_steps == 0 \
                     and self._buffer:
-                mes = eval_fn(self)
+                mes = self.evaluate(eval_fn)
                 if mes >= best_mes:
                     best_mes = mes
                     best_state = _snapshot(self.model)

@@ -10,8 +10,8 @@ parallelism is refused, as in JAX. Everything else is ``DRTrainer``'s: the
 ``OptaxAdam`` update under the warmup-then-decay schedule
 (``train/state.py``), dropout masks from a generator seeded by (``seed``,
 step, data index), the loss kept on the device between logging steps, and
-checkpoints (rank 0's) in the JAX package's format plus the port's
-``train_state.pt``.
+checkpoints (rank 0's) in the JAX package's format, ``train_state.msgpack``
+included.
 """
 
 from __future__ import annotations

@@ -27,13 +27,17 @@ its squares over the model group, so they are the full tensors' norms, as
 optax computes them over the GSPMD-sharded tree. Every other step of the
 chain is elementwise.
 
-Checkpoints: the model goes into the directory in the JAX package's format
-(``DRModel.save``), so both packages load it; the optimizer and schedule
-go into the port's own ``train_state.pt`` (``torch.save`` of the step, the
-optimizer state and the scheduler state) beside a ``train_state.json``.
-Over ranks the trainer passes the optimizer state in the one-process
-layout (``optimizer_state``) and cuts it again on load (``cut``).
-Resuming from the JAX package's ``train_state.msgpack`` is not ported.
+Checkpoints are the JAX package's (``save_train_state``): the model in its
+format (``DRModel.save``) and ``train_state.msgpack``, ``{"step",
+"params", "opt_state"}`` with optax's chain state as the Flax tree
+(``optax_state_tree``) beside a ``train_state.json``, so either package
+resumes the other's run (``restore_optimizer``). Over ranks the trainer
+passes the moments in the one-process layout and cuts them again on load
+(``cut``).
+
+``make_replicated_state`` is the v1-family trainers' start over ranks (JAX
+``make_replicated_state``): rank 0's parameters on every rank, and fresh
+optimizer state, equal everywhere.
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-TRAIN_STATE = "train_state.pt"
+from ..models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
+from ..parallel.mesh import replicate
+
+TRAIN_STATE = "train_state.msgpack"
 
 
 def linear_warmup_schedule(learning_rate: float, total_steps: int,
@@ -171,21 +178,36 @@ def make_optimizer(params, train_args, total_steps: int
     return optimizer, scheduler
 
 
-def optax_state_tree(optimizer: OptaxAdam, named_params, to_jax) -> dict:
+def make_replicated_state(params, train_args, total_steps: int, mesh):
+    """(optimizer, scheduler) of ``make_optimizer`` over ``params`` once
+    rank 0's values are in every rank's ``params`` (one broadcast; a
+    no-op on one rank). The optimizer state starts empty, so equal, on
+    every rank."""
+    params = list(params)
+    replicate(params, mesh)
+    return make_optimizer(params, train_args, total_steps)
+
+
+def optax_state_tree(optimizer: OptaxAdam, named_params, to_jax,
+                     moments: Optional[dict] = None) -> dict:
     """optax's chain state for ``make_optimizer``'s chain, as the Flax tree
     the JAX package serializes in ``train_state.msgpack``:
     ``{"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2":
     {"count"}}}`` for the default clip -> adamw (the clip's state left out
     without ``max_grad_norm``, a trust-ratio state added for LAMB).
     ``to_jax({name: tensor}) -> tree`` lays out the moments as the
-    parameters are laid out."""
+    parameters are laid out; ``moments`` (``{"mu": {name: tensor},
+    "nu": ...}``) in place of the optimizer's own, e.g. gathered over a
+    model group."""
     group = optimizer.param_groups[0]
     count = np.asarray(group["count"], np.int32)
-    moments = {"mu": {}, "nu": {}}
-    for name, p in named_params:
-        state = optimizer.state.get(p)
-        for key in moments:
-            moments[key][name] = state[key] if state else torch.zeros_like(p)
+    if moments is None:
+        moments = {"mu": {}, "nu": {}}
+        for name, p in named_params:
+            state = optimizer.state.get(p)
+            for key in moments:
+                moments[key][name] = (state[key] if state
+                                      else torch.zeros_like(p))
     inner = [{"count": count, "mu": to_jax(moments["mu"]),
               "nu": to_jax(moments["nu"])},
              {}]  # scale_by_adam, add_decayed_weights
@@ -198,36 +220,73 @@ def optax_state_tree(optimizer: OptaxAdam, named_params, to_jax) -> dict:
     return {str(i): s for i, s in enumerate(chain)}
 
 
-def save_train_state(step: int, optimizer, scheduler, output_dir: str,
-                     optimizer_state: Optional[dict] = None):
-    """``train_state.pt`` (step, optimizer and scheduler state) and
-    ``train_state.json`` ({"step"}) in ``output_dir``; ``optimizer_state``
-    in place of ``optimizer.state_dict()`` when given."""
+def save_train_state(output_dir: str, step: int, params: dict,
+                     opt_state: dict):
+    """``train_state.msgpack`` (``{"step", "params", "opt_state"}``, the JAX
+    package's ``save_train_state`` layout, written by the port's codec)
+    and ``train_state.json`` ({"step"}) in ``output_dir``. ``params`` is
+    the Flax parameter tree, ``opt_state`` ``optax_state_tree``'s."""
     os.makedirs(output_dir, exist_ok=True)
-    if optimizer_state is None:
-        optimizer_state = optimizer.state_dict()
-    torch.save({"step": int(step), "optimizer": optimizer_state,
-                "scheduler": scheduler.state_dict()},
-               os.path.join(output_dir, TRAIN_STATE))
+    write_flax_msgpack({"step": np.asarray(step, np.int32),
+                        "params": params, "opt_state": opt_state},
+                       os.path.join(output_dir, TRAIN_STATE))
     with open(os.path.join(output_dir, "train_state.json"), "w") as f:
         json.dump({"step": int(step)}, f)
 
 
-def load_train_state(ckpt_dir: str, optimizer, scheduler,
-                     device=None, cut: Optional[Callable] = None) -> int:
-    """Restore the optimizer and scheduler from ``train_state.pt``, tensors
-    on ``device``, the optimizer state passed through ``cut`` first when
-    given; returns the step."""
-    payload = torch.load(os.path.join(ckpt_dir, TRAIN_STATE),
-                         map_location=device, weights_only=True)
-    state = payload["optimizer"]
-    optimizer.load_state_dict(cut(state) if cut is not None else state)
-    scheduler.load_state_dict(payload["scheduler"])
-    return int(payload["step"])
+def load_train_state(ckpt_dir: str) -> dict:
+    """``{"step", "params", "opt_state"}`` of ``ckpt_dir``'s
+    ``train_state.msgpack``, written by either package (numpy leaves)."""
+    return read_flax_msgpack(os.path.join(ckpt_dir, TRAIN_STATE))
+
+
+def _adam_state(tree) -> dict:
+    """The ``{"count", "mu", "nu"}`` node of an optax chain state tree."""
+    if isinstance(tree, dict):
+        if "mu" in tree and "nu" in tree:
+            return tree
+        for value in tree.values():
+            found = _adam_state(value)
+            if found is not None:
+                return found
+    return None
+
+
+def restore_optimizer(opt_state: dict, optimizer: OptaxAdam, scheduler,
+                      named_params, from_jax,
+                      cut: Optional[Callable] = None) -> int:
+    """Load an optax chain state tree (``optax_state_tree``'s layout, from
+    either package) into ``optimizer`` and its ``scheduler``: the Adam
+    moments of every parameter (``from_jax(tree) -> {name: tensor}``,
+    then ``cut(name, tensor)`` when given, e.g. to a rank's slice) and
+    the update count, with the learning rate the schedule gives at it.
+    Returns the count."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu) in the optimizer tree")
+    count = int(np.asarray(adam["count"]))
+    mu, nu = from_jax(adam["mu"]), from_jax(adam["nu"])
+    for name, p in named_params:
+        state = {}
+        for key, src in (("mu", mu), ("nu", nu)):
+            t = torch.from_numpy(np.array(src[name]))
+            if cut is not None:
+                t = cut(name, t)
+            state[key] = t.to(device=p.device, dtype=p.dtype).contiguous()
+        optimizer.state[p] = state
+    optimizer.param_groups[0]["count"] = count
+    # LambdaLR's own formula at the restored count
+    scheduler.last_epoch = count
+    scheduler._last_lr = [base * fn(count) for base, fn in
+                          zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(optimizer.param_groups, scheduler._last_lr):
+        group["lr"] = lr
+    return count
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
-    """The newest ``checkpoint-N`` directory holding a ``train_state.pt``."""
+    """The newest ``checkpoint-N`` directory holding a
+    ``train_state.msgpack`` (JAX ``latest_checkpoint``)."""
     if not os.path.isdir(output_dir):
         return None
     best, best_step = None, -1

@@ -1,4 +1,4 @@
-"""Trainer of the v1 rerankers, KNRM to BertMaxP, on one device (port of
+"""Trainer of the v1 rerankers, KNRM to BertMaxP (port of
 ``openmatch_tpu/train/v1_trainer.py``).
 
 - Tasks: ``ranking`` (two forwards a step, one on the positive pairs and
@@ -17,35 +17,41 @@
   reads it; the port's ``load_v1_params`` reads the ``params`` of either
   package's file.
 
-One process and one device: more, or ``dp_size > 1``, raises (the V1,
-Meta-LTR and ReInfoSelect trainers over ranks are ROADMAP P10's rest).
+Over ranks (``parallel/mesh.py``; JAX's ``make_replicated_state`` mesh of
+every device, dp = the world): parameters start as rank 0's
+(``state.make_replicated_state``), ``train_step`` takes the GLOBAL batch,
+as JAX's does, and each rank keeps its contiguous ``1/dp`` of the rows
+(``shard_batch``, which refuses a batch that does not split evenly). The
+pos / neg split keys by name, so a row keeps its pair. The mean losses'
+gradients and the loss are averaged over the ranks by one flat all-reduce
+after backward (then clipped by the optimizer), so every rank takes the
+same update as one process over the global batch. The dev evaluation runs
+on rank 0 and its metric is broadcast, so every rank makes the same
+"best" decision; only rank 0 writes checkpoints. The parameters are
+replicated, so ``tp_size > 1`` is refused: it would only repeat the work.
+The Meta-LTR and ReInfoSelect trainers build on this class.
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..models.flax_msgpack import read_flax_msgpack, write_flax_msgpack
+from ..models.flax_msgpack import read_flax_msgpack
 from ..models.jax_convert import v1_params_from_jax, v1_params_to_jax
-from ..parallel.mesh import world_size
-from .state import make_optimizer, optax_state_tree
+from ..parallel.mesh import (MODEL_AXIS, Mesh, broadcast, make_mesh,
+                             reduce_grads, shard_batch)
+from .state import (TRAIN_STATE, make_replicated_state, optax_state_tree,
+                    save_train_state)
 
 logger = logging.getLogger(__name__)
-
-_MULTI_PROCESS_TODO = ("{} is not ported to PyTorch yet: the V1, Meta-LTR "
-                       "and ReInfoSelect trainers train on one process and "
-                       "one device (ROADMAP.md, P10: the trainers over "
-                       "ranks)")
-
-TRAIN_STATE = "train_state.msgpack"
 
 
 def ranking_loss(pos_scores, neg_scores, kind: str, margin: float = 1.0):
@@ -92,21 +98,27 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             if not isinstance(v, list)}
 
 
+
 class V1Trainer:
     def __init__(self, model, train_args, total_steps: int,
                  task: str = "ranking", ranking_loss_kind: str = "margin_loss",
-                 pos_neg_split: Optional[Callable] = None, device="cuda"):
+                 pos_neg_split: Optional[Callable] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         """``model``: a ``v1/models.py`` model, trained in place on
         ``device`` (the card unless the caller names the CPU).
         ``pos_neg_split(batch) -> (pos_batch, neg_batch)`` for ranking,
-        by default on the doc_pos_* / doc_neg_* and pos_* / neg_* keys."""
+        by default on the doc_pos_* / doc_neg_* and pos_* / neg_* keys.
+        ``mesh``: this rank's place among the job's ranks; by default
+        ``make_mesh(dp_size, tp_size)`` over every rank (one without a
+        process group)."""
         self.device = resolve_device(device)
-        if world_size() > 1:
-            raise NotImplementedError(_MULTI_PROCESS_TODO.format(
-                f"training on {world_size()} processes"))
-        if train_args.dp_size > 1 or train_args.tp_size > 1:
-            raise NotImplementedError(_MULTI_PROCESS_TODO.format(
-                f"dp_size={train_args.dp_size}, tp_size={train_args.tp_size}"))
+        self.mesh = mesh if mesh is not None else make_mesh(
+            train_args.dp_size, train_args.tp_size, self.device)
+        if self.mesh.shape[MODEL_AXIS] > 1:
+            raise ValueError(
+                f"{type(self).__name__} holds replicated parameters: "
+                "tp_size > 1 would only repeat the work on the model axis; "
+                "train with tp_size=1 (DRTrainer is the TP-capable trainer)")
         self.model = model.to(self.device).train()
         self.args = train_args
         self.task = task
@@ -114,8 +126,31 @@ class V1Trainer:
         self.total_steps = total_steps
         self.pos_neg_split = pos_neg_split or _default_pos_neg_split
         self.step = 0
-        self.optimizer, self.scheduler = make_optimizer(
-            list(self.model.parameters()), train_args, total_steps)
+        self.optimizer, self.scheduler = make_replicated_state(
+            self.model.parameters(), train_args, total_steps, self.mesh)
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank writes (rank 0)."""
+        return self.mesh.rank == 0
+
+    def local_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch, as tensors on the device."""
+        batch = {k: v for k, v in batch.items() if not isinstance(v, list)}
+        return to_device(shard_batch(batch, self.mesh), self.device)
+
+    def evaluate(self, eval_fn: Callable) -> float:
+        """``eval_fn(self)`` on rank 0; its metric on every rank."""
+        metric = float(eval_fn(self)) if self.is_main else 0.0
+        if self.mesh.group("world") is None:
+            return metric
+        t = torch.tensor([metric], dtype=torch.float64,
+                         device=self.mesh.device)
+        return float(broadcast(t, self.mesh)[0])
+
+    def _barrier(self):
+        if self.mesh.group("world") is not None:
+            dist.barrier()
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.task == "ranking":
@@ -128,19 +163,21 @@ class V1Trainer:
         return classification_loss(_score(self.model, batch), labels)
 
     def train_step(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """One update; returns the loss, still on the device."""
+        """One update from a global batch (this rank trains on its rows);
+        returns the global batch's loss, still on the device."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(to_device(batch, self.device))
+        loss = self.loss(self.local_batch(batch))
         loss.backward()
+        (loss,) = reduce_grads(self.model.parameters(), self.mesh, [loss])
         self.optimizer.step()
         self.scheduler.step()
         self.step += 1
-        return loss.detach()
+        return loss[0]
 
     def train(self, data_iter: Iterable, eval_fn=None) -> Dict[str, Any]:
-        """``eval_fn(trainer) -> metric`` every ``eval_steps``; the best
-        metric's model is saved to ``output_dir/best``."""
+        """``eval_fn(trainer) -> metric`` every ``eval_steps`` (on rank 0);
+        the best metric's model is saved to ``output_dir/best``."""
         losses, log_loss = [], 0.0
         best_metric = -np.inf
         for batch in data_iter:
@@ -155,7 +192,7 @@ class V1Trainer:
                 log_loss = 0.0
             if eval_fn is not None and self.args.eval_steps and step > 0 \
                     and step % self.args.eval_steps == 0:
-                metric = eval_fn(self)
+                metric = self.evaluate(eval_fn)
                 if metric > best_metric:
                     best_metric = metric
                     self.save_checkpoint(os.path.join(self.args.output_dir,
@@ -164,20 +201,18 @@ class V1Trainer:
                 "best_metric": best_metric}
 
     def save_checkpoint(self, output_dir: Optional[str] = None) -> str:
+        """``train_state.msgpack`` and ``train_state.json``, written by rank
+        0 (every rank calls it)."""
         out = output_dir or os.path.join(self.args.output_dir,
                                          f"checkpoint-{self.step}")
-        os.makedirs(out, exist_ok=True)
-        payload = {
-            "step": np.asarray(self.step, np.int32),
-            "params": v1_params_to_jax(self.model.state_dict(),
-                                       self.model.num_heads),
-            "opt_state": optax_state_tree(
-                self.optimizer, self.model.named_parameters(),
-                lambda named: v1_params_to_jax(named, self.model.num_heads)),
-        }
-        write_flax_msgpack(payload, os.path.join(out, TRAIN_STATE))
-        with open(os.path.join(out, "train_state.json"), "w") as f:
-            json.dump({"step": self.step}, f)
+        if self.is_main:
+            to_jax = lambda named: v1_params_to_jax(  # noqa: E731
+                named, self.model.num_heads)
+            save_train_state(out, self.step, to_jax(self.model.state_dict()),
+                             optax_state_tree(self.optimizer,
+                                              self.model.named_parameters(),
+                                              to_jax))
+        self._barrier()
         return out
 
 

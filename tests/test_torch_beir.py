@@ -10,7 +10,8 @@
   the band from every other returned doc's, so the metrics cannot hang on
   a tie;
 - ``drivers/common.maybe_init_distributed``: (0, 1) on one process; a
-  ``WORLD_SIZE`` above 1 raises naming ROADMAP P10 before any work.
+  ``WORLD_SIZE`` above 1 makes ``retrieve_beir`` raise before any work
+  (it runs on one process, as the JAX driver on one device).
 """
 
 import json
@@ -153,8 +154,8 @@ def test_retrieve_beir_matches_jax(beir_run_inputs, monkeypatch):
 def test_maybe_init_distributed(monkeypatch, beir_run_inputs):
     """One process is (0, 1); in a 2-rank gloo group each rank gets (rank,
     2); a launcher's WORLD_SIZE=2 without its rendezvous address raises
-    (the rank cannot join). retrieve_beir still runs on one rank only:
-    its multi-rank form is ROADMAP P10's rest."""
+    (the rank cannot join). retrieve_beir runs on one rank only, as the
+    JAX driver runs on one device."""
     import torch_ranks
 
     from openmatch_tpu_torch.parallel.mesh import spawn_ranks
@@ -171,7 +172,7 @@ def test_maybe_init_distributed(monkeypatch, beir_run_inputs):
     with pytest.raises(ValueError, match="MASTER_ADDR"):
         common.maybe_init_distributed("cpu")
     root, tok = beir_run_inputs
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(NotImplementedError, match="runs on one process"):
         retrieve_beir.main(["--model_name_or_path", "/nonexistent",
                             "--data_dir", str(root / "data"),
                             "--device", "cpu"], tokenizer=tok)

@@ -51,6 +51,8 @@ MUST_IMPORT = (
     "parallel.mesh", "parallel.tp", "parallel.grad_cache",
     "train.dr_trainer", "train.rr_trainer", "retriever.retriever",
     "retriever.reranker", "drivers.train_dr", "drivers.train_rr",
+    "drivers.serve", "perf.sharded_merge", "perf.mesh_parity",
+    "perf.serve_load",
 )
 
 
@@ -62,6 +64,6 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the slices is covered, not just the package root
     *_, names, count = proc.stdout.strip().splitlines()
-    assert int(count) >= 101
+    assert int(count) >= 104
     assert {f"openmatch_tpu_torch.{m}" for m in MUST_IMPORT} \
         <= set(names.split())

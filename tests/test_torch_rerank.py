@@ -537,7 +537,7 @@ def test_train_rr_driver_trains_and_saves(tmp_path, tok):
         "--device", "cpu"], tokenizer=tok)
     assert result["final_step"] == 5 and len(result["losses"]) == 5
     assert np.isfinite(result["losses"]).all()
-    assert (out / "checkpoint-3" / "train_state.pt").exists()
+    assert (out / "checkpoint-3" / "train_state.msgpack").exists()
     loaded = RRModel.load(str(out), device="cpu")
     jl, jparams = JaxRRModel.load(str(out))
     b = pair_batch(40)

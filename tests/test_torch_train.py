@@ -12,7 +12,9 @@ dropout 0 unless a test says otherwise):
 - GradCache against the plain step (1e-5) and JAX's
   ``grad_cache_value_and_grad`` (1e-5); with dropout, against a plain
   gradient drawn with the same per-chunk generator states (1e-5);
-- resume: 4 steps straight equal 2 + checkpoint + resume + 2, exactly;
+- resume: 4 steps straight equal 2 + checkpoint + resume + 2, exactly; the
+  ``train_state.msgpack`` of either package resumes in the other (AdamW
+  and LAMB), the next step within 1e-5 of the writer's;
 - data: collators, pair encodings and train datasets over 2 epochs, exact;
 - defaults: the trainer and the driver run on the card unless told.
 """
@@ -407,6 +409,71 @@ def test_resume_equals_straight_run(tmp_path):
         assert torch.equal(a, w), n
     assert json.loads((tmp_path / "b" / "checkpoint-2" /
                        "train_state.json").read_text()) == {"step": 2}
+
+
+def assert_params_match(pm, jax_params, rtol=0.0, atol=0.0):
+    got = jax.tree_util.tree_leaves_with_path(
+        params_to_jax(pm.state_dict(), SMALL["num_attention_heads"]))
+    want = jax.tree_util.tree_leaves_with_path(
+        jax.tree.map(np.asarray, jax_params))
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "lamb"])
+def test_checkpoint_resumes_across_packages(tmp_path, optimizer):
+    """DR checkpoints are the JAX package's ``train_state.msgpack``: the
+    port's resumes in JAX's ``DRTrainer.maybe_resume`` (``load_train_state``
+    takes its tree as it is) with the port's parameters exactly, and JAX's
+    resumes in the port; either way the next step then equals the writer's
+    own next step (1e-5). LAMB's chain state differs from AdamW's."""
+    mesh = make_mesh(1, 1, devices=jax.devices()[:1])
+    jm, params, pm = jax_and_port(4)
+    first, nxt = [qp_batch(s) for s in (7, 8)], qp_batch(9)
+
+    def args(out, lib):
+        kw = train_kw(output_dir=str(out), warmup_steps=1,
+                      optimizer=optimizer)
+        return (TrainingArguments if lib == "port"
+                else JaxTrainingArguments)(**kw)
+
+    def port(out):
+        m = DRModel(BertConfig(**SMALL))
+        m.load_state_dict(pm.state_dict())
+        return DRTrainer(m, args(out, "port"), total_steps=10, device="cpu")
+
+    def jaxt(out):
+        return JaxDRTrainer(jm, params, args(out, "jax"), total_steps=10,
+                            mesh=mesh)
+
+    # the port writes, JAX resumes
+    writer = port(tmp_path / "a")
+    for b in first:
+        writer.train_step(b)
+    writer.save_checkpoint()
+    reader = jaxt(tmp_path / "a")
+    assert reader.maybe_resume() and int(reader.state.step) == 2
+    assert_params_match(writer.model, reader.state.params)
+    want = float(writer.train_step(nxt))
+    assert float(reader.train_step(nxt)) == pytest.approx(want, rel=1e-5,
+                                                          abs=1e-5)
+    assert_params_match(writer.model, reader.state.params, 1e-5, 1e-5)
+
+    # JAX writes, the port resumes
+    writer = jaxt(tmp_path / "b")
+    for b in first:
+        writer.train_step(b)
+    writer.save_checkpoint()
+    reader = port(tmp_path / "b")
+    assert reader.maybe_resume() and reader.step == 2
+    assert reader.optimizer.param_groups[0]["count"] == 2
+    assert_params_match(reader.model, writer.state.params)
+    want = float(writer.train_step(nxt))
+    assert float(reader.train_step(nxt)) == pytest.approx(want, rel=1e-5,
+                                                          abs=1e-5)
+    assert_params_match(reader.model, writer.state.params, 1e-5, 1e-5)
 
 
 # ---- data -----------------------------------------------------------------

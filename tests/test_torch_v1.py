@@ -30,6 +30,7 @@ from openmatch_tpu_torch.drivers import train_v1 as ptrain_v1
 from openmatch_tpu_torch.models.bert import BertConfig
 from openmatch_tpu_torch.models.jax_convert import (v1_params_from_jax,
                                                     v1_params_to_jax)
+from openmatch_tpu_torch.parallel.mesh import Mesh
 from openmatch_tpu_torch.train import v1_trainer as pv1
 from openmatch_tpu_torch.v1 import dataset as pdataset
 from openmatch_tpu_torch.v1 import kernel_matcher as pkm
@@ -458,10 +459,16 @@ def live_entries(name: str, leaf: np.ndarray) -> np.ndarray:
 
 
 def test_trainer_refuses_more_than_one_process():
+    """A ``dp_size`` the job's ranks do not have raises JAX ``make_mesh``'s
+    message (one process here); ``tp_size > 1`` is refused, the parameters
+    being replicated. Training over ranks: ``test_torch_v1_mesh.py``."""
     pm = pmodels.KNRM(V, E)
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(ValueError, match=r"dp\(2\) \* tp\(1\) != devices\(1\)"):
         pv1.V1Trainer(pm, TrainingArguments(output_dir="x", dp_size=2), 5,
                       device="cpu")
+    with pytest.raises(ValueError, match="tp_size > 1"):
+        pv1.V1Trainer(pm, TrainingArguments(output_dir="x"), 5,
+                      device="cpu", mesh=Mesh(dp=1, tp=2))
 
 
 @pytest.mark.parametrize("task", ["ranking", "classification"])

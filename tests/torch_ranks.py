@@ -449,3 +449,192 @@ def hanging_rank(device):
 
     if dist.get_rank() == 0:
         time.sleep(60)
+
+
+# ---- tests/test_torch_serve_mesh.py: serving over 2 ranks --------------------
+
+SERVE_VOCAB = (["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "about",
+                "document", "query"] + [f"topic{i}" for i in range(8)])
+SERVE_BERT = dict(vocab_size=32, hidden_size=16, num_hidden_layers=1,
+                  num_attention_heads=2, intermediate_size=32,
+                  max_position_embeddings=16)
+# name -> (partition, method, n_segs, corpus): "topics" is JAX's
+# test_serve.py construction (8 docs), "wide" the topics plus 4,092 seeded
+# unit rows, enough for the kernel path's tiles and 2 segments
+SERVE_CASES = {
+    "queries/plain": ("queries", "plain", 1, "topics"),
+    "docs/plain": ("docs", "plain", 1, "topics"),
+    "docs/kernel": ("docs", "kernel", 1, "wide"),
+    "queries/kernel_segs": ("queries", "kernel", 2, "wide"),
+}
+SERVE_QUERIES = ([f"document about topic{i}" for i in (1, 5)],
+                 [f"document about topic{i}" for i in range(7)]
+                 + ["query about topic2 topic6"])
+
+
+class VocabTokenizer:
+    """``BertTokenizerFast.encode_plus`` for texts of whole vocabulary
+    words ([CLS] words [SEP], truncated to ``max_length``), picklable and
+    the same in both packages' services."""
+
+    pad_token_id = 0
+
+    def __init__(self, vocab=SERVE_VOCAB):
+        self.ids = {w: i for i, w in enumerate(vocab)}
+
+    def encode_plus(self, text, max_length=None, **_):
+        ids = [self.ids.get(w, 1) for w in text.split()]
+        if max_length is not None:
+            ids = ids[:max_length - 2]
+        return {"input_ids": [2] + ids + [3]}
+
+
+def serve_model(state):
+    return port_dr(("bert", SERVE_BERT, dict(normalize=True)), state).eval()
+
+
+def serve_world(device, inputs: dict) -> dict:
+    """Every SERVE_CASES case over 2 ranks, as serve.main runs them: rank
+    0 a RetrievalService over the mesh Searcher (warmup, the two query
+    sets, close), rank 1 ``follow``; rank 0's answers, rank 1's search
+    count."""
+    from openmatch_tpu_torch.drivers.serve import RetrievalService, follow
+    from openmatch_tpu_torch.parallel.mesh import ControlChannel
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 1, device)
+    model = serve_model(inputs["state"])
+    out = {}
+    for name, (part, method, n_segs, corpus) in SERVE_CASES.items():
+        reps, ids = inputs[corpus]
+        searcher = Searcher(torch.from_numpy(reps), k=4, mesh=mesh,
+                            method=method, partition=part, n_segs=n_segs)
+        channel = ControlChannel(mesh, searcher.dim, searcher.dtype)
+        if mesh.rank:
+            out[name] = follow(searcher, channel)
+            continue
+        service = RetrievalService(model, VocabTokenizer(), searcher, ids,
+                                   q_max_len=8, max_batch=4, channel=channel)
+        service.warmup()
+        out[name] = [service.search(q, k=3) for q in SERVE_QUERIES]
+        service.close()
+    return out
+
+
+def serve_process(rank: int, world: int, tmp: str, argv: list,
+                  timeout_s: float = 600.0, keepalive_s: float = 60.0,
+                  die_on_search: int = 0):
+    """One rank of ``serve.main`` started as torchrun starts one (its own
+    process), joined through a ``file://`` rendezvous in ``tmp``, with the
+    groups' timeout and rank 0's keep-alive shortened to ``timeout_s`` and
+    ``keepalive_s``. ``die_on_search`` > 0: a rank other than 0 exits at
+    its search of that number (the first is rank 0's warmup)."""
+    from openmatch_tpu_torch.drivers import serve
+    from openmatch_tpu_torch.parallel import mesh as mesh_mod
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.set_num_threads(1)
+    mesh_mod.TIMEOUT_S, mesh_mod.KEEPALIVE_S = timeout_s, keepalive_s
+    mesh_mod.init_distributed(torch.device("cpu"),
+                              "file://" + os.path.join(tmp, "rendezvous"),
+                              timeout_s)
+    if die_on_search and rank:
+        real, calls = Searcher.search, [0]
+
+        def search(self, queries):
+            calls[0] += 1
+            if calls[0] == die_on_search:
+                os._exit(3)
+            return real(self, queries)
+
+        Searcher.search = search
+    serve.main(argv, tokenizer=VocabTokenizer())
+    dist.destroy_process_group()
+
+
+# ---- tests/test_torch_v1_mesh.py: the v1 family at dp = 2 ---------------------
+
+V1_V, V1_E, V1_KD = 40, 16, 8  # KNRM / Conv-KNRM vocabulary and widths
+
+
+# the policy's Adam has optax's epsilon 1e-8, so an entry whose gradient is
+# rounding noise moves by up to the lr: a small lr keeps that below 1e-5
+RIS_KW = dict(learning_rate=1e-3)
+
+
+def v1_kw(**extra) -> dict:
+    """TrainingArguments fields of the v1-family audits, both packages."""
+    return train_kw(**dict(dict(learning_rate=5e-2, logging_steps=100),
+                           **extra))
+
+
+def v1_models(task: str = "ranking", policy: bool = False):
+    from openmatch_tpu_torch.v1.models import KNRM, ConvKNRM
+
+    if policy:
+        return ConvKNRM(V1_V, V1_E, kernel_dim=V1_KD, task="classification")
+    return KNRM(V1_V, V1_E, task=task)
+
+
+def v1_world(device, inputs: dict) -> dict:
+    """Everything test_torch_v1_mesh.py holds to the JAX package, on 2
+    ranks: V1Trainer (KNRM ranking and classification), MetaLTRTrainer and
+    ReInfoSelectTrainer steps on global batches (each rank trains on its
+    rows), then the train_v1 and meta_train drivers."""
+    from openmatch_tpu_torch.drivers import meta_train, train_v1
+    from openmatch_tpu_torch.train.meta_trainer import MetaLTRTrainer
+    from openmatch_tpu_torch.train.reinfoselect_trainer import \
+        ReInfoSelectTrainer
+    from openmatch_tpu_torch.train.v1_trainer import V1Trainer
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 1, device)
+    out = {}
+    for task in ("ranking", "classification"):
+        state, batches = inputs["v1"][task]
+        model = v1_models(task)
+        model.load_state_dict(state)
+        trainer = V1Trainer(model, TrainingArguments(**v1_kw()), 10,
+                            task=task, device=device, mesh=mesh)
+        out[f"v1/{task}"] = {
+            "losses": [float(trainer.train_step(b)) for b in batches],
+            "state": _cpu(model.state_dict())}
+
+    state, pairs, kw = inputs["meta"]
+    model = v1_models()
+    model.load_state_dict(state)
+    trainer = MetaLTRTrainer(model, TrainingArguments(**kw), 6,
+                             device=device, mesh=mesh)
+    steps = [trainer.train_step(b, t) for b, t in pairs]
+    out["meta"] = {"losses": [float(x) for x, _ in steps],
+                   "weights": [w.numpy() for _, w in steps],
+                   "state": _cpu(model.state_dict())}
+
+    state, policy_state, steps, rewards = inputs["reinfoselect"]
+    model, policy = v1_models(), v1_models(policy=True)
+    model.load_state_dict(state)
+    policy.load_state_dict(policy_state)
+    trainer = ReInfoSelectTrainer(model, policy,
+                                  TrainingArguments(**v1_kw(**RIS_KW)), 10,
+                                  device=device, mesh=mesh)
+    res = {"losses": [], "actions": []}
+    for (batch, noise, action_noise), reward in zip(steps, rewards):
+        loss, actions = trainer.train_step(batch, noise=noise,
+                                           action_noise=action_noise)
+        res["losses"].append(float(loss))
+        res["actions"].append(actions.numpy())
+        if reward is not None:
+            trainer.refresh_policy(reward)
+    res["state"] = _cpu(model.state_dict())
+    res["policy"] = _cpu(policy.state_dict())
+    res["counts"] = (trainer.step,
+                     trainer.optimizer.param_groups[0]["count"])
+    out["reinfoselect"] = res
+
+    for name, argv in inputs["drivers"].items():
+        main = meta_train.main if name == "meta_train" else train_v1.main
+        result = main(argv)
+        out[f"driver/{name}"] = {k: v for k, v in result.items()
+                                 if k != "weights"}
+    return out
