@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, training, rerank, ANCE, BEIR, v1
-reranking and research-recipe paths on one card, and its multi-rank paths
-as two ranks on it.
+reranking and research-recipe paths and its perf-script twins on one card,
+and its multi-rank paths as two ranks on it.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,7 @@ Phases, in order; any failure raises and the script exits non-zero:
             its [131075, 8 * 768] block-row view, the score kernel over
             the 8-doc body, the strided-group kernels at tile 2048 and
             1024 over the whole corpus, whose last tile is ragged), with
-            median times.
+            median times; K2's bound at each Q from the run's inputs.
 4. serve    a BERT-base DRModel (bf16 compute, seeded random weights)
             encodes 4,096 passages through encode_dataset; the npz shard is
             written and reloaded; the index is filled on the device to all
@@ -73,9 +73,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             perf/score_path_phases.py and a set of perf/micro.py modes
             (the library yardsticks, one per kernel, hier2_full and
             xla_full_pyramid) through their main(argv), each launching
-            exactly the kernels it names; last, one K11 launch under
-            utils.profiling.trace, whose Chrome trace must be written and
-            parse.
+            exactly the kernels it names; then the search twins, each
+            through its main(argv) with the same check: perf/corpus_scale
+            over 8,841,823 docs at Q=128, k=1000 (K1, K3; its fp32 audit
+            must pass), perf/qbatch_sweep over them at Q = 64, 128, 256
+            (K1, K3), each perf/rescore_compare path over 2,210,456 docs at
+            Q=128 (xla: K7; dma: K7, K3; plain: K1, K3; pipelined: K1, K6;
+            the four answers equal above the tie band) and
+            perf/selection_micro's topk, gather and idfix at W = 1,105,228
+            (no kernel); last, one K11 launch under utils.profiling.trace,
+            whose Chrome trace must be written and parse.
 6. stages   after every timing (a profiler session can slow the host's
             later launches), the rescore's device time by stage
             (torch.profiler) for K3, K5 and K6 at the selections the serve
@@ -199,14 +206,28 @@ Phases, in order; any failure raises and the script exits non-zero:
             at every refresh from the first nonzero reward on, the best
             checkpoint reloads and scores. Step times and peaks are
             printed. It launches no hand-written kernel.
-13. mesh    the multi-rank paths over torch.distributed: first, in this
+13. twins   the training, rerank and pipeline perf twins through their
+            main(argv), each launching no hand-written kernel in this
+            process: perf/train_bench at 8 x 8 in bf16 for BERT-base DR,
+            GradCache, T5-base t5_encdec, the BERT-base (bce) and
+            monoT5-base (ce) cross-encoders (finite losses); perf/
+            rerank_bench for BERT-base and monoT5-base at 128 pairs of 192
+            (finite scores); each with its step or batch time, rates and
+            peak; perf/pipeline_e2e at its defaults (100,000 docs, 512
+            queries, depth 100, a BERT-base HF checkpoint it writes, each of
+            build_index, retrieve and evaluate its own process): MRR@10
+            above 0.99 (functional_pass) and the retrieve stage's K1 and K3
+            launches, which the kernel table adds.
+14. mesh    the multi-rank paths over torch.distributed: first, in this
             process, the one-process references (BERT-base fp32 with TF32
             off, seeded weights, mean pooling: 3 DRTrainer steps over a
             global batch of 8 queries x 4 passages, and the mean of its
             two halves' losses; a single-buffer Searcher over the seeded
             8,841,823 x 768 bf16 index at Q=64, k=1000; one-process
-            Reranker scores of 2,048 pairs at S=128), the kernels built,
-            every buffer freed; then 2 ranks (parallel/mesh.spawn_ranks:
+            Reranker scores of 2,048 pairs at S=128; perf/ance_cycle over
+            16,384 docs with each step the mean of the two half batches'
+            losses, as dp=2 computes it), the kernels built, every buffer
+            freed; then 2 ranks (parallel/mesh.spawn_ranks:
             gloo when they share the card, the collectives through host
             memory; NCCL with a card each). Each rank trains in 4 modes,
             local negatives (dp=2), global negatives (dp=2), GradCache with
@@ -239,7 +260,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             policy, one refresh) on KNRM, 3 steps each: losses within
             1e-5, parameters within rtol = atol = 1e-5, meta weights
             within 1e-4, keep decisions equal, parameters bit-identical on
-            both ranks. With four cards a dp=2 x tp=2 world trains as
+            both ranks. Then ANCE's alternating cycle over the ranks
+            (perf/ance_cycle's main on each: BERT-base fp32, mean pooling,
+            16,384 docs of 128 tokens, 256 queries of 32, 2 generations of
+            3 steps of a global 8 x 8 batch, top 200, 20 negatives; each
+            rank its rows through DRTrainer(mesh=), the refresh through
+            the docs-partitioned Retriever(mesh=), write_ann_data(mesh=)):
+            the parameters bit-identical across ranks after each
+            generation, generation 0's losses within 1e-5 of one process,
+            ann_training_data_0 published once with no .tmp left and the
+            same SHA-256 on both ranks, every mined negative inside the
+            fp32 audit's top 200 plus the tie band, and the refresh's
+            search launching the gmax kernel (K1, or K2 where a shard is
+            too small for a pyramid level; which is printed) and K3 on each
+            rank. With four cards a dp=2 x tp=2 world trains as
             well. Last, in this process, the mesh paths' perf twins:
             perf/mesh_parity at its defaults, perf/sharded_merge over 2
             ranks and perf/serve_load for 5 s over 1,000,000 docs. Step
@@ -250,8 +284,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
 kernel table's launches of K1 and K3 include the train, rerank, ance and
-beir phases' searches, and those of K1, K3, K4 and K5 the mesh phase's
-ranks' searches.
+beir phases' searches and the twins phase's retrieve stage, those of K1,
+K3, K6 and K7 the perf phase's search twins, and those of K1, K3, K4 and
+K5 the mesh phase's ranks' searches (the ANCE refresh's K3, and its K1
+where a shard takes a pyramid level).
 
 The second-to-last line is the kernel table as one JSON object (``ms``
 and ``library_ms`` are device time, each timed call queued behind an
@@ -357,16 +393,10 @@ def reset_launches(cm):
 
 
 def read_launches(cm) -> dict:
-    return {"plain_gmax": cm.fused_plain_gmax.launches,
-            "plain_gmax_segs": cm.fused_plain_gmax_segs.launches,
-            "gather_rescore": cm.gather_rescore.launches,
-            "gather_rescore_seg": cm.gather_rescore.seg_launches,
-            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches,
-            "block_gmax": cm.fused_block_gmax.launches,
-            "scores": cm.fused_scores.launches,
-            "score_gmax": cm.fused_score_gmax.launches,
-            "gmax_only": cm.fused_gmax_only.launches,
-            "gmax_phase": cm.fused_gmax_phase.launches}
+    """Every kernel wrapper's launch count, by kernel-table name."""
+    from openmatch_tpu_torch.perf import launch_counts
+
+    return launch_counts()
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -663,6 +693,9 @@ def phase_kernels(dev):
         for key, (ms, plain_ms) in t.items():
             log(f"  {key} Q={Q} N={N}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms")
+        b2 = gmax_bound(q, prep.plain.numel(), Q * NB)
+        log(f"  K2 Q={Q} N={N}: bound {b2[0]:.4f} ms ({b2[1]}), the kernel "
+            f"at {b2[0] / t['K2'][0]:.0%} of it")
     del corpus, prep, segs, cb
     torch.cuda.empty_cache()
 
@@ -861,20 +894,10 @@ def audit(reps: torch.Tensor, index: torch.Tensor, results, doc_pos) -> float:
 def same_above_band(name: str, s_a, i_a, s_b, i_b, phase: str = "serve"):
     """Two top-k answers [Q, K] agree: scores within AUDIT_REL x max|score|,
     and each answer holds every doc the other scores above the k-th score's
-    tie band of ``s_b``. (Two paths that sum a doc's score in another order
-    may put it on either side of the band's edge, so the docs above the
-    band are looked up in the whole other answer.)"""
-    for r in range(s_b.shape[0]):
-        tol = AUDIT_REL * s_b[r].abs().max().item()
-        err = (s_a[r] - s_b[r]).abs().max().item()
-        band = s_b[r, -1].item() + tol
-        if err > tol \
-                or not set(i_a[r][s_a[r] > band].tolist()) <= set(
-                    i_b[r].tolist()) \
-                or not set(i_b[r][s_b[r] > band].tolist()) <= set(
-                    i_a[r].tolist()):
-            raise AssertionError(f"{name}: row {r} differs above the tie "
-                                 f"band (score err {err}, tolerance {tol})")
+    tie band of ``s_b`` (``perf.agree_above_band``)."""
+    from openmatch_tpu_torch.perf import agree_above_band
+
+    agree_above_band(name, s_a, i_a, s_b, i_b, AUDIT_REL)
     log(f"{phase}: {name}: equal above the tie band for {s_b.shape[0]} rows")
 
 
@@ -1328,6 +1351,17 @@ MICRO_KERNELS = {
     "hier2_full": set(), "xla_full_pyramid": set(),
 }
 PERF_N, PERF_Q = 2_210_456, 512  # score_path_phases.py's defaults
+# the search twins (perf/corpus_scale, qbatch_sweep, rescore_compare,
+# selection_micro) at the TPU scripts' sizes: the kernels each path must
+# launch, and no other
+SEARCH_KERNELS = {"plain_gmax", "gather_rescore"}
+SWEEP_QS = (64, 128, 256)
+RESCORE_PATHS = {
+    "xla": {"block_gmax"}, "dma": {"block_gmax", "gather_rescore"},
+    "plain": {"plain_gmax", "gather_rescore"},
+    "pipelined": {"plain_gmax", "gather_rescore_pipelined"},
+}
+SELECTION_W = N_MSMARCO // 8 + 1  # 1,105,228: the serving index's blocks
 
 
 def trace_k11(cm, q, plain, profiling):
@@ -1365,13 +1399,66 @@ def drive(name: str, fn, want: set, cm) -> dict:
     return got
 
 
+def search_twins(cm) -> dict:
+    """The search twins through their main(argv), each under ``drive``:
+    corpus_scale over the 8,841,823-doc corpus at Q=128, k=1000 (its fp32
+    audit must pass), qbatch_sweep over the same at SWEEP_QS, each
+    rescore_compare path at the script's defaults (2,210,456 docs, Q=128;
+    the four answers equal above the tie band) and selection_micro's topk,
+    gather and idfix at W = SELECTION_W, Q=128, k=1000. Returns the
+    launches, summed."""
+    from openmatch_tpu_torch.perf import (corpus_scale, qbatch_sweep,
+                                          rescore_compare, selection_micro)
+
+    total = {}
+
+    def run(name, fn, want):
+        box = {}
+        got = drive(name, lambda: box.update(out=fn()), want, cm)
+        for kernel, n in got.items():
+            total[kernel] = total.get(kernel, 0) + n
+        return box.pop("out")
+
+    out = run("corpus_scale", lambda: corpus_scale.main(
+        [str(N_MSMARCO), "128", str(K)]), SEARCH_KERNELS)
+    log(f"perf: corpus_scale at N={N_MSMARCO}, Q=128, k={K}: "
+        f"{out['ms']:.4f} ms a batch, {out['qps']:.1f} QPS (corpus built in "
+        f"{out['build_s']:.2f} s); fp32 audit recall {out['recalls']}, max "
+        f"score diff {out['max_score_err']:.3e}")
+    out = run("qbatch_sweep", lambda: qbatch_sweep.main(
+        [str(N_MSMARCO)] + [str(q) for q in SWEEP_QS]), SEARCH_KERNELS)
+    log(f"perf: qbatch_sweep at N={N_MSMARCO}, k={K}: " + "; ".join(
+        f"Q={r['Q']} {r['ms']:.4f} ms, {r['qps']:.1f} QPS"
+        for r in out["rows"]))
+    answers = {}
+    for path, want in RESCORE_PATHS.items():
+        answers[path] = run(f"rescore_compare {path}",
+                            lambda: rescore_compare.main(["--paths", path]),
+                            want)["paths"][path]
+    first = answers["xla"]
+    for path, a in answers.items():
+        if path != "xla":
+            same_above_band(f"rescore_compare {path} vs xla", a["scores"],
+                            a["ids"], first["scores"], first["ids"], "perf")
+    log(f"perf: rescore_compare at N={PERF_N}, Q=128, k={K}: " + "; ".join(
+        f"{p} {a['ms']:.4f} ms" for p, a in answers.items()))
+    for prim in ("topk", "gather", "idfix"):
+        out = run(f"selection_micro {prim}", lambda: selection_micro.main(
+            [prim, str(SELECTION_W), "128", str(K)]), set())
+        log(f"perf: selection_micro {prim} W={out['W']} Q=128 k={K}: "
+            f"{out['ms']:.4f} ms")
+        del out
+    return total
+
+
 def phase_perf(dev) -> tuple:
     """K11 at the script's default size against its plain versions and
     K2/K8, timed; then every score_path_phases phase and the
-    MICRO_KERNELS modes through their main(argv); last, one K11 launch
-    traced. Returns K11's
-    row (err, ms, plain ms, (bound ms, bound by), library ms) and the
-    launches of the perf path's run."""
+    MICRO_KERNELS modes through their main(argv), then the search twins
+    (``search_twins``); last, one K11 launch traced. Returns K11's row
+    (err, ms, plain ms, (bound ms, bound by), library ms) and the launches
+    of the perf path's run: K11's, and every kernel's in the search
+    twins."""
     from openmatch_tpu_torch.ops import cuda_mips as cm
     from openmatch_tpu_torch.perf import micro, normal
     from openmatch_tpu_torch.perf import score_path_phases as spp
@@ -1397,13 +1484,77 @@ def phase_perf(dev) -> tuple:
         launches = {n: launches[n] + got[n] for n in launches}
     for mode, want in MICRO_KERNELS.items():
         drive(f"micro {mode}", lambda: micro.main([mode]), want, cm)
+    twins = search_twins(cm)
+    twins["gmax_phase"] = twins.get("gmax_phase", 0) + launches["gmax_phase"]
     with torch.inference_mode():  # a profiler session last: after the times
         trace_k11(cm, q, plain, profiling)
         del plain, q
     torch.cuda.empty_cache()
     return ({"gmax_phase": (err, ms["a3base"], plain_ms, b11, None)},
-            {"gmax_phase": launches["gmax_phase"]})
+            {k: n for k, n in twins.items() if n})
 
+
+
+# ---- twins: the training, rerank and pipeline perf twins -------------------
+
+TRAIN_BENCH_RUNS = ([], ["--grad-cache"], ["--t5"], ["--rr"], ["--rr", "--t5"])
+
+
+def phase_twins(dev) -> dict:
+    """perf/train_bench (BERT-base DR, GradCache, T5-base t5_encdec, the
+    BERT-base and monoT5-base cross-encoders; 8 x 8, bf16), perf/rerank_bench
+    (BERT-base and monoT5-base, 128 pairs of 192) and perf/pipeline_e2e at
+    its defaults (100,000 docs, 512 queries, depth 100, each driver stage
+    its own process) through their main(argv), each under ``drive`` (this
+    process launches no hand-written kernel): finite losses and scores,
+    each run's line and peak; pipeline_e2e's MRR@10 above 0.99
+    (functional_pass) and its retrieve stage's K1 and K3 launches, which
+    are returned."""
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.perf import (pipeline_e2e, rerank_bench,
+                                          train_bench)
+
+    def run(name, fn):
+        box = {}
+        torch.cuda.reset_peak_memory_stats()
+        drive(name, lambda: box.update(out=fn()), set(), cm)
+        return box.pop("out"), torch.cuda.max_memory_allocated() / 2**30
+
+    for flags in TRAIN_BENCH_RUNS:
+        out, peak = run(f"train_bench {' '.join(flags)}",
+                        lambda: train_bench.main(["8", "8"] + flags))
+        if not np.isfinite([out["first_loss"], out["last_loss"]]).all():
+            raise AssertionError(f"twins: train_bench {flags}: {out}")
+        log(f"twins: train_bench {out['tag']} (8 x 8, bf16): "
+            f"{out['ms']:.2f} ms a step, {out['queries_s']:.1f} queries/s, "
+            f"{out['units_s']:.1f} {out['unit']}/s; loss "
+            f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}; peak "
+            f"{peak:.2f} GiB")
+        gc.collect()
+    for kind in ("bert", "monot5"):
+        out, peak = run(f"rerank_bench {kind}",
+                        lambda: rerank_bench.main([kind, "128", "192"]))
+        if not torch.isfinite(out["scores"]).all():
+            raise AssertionError(f"twins: rerank_bench {kind} scores")
+        log(f"twins: rerank_bench {kind} (128 pairs at S=192, bf16): "
+            f"{out['ms']:.3f} ms a batch, {out['pairs_s']:.1f} pairs/s "
+            f"(depth 100: {out['queries_s_100']:.2f} queries/s, depth "
+            f"1000: {out['queries_s_1000']:.3f}); peak {peak:.2f} GiB")
+        gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        out, _ = run("pipeline_e2e", lambda: pipeline_e2e.main(
+            ["--workdir", root]))
+    got = out["retrieve_launches"] or {}
+    if not out["functional_pass"] or got.get("plain_gmax", 0) < 1 \
+            or got.get("gather_rescore", 0) < 1:
+        raise AssertionError(f"twins: pipeline_e2e {out}")
+    log(f"twins: pipeline_e2e (100,000 docs, 512 queries, depth 100, "
+        f"BERT-base bf16): seconds by stage "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["stage_s"].items())
+        + f", total {out['total_s']:.2f}; MRR@10 {out['mrr_cut_10']} "
+        f"(functional_pass); the retrieve stage launched {got}")
+    return {k: got[k] for k in ("plain_gmax", "gather_rescore")}
 
 
 # ---- train: the training chain through the drivers ------------------------
@@ -1420,50 +1571,11 @@ GC_LOSS_REL = 1e-4  # the loss: a logsumexp over scores of ~|700| at this
 
 def hf_bert_base(rng: np.random.Generator, cfg, path: str):
     """A raw HuggingFace-layout BERT-base checkpoint from seeded weights:
-    config.json and pytorch_model.bin under HF's key names."""
-    d, ff = cfg.hidden_size, cfg.intermediate_size
+    config.json and pytorch_model.bin under HF's key names (dropout 0.1;
+    perf/pipeline_e2e's ``write_hf_bert``)."""
+    from openmatch_tpu_torch.perf.pipeline_e2e import write_hf_bert
 
-    def n(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                                * 0.02)
-
-    def ln(prefix):
-        return {f"{prefix}.weight": torch.ones(d),
-                f"{prefix}.bias": torch.zeros(d)}
-
-    # unit-variance word embeddings: after embeddings_ln a token's identity,
-    # not its position, dominates its hidden state (as in a pretrained
-    # model), so mean-pooled reps tell passages apart from the first step
-    sd = {"embeddings.word_embeddings.weight": n(cfg.vocab_size, d) / 0.02,
-          "embeddings.position_embeddings.weight":
-              n(cfg.max_position_embeddings, d),
-          "embeddings.token_type_embeddings.weight":
-              n(cfg.type_vocab_size, d),
-          **ln("embeddings.LayerNorm")}
-    for i in range(cfg.num_hidden_layers):
-        p = f"encoder.layer.{i}"
-        for name in ("attention.self.query", "attention.self.key",
-                     "attention.self.value", "attention.output.dense"):
-            sd[f"{p}.{name}.weight"], sd[f"{p}.{name}.bias"] = n(d, d), n(d)
-        sd.update(ln(f"{p}.attention.output.LayerNorm"))
-        sd[f"{p}.intermediate.dense.weight"] = n(ff, d)
-        sd[f"{p}.intermediate.dense.bias"] = n(ff)
-        sd[f"{p}.output.dense.weight"] = n(d, ff)
-        sd[f"{p}.output.dense.bias"] = n(d)
-        sd.update(ln(f"{p}.output.LayerNorm"))
-    sd["pooler.dense.weight"], sd["pooler.dense.bias"] = n(d, d), n(d)
-    os.makedirs(path, exist_ok=True)
-    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump({"model_type": "bert", "vocab_size": cfg.vocab_size,
-                   "hidden_size": d, "num_hidden_layers":
-                   cfg.num_hidden_layers, "num_attention_heads":
-                   cfg.num_attention_heads, "intermediate_size": ff,
-                   "hidden_act": "gelu", "max_position_embeddings":
-                   cfg.max_position_embeddings, "type_vocab_size":
-                   cfg.type_vocab_size, "layer_norm_eps": 1e-12,
-                   "pad_token_id": 0, "hidden_dropout_prob": 0.1,
-                   "attention_probs_dropout_prob": 0.1}, f)
+    write_hf_bert(rng, cfg, path)
 
 
 def write_train_data(rng: np.random.Generator, vocab: int, root: str):
@@ -3894,13 +4006,18 @@ MESH_V1_LR = 1e-4  # Adam moves an entry whose gradient is rounding noise by
 # that below the audit's 1e-5
 MESH_RIS_REWARD = 0.1  # the REINFORCE refresh after the second step
 MESH_V1_MODES = ("knrm", "bert", "meta", "reinfoselect")
+# ANCE's alternating loop over the ranks (perf/ance_cycle.py): BERT-base
+# fp32, mean pooling, 2 generations of MESH_ANCE_STEPS steps of a global
+# 8 x 8 batch, top 200 and 20 negatives (the cycle's)
+MESH_ANCE_DOCS, MESH_ANCE_QUERIES, MESH_ANCE_STEPS = 16_384, 256, 3
 # the sizes a rank takes from the parent (it imports this file afresh), so
 # a rehearsal that shrinks them shrinks them on every rank
 MESH_SIZES = ("D", "K", "MAX_BATCH", "N_MSMARCO", "V1_EMBED", "MESH_V1_VOCAB",
               "MESH_V1_QLEN", "MESH_V1_DLEN", "MESH_V1_BATCH",
               "MESH_BERT_PAIRS", "MESH_BERT_LEN", "MESH_V1_STEPS",
               "MESH_SMALL_INDEX", "MESH_SERVE_CLIENTS", "MESH_SERVE_QUERIES",
-              "MESH_RR_Q", "MESH_RR_D", "MESH_RR_BATCH")
+              "MESH_RR_Q", "MESH_RR_D", "MESH_RR_BATCH", "MESH_ANCE_DOCS",
+              "MESH_ANCE_QUERIES", "MESH_ANCE_STEPS")
 
 
 def seeded_state(module: torch.nn.Module, seed: int) -> dict:
@@ -4012,17 +4129,48 @@ def mesh_reranker(model, cfg, mesh=None):
             per_device_eval_batch_size=MESH_RR_BATCH), mesh=mesh)
 
 
+def halves_step(trainer, batch) -> float:
+    """One update of dp=2 with local negatives, in one process: the mean of
+    the two half batches' losses (each half's loss / 2, backward), then the
+    optimizer's step. Returns the loss."""
+    from openmatch_tpu_torch.parallel.mesh import Mesh, shard_batch
+
+    trainer.model.train()
+    trainer.optimizer.zero_grad(set_to_none=True)
+    loss = 0.0
+    for r in range(2):
+        half = shard_batch(batch, Mesh(dp=2, tp=1, rank=r))
+        q, p = (trainer._to_device(half[x]) for x in ("query", "passage"))
+        part = trainer.loss_fn(trainer._encode_q(q),
+                               trainer._encode_p(p)) / 2
+        part.backward()
+        loss += float(part.detach())
+    trainer.optimizer.step()
+    trainer.scheduler.step()
+    trainer.step += 1
+    return loss
+
+
+def ance_argv(spec, dev, workdir: str) -> list:
+    """perf/ance_cycle's arguments for the mesh phase's ANCE run."""
+    return [str(MESH_ANCE_DOCS), str(MESH_ANCE_QUERIES), str(MESH_ANCE_STEPS),
+            "--model_name_or_path", spec["ance_model"], "--pooling", "mean",
+            "--dtype", "float32", "--device", dev.type, "--workdir", workdir]
+
+
 def mesh_references(dev, cfg, root: str) -> dict:
     """One process on the card, before any rank starts: the training
     references (fp32, TF32 off; "global" over the whole batch, "local" the
     mean of the two half batches' losses), the single-buffer Searcher's
-    answer over the seeded index and one-process Reranker scores; written
-    under ``root`` for the ranks. Returns the paths and the one-process
-    times."""
+    answer over the seeded index, one-process Reranker scores and one
+    process running ANCE's alternating loop (each step dp=2's, as
+    ``halves_step`` takes it); written under ``root`` for the ranks.
+    Returns the paths and the one-process times."""
     from openmatch_tpu_torch.models.dr_model import DRModel
     from openmatch_tpu_torch.models.rr_model import RRModel
     from openmatch_tpu_torch.ops.mips import Searcher
-    from openmatch_tpu_torch.parallel.mesh import Mesh, shard_batch
+    from openmatch_tpu_torch.perf import ance_cycle
+    from openmatch_tpu_torch.train import dr_trainer
     from openmatch_tpu_torch.train.dr_trainer import DRTrainer
 
     # sizes travel in the spec: the ranks import this file afresh
@@ -4039,29 +4187,37 @@ def mesh_references(dev, cfg, root: str) -> dict:
         losses = []
         for step in range(MESH_STEPS):
             batch = mesh_batch(step, cfg.vocab_size)
-            if kind == "global":
-                losses.append(float(trainer.train_step(batch)))
-                continue
-            trainer.optimizer.zero_grad(set_to_none=True)
-            loss = 0.0
-            for r in range(2):  # the halves' mean: each half's loss / 2
-                half = shard_batch(batch, Mesh(dp=2, tp=1, rank=r))
-                q, p = (trainer._to_device(half[x])
-                        for x in ("query", "passage"))
-                part = trainer.loss_fn(trainer._encode_q(q),
-                                       trainer._encode_p(p)) / 2
-                part.backward()
-                loss += float(part.detach())
-            trainer.optimizer.step()
-            trainer.scheduler.step()
-            trainer.step += 1
-            losses.append(loss)
+            losses.append(float(trainer.train_step(batch))
+                          if kind == "global" else halves_step(trainer, batch))
         spec[f"ref_{kind}"] = os.path.join(root, f"ref_{kind}.pt")
         torch.save({"losses": losses, "state": {
             k: v.cpu() for k, v in trainer.model.state_dict().items()}},
             spec[f"ref_{kind}"])
         del trainer, model
     torch.cuda.empty_cache()
+
+    # ANCE: the seeded model as an OpenMatch checkpoint, and the same loop
+    # in one process (every step dp=2's mean of the half batches' losses)
+    model = DRModel(cfg, pooling="mean")
+    model.load_state_dict(init)
+    spec["ance_model"] = os.path.join(root, "ance_model")
+    model.save(spec["ance_model"])
+    del model
+    real_step = dr_trainer.DRTrainer.train_step
+    dr_trainer.DRTrainer.train_step = halves_step
+    try:
+        t0 = time.perf_counter()
+        ref = ance_cycle.main(ance_argv(spec, dev, os.path.join(
+            root, "ance_ref")))
+        spec["ance_ref_s"] = time.perf_counter() - t0
+    finally:
+        dr_trainer.DRTrainer.train_step = real_step
+    spec["ance_ref_losses"] = ref["losses"]
+    spec["ance_ref_phases"] = ref["phases"]
+    del ref
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
     index = seeded_rows(0, N_MSMARCO, N_MSMARCO, dev)
     searcher = Searcher(index, k=K, method="kernel")
@@ -4720,6 +4876,95 @@ def mesh_v1(dev, spec) -> dict:
     return out
 
 
+def same_on_ranks(model, mesh) -> bool:
+    """Whether this rank's parameters equal rank 0's bit for bit (one
+    broadcast of them all, flat)."""
+    from openmatch_tpu_torch.parallel.mesh import broadcast
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    return torch.equal(flat, broadcast(flat.clone(), mesh))
+
+
+def mesh_ance(dev, spec) -> dict:
+    """perf/ance_cycle's main on this rank over the ranks (DRTrainer(mesh=),
+    the refresh through the docs-partitioned Retriever(mesh=),
+    write_ann_data(mesh=)): the parameters bit-identical across ranks after
+    each generation (checked as each refresh builds its Retriever, and at
+    the end), generation 0's losses within MESH_REL of one process running
+    the same loop, ann_training_data_0 published once with no .tmp left,
+    every mined negative inside the fp32 audit's top 200 (the tie band
+    added) over this rank's own trained encoder, and the refresh's search
+    launching the gmax kernel (K1, or K2 where this rank's shard is too
+    small for a pyramid level) and K3 on this rank."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops.mips import (TILE_ROWS, pyramid_fanouts,
+                                              shard_rows_for)
+    from openmatch_tpu_torch.perf import ance_cycle
+    from openmatch_tpu_torch.retriever import retriever as rmod
+
+    rank = dist.get_rank()
+    identical = []
+    real = rmod.Retriever
+
+    class Checked(real):
+        """The refresh's Retriever: the ranks' replicas compared first."""
+
+        def __init__(self, model, *args, **kw):
+            super().__init__(model, *args, **kw)
+            identical.append(same_on_ranks(model, kw["mesh"]))
+
+    workdir = os.path.join(spec["root"], "ance")
+    reset_launches(cm)
+    sync(dev)
+    t0 = time.perf_counter()
+    rmod.Retriever = Checked
+    try:
+        cycle = ance_cycle.main(ance_argv(spec, dev, workdir))
+    finally:
+        rmod.Retriever = real
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(cm)
+    trainer = cycle.pop("trainer")
+    identical.append(same_on_ranks(trainer.model, trainer.mesh))
+    del trainer
+    if cycle["ranks"] != MESH_WORLD or identical != [True, True]:
+        raise AssertionError(f"mesh ance: rank {rank} of {cycle['ranks']}: "
+                             f"parameters equal to rank 0's after each "
+                             f"generation {identical}")
+    steps = MESH_ANCE_STEPS
+    ref = spec["ance_ref_losses"][:steps]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        cycle["losses"][:steps], ref))
+    if loss_err > MESH_REL or not np.isfinite(cycle["losses"]).all():
+        raise AssertionError(f"mesh ance: rank {rank} generation 0 losses "
+                             f"{cycle['losses'][:steps]} vs one process "
+                             f"{ref}: rel err {loss_err:.3e} > {MESH_REL}")
+    listing = sorted(os.listdir(cycle["ann_dir"]))
+    if listing != ["ann_training_data_0"]:
+        raise AssertionError(f"mesh ance: ann_dir holds {listing}")
+    with open(cycle["refresh"]["path"], "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    mined = audit_mined(dev, cycle["refresh"], cycle["qrels"],
+                        ance_cycle.TOPK_TRAINING)
+    nb = shard_rows_for(MESH_ANCE_DOCS, MESH_WORLD, TILE_ROWS) // 8
+    gmax = "K1" if pyramid_fanouts(nb, ance_cycle.TOPK_TRAINING) else "K2"
+    if dev.type == "cuda" and (launches["plain_gmax"] < 1
+                               or launches["gather_rescore"] < 1):
+        raise AssertionError(f"mesh ance: rank {rank}'s refresh launched "
+                             f"{launches}, not {gmax} and K3")
+    return dict(seconds=seconds, phases=cycle["phases"],
+                losses=cycle["losses"], loss_err=loss_err, sha=sha,
+                mined=mined, gmax=gmax, shard_blocks=nb,
+                launches={"gmax": launches["plain_gmax"],
+                          "gather_rescore": launches["gather_rescore"]},
+                peak_gib=peak_gib(dev))
+
+
 def mesh_rank(dev, spec) -> dict:
     """One rank of the mesh phase (``spawn_ranks`` runs it in a fresh
     process that initialised CUDA and joined the group itself)."""
@@ -4737,6 +4982,9 @@ def mesh_rank(dev, spec) -> dict:
     out["serve_main"] = mesh_serve_main(dev, spec)
     out["rerank"] = mesh_rerank(dev, spec)
     out["v1"] = mesh_v1(dev, spec)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out["ance"] = mesh_ance(dev, spec)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -4871,6 +5119,37 @@ def phase_mesh(dev, smi: str, cfg=None) -> dict:
             f"{max(x['param_err'] for x in t):.3f} of its tolerance "
             f"(rtol = atol = {MESH_REL}; {t[0]['worst']})"
             f"{extra}; parameters bit-identical across ranks {label}")
+    a = [r["ance"] for r in ranks]
+    if a[0]["sha"] != a[1]["sha"]:
+        raise AssertionError("mesh ance: the ranks read different bytes of "
+                             "ann_training_data_0")
+    per_step = [round(x["phases"]["train_gen_s"] / MESH_ANCE_STEPS * 1000, 1)
+                for x in a]
+    log(f"mesh: ANCE alternating over {MESH_WORLD} ranks (perf/ance_cycle, "
+        f"BERT-base fp32, mean pooling, {MESH_ANCE_DOCS} docs of 128, "
+        f"{MESH_ANCE_QUERIES} queries of 32, 2 generations x "
+        f"{MESH_ANCE_STEPS} steps of 8 x 8): seconds by rank "
+        f"{[round(x['seconds'], 2) for x in a]}, rank 0's phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in a[0]["phases"].items())
+        + f"; ms a step by rank {per_step}; losses {a[0]['losses']}, "
+        f"generation 0 rel err vs one process "
+        f"{max(x['loss_err'] for x in a):.3e} (one process: "
+        f"{spec['ance_ref_s']:.2f} s, phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    spec["ance_ref_phases"].items())
+        + f"); parameters bit-identical across ranks after each generation; "
+        f"ann_training_data_0 published once (sha256 {a[0]['sha'][:16]} on "
+        f"both ranks, no .tmp); {a[0]['mined']} mined negatives a rank pass "
+        f"the fp32 audit; the refresh's search launched by rank "
+        f"{[x['launches'] for x in a]} ({a[0]['gmax']} for the gmax: "
+        f"{a[0]['shard_blocks']} blocks a shard at k=200); peaks "
+        f"{[round(x['peak_gib'], 2) for x in a]} GiB {label}")
+    for x in a:
+        if x["gmax"] == "K1":
+            launches["plain_gmax"] = launches.get("plain_gmax", 0) \
+                + x["launches"]["gmax"]
+        launches["gather_rescore"] = launches.get("gather_rescore", 0) \
+            + x["launches"]["gather_rescore"]
     log(f"mesh: rank seconds {[round(r['seconds'], 2) for r in ranks]}")
     mesh_perf_twins(dev, smi)
     return launches
@@ -4909,7 +5188,7 @@ def mesh_perf_twins(dev, smi: str):
 
 
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank", "ance", "beir", "v1", "research", "mesh")
+          "rerank", "ance", "beir", "v1", "research", "twins", "mesh")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -4969,16 +5248,19 @@ def main(argv=None) -> int:
     if "perf" in phases:
         r, n = run_phase("perf", phase_perf, dev)
         rows.update(r)
-        launches.update(n)
+        for kernel, count in n.items():
+            launches[kernel] = launches.get(kernel, 0) + count
     if "stages" in phases and replay:
         run_phase("stages", phase_stages, dev, replay)
-    # the chains' retrieves add their K1 and K3 launches to the table's,
-    # the mesh phase its ranks' K1, K3, K4 and K5
+    # the chains' retrieves add their K1 and K3 launches to the table's
+    # (the twins phase its pipeline's retrieve stage's), the mesh phase
+    # its ranks' K1, K3, K4 and K5
     for name, fn, args in (("train", phase_train, ()),
                            ("rerank", phase_rerank, ()),
                            ("ance", phase_ance, ()), ("beir", phase_beir, ()),
                            ("v1", phase_v1, ()),
                            ("research", phase_research, ()),
+                           ("twins", phase_twins, ()),
                            ("mesh", phase_mesh, (info["smi"],))):
         if name in phases:
             for kernel, n in run_phase(name, fn, dev, *args).items():

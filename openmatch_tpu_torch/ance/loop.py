@@ -23,6 +23,14 @@ Two modes:
 
 The ann data format is our standard tokenized train jsonl, so the regular
 DRTrainDataset consumes refreshed files unchanged.
+
+Over several ranks (``torchrun`` or ``parallel.mesh.spawn_ranks``) the
+alternating mode runs on every rank alike: each rank trains its rows of
+the global batch through ``DRTrainer(mesh=)``, refreshes through
+``Retriever(mesh=)`` and mines the same negatives, and
+``write_ann_data(..., mesh=)`` publishes each generation once, from rank
+0, behind a barrier (``perf/ance_cycle.py``). The generator stays one
+process, as the JAX package's builds its ``Retriever`` without a mesh.
 """
 
 from __future__ import annotations
@@ -76,18 +84,32 @@ def latest_ann_data(ann_dir: str) -> Tuple[Optional[str], int, Optional[dict]]:
 
 
 def write_ann_data(ann_dir: str, generation: int, lines: Iterable[str],
-                   metrics: Optional[dict] = None) -> str:
-    """Atomically publish a new generation of training data + metrics."""
+                   metrics: Optional[dict] = None, mesh=None) -> str:
+    """Atomically publish a new generation of training data + metrics.
+
+    ``mesh``: this rank's ``parallel.mesh.Mesh``, as ``DRTrainer(mesh=)``
+    and ``Retriever(mesh=)`` take it. Over more than one rank, rank 0 alone
+    writes (the other ranks' ``lines`` are never read), and every rank then
+    meets at a barrier on the world group before the path is returned, so
+    no rank reads a generation before it is whole. Without a mesh, or with
+    one rank, it writes as the JAX package does."""
     os.makedirs(ann_dir, exist_ok=True)
     path = os.path.join(ann_dir, f"ann_training_data_{generation}")
-    tmp = path + ".tmp"
-    with open(tmp, "w") as f:
-        for line in lines:
-            f.write(line + "\n")
-    if metrics is not None:
-        with open(os.path.join(ann_dir, f"ann_ndcg_{generation}"), "w") as f:
-            json.dump(metrics, f)
-    os.replace(tmp, path)  # data file last: its presence signals readiness
+    world = mesh.group("world") if mesh is not None else None
+    if world is None or mesh.rank == 0:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            for line in lines:
+                f.write(line + "\n")
+        if metrics is not None:
+            with open(os.path.join(ann_dir, f"ann_ndcg_{generation}"),
+                      "w") as f:
+                json.dump(metrics, f)
+        os.replace(tmp, path)  # data file last: its presence signals readiness
+    if world is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=world)
     return path
 
 

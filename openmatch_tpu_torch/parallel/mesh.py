@@ -417,15 +417,18 @@ def _rank_entry(fn, rank: int, world: int, device: str, tmp: str,
 
 
 def spawn_ranks(fn: Callable, world: int, args: tuple = (),
-                device: str = "cpu", timeout_s: float = TIMEOUT_S) -> list:
+                device: str = "cuda", timeout_s: float = TIMEOUT_S) -> list:
     """Run ``fn(device, *args)`` on ``world`` ranks, each a fresh process
     (``torch.multiprocessing``, start method ``spawn``) whose default
     process group joined through a ``file://`` rendezvous in a temporary
     directory (no port, so concurrent jobs never collide). ``fn`` must be
-    importable by name; ``device`` is ``"cpu"`` or ``"cuda"`` (each rank
-    then initialises CUDA itself). Returns each rank's return value, in
-    rank order. Raises if any rank exits non-zero (the others are stopped
-    at once) or if the ranks are not done within ``timeout_s``."""
+    importable by name; ``device`` is ``"cuda"`` (the default: each rank
+    then initialises CUDA itself; raises here, before any rank starts,
+    without a card) or ``"cpu"`` when the caller names it. Returns each
+    rank's return value, in rank order. Raises if any rank exits non-zero
+    (the others are stopped at once) or if the ranks are not done within
+    ``timeout_s``."""
+    resolve_device(device)  # no card: fail before spawning
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="ranks_") as tmp:
         procs = [ctx.Process(target=_rank_entry,

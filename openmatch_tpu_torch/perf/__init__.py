@@ -2,13 +2,23 @@
 
     python -m openmatch_tpu_torch.perf.score_path_phases PHASE [N] [Q] [K] [ARG5] [--device cpu]
     python -m openmatch_tpu_torch.perf.micro MODE [Q] [N] [K] [--device cpu]
+    python -m openmatch_tpu_torch.perf.corpus_scale [N] [Q] [K] [--device cpu]
+    python -m openmatch_tpu_torch.perf.qbatch_sweep N_DOCS Q [Q ...] [--segs K]
+    python -m openmatch_tpu_torch.perf.rescore_compare [N] [Q] [K] [--paths ...]
+    python -m openmatch_tpu_torch.perf.selection_micro topk|gather|idfix W [Q K F]
+    python -m openmatch_tpu_torch.perf.train_bench [BATCH] [N_PASSAGES] [--grad-cache] [--t5] [--rr] [--tiny]
+    python -m openmatch_tpu_torch.perf.rerank_bench bert|monot5 [BATCH] [SEQ_LEN] [--tiny]
+    python -m openmatch_tpu_torch.perf.pipeline_e2e [--n-docs N] [--n-queries Q] [--depth D] [--tiny]
 
-Each runs one phase or mode, prints one line, and returns its numbers from
-``main(argv)``. They run on the card unless ``--device cpu`` is given, and
-raise without one. This module holds what both share: the device argument,
-seeded inputs, and the timer (CUDA events on the card, ``time.perf_counter``
-on the CPU; the median of a few runs after a warm-up), which stands in for
-the TPU scripts' ``fori_loop`` amortisation.
+(and ``ance_cycle``, ``mesh_parity``, ``sharded_merge``, ``serve_load``,
+``ablate``, ``parent_vs_change``, each described in its own module). Each
+runs one phase, mode or configuration, prints its line, and returns its
+numbers from ``main(argv)``. They run on the card unless ``--device cpu``
+is given, and raise without one. This module holds what they share: the
+device argument, seeded inputs, the timer (CUDA events on the card,
+``time.perf_counter`` on the CPU; the median of a few runs after a
+warm-up), which stands in for the TPU scripts' ``fori_loop`` amortisation,
+and the tie-band comparison of two exact top-k answers.
 """
 
 from __future__ import annotations
@@ -132,3 +142,52 @@ def spin_ms() -> tuple:
     b.record()
     b.synchronize()
     return _spin_cycles, a.elapsed_time(b)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by the name of the kernel's row
+    in ``chip_smoke.py``'s table."""
+    from ..ops import cuda_mips as cm
+
+    return {"plain_gmax": cm.fused_plain_gmax.launches,
+            "plain_gmax_segs": cm.fused_plain_gmax_segs.launches,
+            "gather_rescore": cm.gather_rescore.launches,
+            "gather_rescore_seg": cm.gather_rescore.seg_launches,
+            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches,
+            "block_gmax": cm.fused_block_gmax.launches,
+            "scores": cm.fused_scores.launches,
+            "score_gmax": cm.fused_score_gmax.launches,
+            "gmax_only": cm.fused_gmax_only.launches,
+            "gmax_phase": cm.fused_gmax_phase.launches}
+
+
+TIE_REL = 1e-4  # agree_above_band: score tolerance and tie band, x max|score|
+
+
+def agree_above_band(name: str, s_a: torch.Tensor, i_a: torch.Tensor,
+                     s_b: torch.Tensor, i_b: torch.Tensor,
+                     rel: float = TIE_REL) -> float:
+    """Two exact top-k answers [Q, k] agree: each row's scores within
+    ``rel`` x its max|score|, and each answer holds every doc the other
+    scores above the row's k-th score plus that band (two paths that sum a
+    doc's score in another order may put it on either side of the band's
+    edge, so those docs are looked up in the whole other answer). Raises
+    naming the row; returns the largest score difference."""
+    s_a, i_a, s_b, i_b = (t.cpu() for t in (s_a, i_a, s_b, i_b))
+    if s_a.shape != s_b.shape:
+        raise AssertionError(f"{name}: shapes {tuple(s_a.shape)} and "
+                             f"{tuple(s_b.shape)}")
+    worst = 0.0
+    for r in range(s_b.shape[0]):
+        tol = rel * s_b[r].abs().max().item()
+        err = (s_a[r] - s_b[r]).abs().max().item()
+        band = s_b[r, -1].item() + tol
+        if err > tol \
+                or not set(i_a[r][s_a[r] > band].tolist()) <= set(
+                    i_b[r].tolist()) \
+                or not set(i_b[r][s_b[r] > band].tolist()) <= set(
+                    i_a[r].tolist()):
+            raise AssertionError(f"{name}: row {r} differs above the tie "
+                                 f"band (score err {err}, tolerance {tol})")
+        worst = max(worst, err)
+    return worst

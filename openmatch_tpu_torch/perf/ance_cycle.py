@@ -3,7 +3,8 @@
 
     python -m openmatch_tpu_torch.perf.ance_cycle [N_DOCS] [N_QUERIES] [STEPS] \
         [--tiny] [--device cuda|cpu] [--model_name_or_path DIR] \
-        [--pooling first|mean] [--workdir DIR]
+        [--pooling first|mean] [--dtype bfloat16|float32] [--workdir DIR]
+    torchrun --nproc_per_node=N -m openmatch_tpu_torch.perf.ance_cycle ...
 
 Defaults: 100k docs (seq 128), 1k queries (seq 32), 50 train steps per
 generation, BERT-base bf16, batch 8x8, encode batch 512,
@@ -15,9 +16,23 @@ corpus and the queries with the trainer's live module through
 trains on the published ann file. The per-step loss jump on the swapped
 data is the "loss landscape changed" check.
 
+Over several ranks (``torch.distributed`` initialised by ``spawn_ranks``,
+or by this script under ``torchrun``) the cycle runs on every rank, as the
+JAX script runs over every device: ``DRTrainer(mesh=make_mesh())``, each
+rank training its rows of every global batch (``shard_batch``; the seeded
+order is the same on every rank, so the global batch is one process's).
+Every rank refreshes alike: it encodes the corpus and the queries with its
+bit-identical replica, the docs-partitioned ``Retriever(mesh=)`` splits the
+search, every rank mines the same negatives from the merged run, and
+``write_ann_data(mesh=)`` publishes the file once, from rank 0. Rank 0
+alone prints; ``main`` returns the same numbers on every rank, and the
+ranks share rank 0's ``--workdir``. Tensor parallelism is not ported here
+(``--tp_size`` > 1 raises).
+
 The model is ``--model_name_or_path`` (an OpenMatch or HuggingFace
-checkpoint directory, built with ``--pooling`` in bf16), else BERT-base (or
-the ``--tiny`` config) drawn from a generator seeded with 0. Token ids are
+checkpoint directory, built with ``--pooling`` in ``--dtype``, bf16 by
+default), else BERT-base (or the ``--tiny`` config) drawn from a generator
+seeded with 0. Token ids are
 rows of two tables drawn in bulk from seeded generators, so the train
 file, the tokenized dicts and the encode streams agree; the JAX script
 seeds one generator per doc instead, a host cost that its encode clock
@@ -40,7 +55,8 @@ import time
 import numpy as np
 import torch
 
-from . import add_device_arg, device_of, sync
+from ..device import resolve_dtype
+from . import add_device_arg, sync
 
 D_QL, D_PL = 32, 128
 B, NP = 8, 8
@@ -49,7 +65,7 @@ TOPK_TRAINING, NEGATIVE_SAMPLE = 200, 20
 
 
 def build_model(args, device):
-    """The cycle's DRModel in bf16 on ``device``."""
+    """The cycle's DRModel in ``--dtype`` on ``device``."""
     from ..config import ModelArguments
     from ..models.bert import BertConfig
     from ..models.dr_model import DRModel
@@ -57,7 +73,7 @@ def build_model(args, device):
     if args.model_name_or_path:
         return DRModel.build(ModelArguments(
             model_name_or_path=args.model_name_or_path,
-            pooling=args.pooling, dtype="bfloat16"), device=device)
+            pooling=args.pooling, dtype=args.dtype), device=device)
     if args.tiny:
         cfg = BertConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
                          num_attention_heads=2, intermediate_size=32,
@@ -67,7 +83,7 @@ def build_model(args, device):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = DRModel(encoder_config=cfg, pooling=args.pooling,
-                        dtype=torch.bfloat16)
+                        dtype=resolve_dtype(args.dtype))
     return model.to(device)
 
 
@@ -83,11 +99,27 @@ def main(argv=None) -> dict:
     add_device_arg(ap)
     ap.add_argument("--model_name_or_path", default=None)
     ap.add_argument("--pooling", default="first", help="first | mean")
+    ap.add_argument("--dtype", default="bfloat16",
+                    help="compute dtype: bfloat16 | float32")
+    ap.add_argument("--tp_size", type=int, default=1,
+                    help="tensor-parallel ranks: only 1 (not ported)")
     ap.add_argument("--workdir", default=None,
                     help="where the train and ann files go (default: a new "
-                         "temporary directory)")
+                         "temporary directory; over ranks rank 0's)")
     args = ap.parse_args(argv)
-    device = device_of(args)
+    if args.tp_size != 1:
+        raise NotImplementedError(
+            f"ance_cycle with tp_size={args.tp_size}: ANCE's alternating "
+            "loop over tensor-parallel ranks is not ported; run it with "
+            "tp_size=1 (data-parallel over every rank)")
+    from ..drivers.common import maybe_init_distributed
+    from ..parallel.mesh import (make_mesh, rank_device, shard_batch,
+                                 world_size)
+
+    device = rank_device(args.device)  # raises without a card
+    maybe_init_distributed(device)
+    mesh = make_mesh(device=device) if world_size() > 1 else None
+    lead = mesh is None or mesh.rank == 0
     n_docs, n_queries, steps = args.n_docs, args.n_queries, args.steps
 
     from ..ance.loop import (AnceConfig, build_ann_lines,
@@ -102,7 +134,8 @@ def main(argv=None) -> dict:
     vocab = min(30000, model.encoder_config.vocab_size)
     train_args = TrainingArguments(per_device_train_batch_size=B,
                                    max_steps=10_000, logging_steps=10_000)
-    trainer = DRTrainer(model, train_args, total_steps=10_000, device=device)
+    trainer = DRTrainer(model, train_args, total_steps=10_000, device=device,
+                        mesh=mesh)
 
     # deterministic synthetic token ids, made in bulk: doc i / query i are
     # row i of a seeded table
@@ -119,20 +152,30 @@ def main(argv=None) -> dict:
 
     qrels = {f"q{i}": [f"d{i}"] for i in range(n_queries)}
 
-    workdir = args.workdir or tempfile.mkdtemp(prefix="ance_cycle_")
-    os.makedirs(workdir, exist_ok=True)
+    workdir = args.workdir
+    if lead and workdir is None:
+        workdir = tempfile.mkdtemp(prefix="ance_cycle_")
+    if mesh is not None:  # the ranks share rank 0's files
+        import torch.distributed as dist
 
-    # gen0 train file: each query's positive + random negatives
-    rng = np.random.RandomState(123)
+        box = [workdir]
+        dist.broadcast_object_list(box, src=0, group=mesh.group("world"))
+        workdir = box[0]
     init_path = os.path.join(workdir, "gen_init.jsonl")
-    with open(init_path, "w") as f:
-        for i in range(n_queries):
-            negs = rng.randint(0, n_docs, size=NP - 1)
-            f.write(json.dumps({
-                "query": query_ids_(i),
-                "positives": [doc_ids_(i)],
-                "negatives": [doc_ids_(int(j)) for j in negs],
-            }) + "\n")
+    if lead:
+        os.makedirs(workdir, exist_ok=True)
+        # gen0 train file: each query's positive + random negatives
+        rng = np.random.RandomState(123)
+        with open(init_path, "w") as f:
+            for i in range(n_queries):
+                negs = rng.randint(0, n_docs, size=NP - 1)
+                f.write(json.dumps({
+                    "query": query_ids_(i),
+                    "positives": [doc_ids_(i)],
+                    "negatives": [doc_ids_(int(j)) for j in negs],
+                }) + "\n")
+    if mesh is not None:
+        dist.barrier(group=mesh.group("world"))
 
     losses = []  # device scalars; generation boundaries ride on the length
 
@@ -167,7 +210,13 @@ def main(argv=None) -> dict:
         def model(self):
             return self._tr.model
 
+        @property
+        def mesh(self):
+            return mesh
+
         def train_step(self, batch):
+            if mesh is not None:  # this rank's rows of the global batch
+                batch = shard_batch(batch, mesh)
             loss = self._tr.train_step(batch)
             losses.append(loss)
             return loss
@@ -185,9 +234,11 @@ def main(argv=None) -> dict:
         marks["refresh"] = time.perf_counter()
         start_bytes = torch.cuda.memory_allocated(device) \
             if device.type == "cuda" else 0
-        # the trainer's live module, not a copy: one model on the device
+        # the trainer's live module, not a copy: one model on the device;
+        # over ranks each encodes alike and the docs partition splits the
+        # search
         retriever = Retriever(tr.model, data_args, inf_args, pad_token_id=0,
-                              device=device)
+                              device=device, mesh=tr.mesh)
         t0 = time.perf_counter()
         doc_emb, doc_ids = retriever.encode_corpus(
             {"id": f"d{i}", "input_ids": doc_ids_(i)} for i in range(n_docs))
@@ -209,7 +260,8 @@ def main(argv=None) -> dict:
         tokenized_c = {d: doc_ids_(int(d[1:])) for d in needed}
         path = write_ann_data(
             acfg.ann_dir, generation,
-            build_ann_lines(negatives, qrels, tokenized_q, tokenized_c))
+            build_ann_lines(negatives, qrels, tokenized_q, tokenized_c),
+            mesh=tr.mesh)
         marks["trained"] = time.perf_counter()
         phases["mine_and_publish_s"] = marks["trained"] - t0
         refresh.update(doc_emb=doc_emb, doc_ids=doc_ids, q_emb=q_emb,
@@ -234,22 +286,24 @@ def main(argv=None) -> dict:
 
     losses = [float(x) for x in losses]
     g0, g1 = losses[:steps], losses[steps:]
-    print(f"ance_cycle: n_docs={n_docs} n_queries={n_queries} "
-          f"steps/gen={steps} B={B}x{NP} seq q{D_QL}/p{D_PL} "
-          f"device={device}", flush=True)
-    for k in ("train_gen_s", "train_gen0_s", "train_gen1_s",
-              "encode_corpus_s", "encode_queries_s", "search_s",
-              "mine_and_publish_s"):
-        print(f"  {k:>20}: {phases[k]:7.2f} s", flush=True)
-    print(f"  {'cycle_total':>20}: {total:7.2f} s "
-          f"({n_docs / phases['encode_corpus_s']:,.0f} docs/s encode)",
-          flush=True)
-    print(f"  loss gen0 first/last 10: {np.mean(g0[:10]):.4f} -> "
-          f"{np.mean(g0[-10:]):.4f}; gen1 (mined negatives) first 10: "
-          f"{np.mean(g1[:10]):.4f}", flush=True)
+    ranks = world_size()
+    if lead:
+        print(f"ance_cycle: n_docs={n_docs} n_queries={n_queries} "
+              f"steps/gen={steps} B={B}x{NP} seq q{D_QL}/p{D_PL} "
+              f"device={device} ranks={ranks}", flush=True)
+        for k in ("train_gen_s", "train_gen0_s", "train_gen1_s",
+                  "encode_corpus_s", "encode_queries_s", "search_s",
+                  "mine_and_publish_s"):
+            print(f"  {k:>20}: {phases[k]:7.2f} s", flush=True)
+        print(f"  {'cycle_total':>20}: {total:7.2f} s "
+              f"({n_docs / phases['encode_corpus_s']:,.0f} docs/s encode)",
+              flush=True)
+        print(f"  loss gen0 first/last 10: {np.mean(g0[:10]):.4f} -> "
+              f"{np.mean(g0[-10:]):.4f}; gen1 (mined negatives) first 10: "
+              f"{np.mean(g1[:10]):.4f}", flush=True)
     return {"phases": phases, "total_s": total, "losses": losses,
             "trainer": trainer, "refresh": refresh, "qrels": qrels,
-            "ann_dir": acfg.ann_dir, "workdir": workdir}
+            "ann_dir": acfg.ann_dir, "workdir": workdir, "ranks": ranks}
 
 
 if __name__ == "__main__":

@@ -166,7 +166,7 @@ def test_maybe_init_distributed(monkeypatch, beir_run_inputs):
     assert common.maybe_init_distributed("cpu") == (0, 1)
     monkeypatch.delenv("WORLD_SIZE")
     assert spawn_ranks(torch_ranks.maybe_init_rank, 2,
-                       timeout_s=120) == [(0, 2), (1, 2)]
+                       device="cpu", timeout_s=120) == [(0, 2), (1, 2)]
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.delenv("MASTER_ADDR", raising=False)
     with pytest.raises(ValueError, match="MASTER_ADDR"):

@@ -73,7 +73,8 @@ def models(jx):
 def ranks(models):
     inputs = {"dr": (("bert", tr.BERT, {}), params_from_jax(models.params)),
               "rr": (tr.BERT, params_from_jax(models.rparams))}
-    return spawn_ranks(tr.dp2_world, 2, args=(inputs,), timeout_s=300)
+    return spawn_ranks(tr.dp2_world, 2, args=(inputs,), device="cpu",
+                       timeout_s=300)
 
 
 def assert_tree_close(jax, got_state, want_tree, heads=4):
@@ -191,6 +192,19 @@ def test_maybe_init_distributed_on_two_ranks(ranks):
         assert res["env_init"] == ((r, 2), "gloo")
 
 
+def test_spawn_ranks_defaults_to_the_card():
+    """Ranks run on the card unless the caller names the CPU: without a
+    card the default raises before any rank starts."""
+    import inspect
+
+    assert inspect.signature(spawn_ranks).parameters["device"].default \
+        == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        spawn_ranks(tr.maybe_init_rank, 2, timeout_s=30)
+
+
 def test_spawn_ranks_stops_at_a_failing_or_hanging_rank():
     """A rank's exception fails the job at once (the waiting rank is
     stopped, the error names the rank); a rank past the deadline fails it
@@ -199,9 +213,9 @@ def test_spawn_ranks_stops_at_a_failing_or_hanging_rank():
 
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="of 2 failed") as err:
-        spawn_ranks(tr.failing_rank, 2, timeout_s=120)
+        spawn_ranks(tr.failing_rank, 2, device="cpu", timeout_s=120)
     # rank 0's barrier may fail as fast: the message holds each error
     assert "rank 1 fails on purpose" in str(err.value)
     assert time.monotonic() - t0 < 60
     with pytest.raises(TimeoutError, match="still running"):
-        spawn_ranks(tr.hanging_rank, 2, timeout_s=10)
+        spawn_ranks(tr.hanging_rank, 2, device="cpu", timeout_s=10)

@@ -100,7 +100,8 @@ def wide(reps: np.ndarray) -> tuple:
 def ranks(jax_side):
     state, reps, _ = jax_side
     inputs = {"state": state, "topics": (reps, IDS), "wide": wide(reps)}
-    return spawn_ranks(tr.serve_world, 2, args=(inputs,), timeout_s=300)
+    return spawn_ranks(tr.serve_world, 2, args=(inputs,), device="cpu",
+                       timeout_s=300)
 
 
 def one_process(state, corpus, method, n_segs, dtype=torch.float32):

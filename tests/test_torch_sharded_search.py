@@ -59,7 +59,8 @@ def jx():
 @pytest.fixture(scope="module")
 def ranks(jx):
     inputs = {"dr": (("bert", tr.BERT, {}), params_from_jax(jx.params))}
-    return spawn_ranks(tr.search_world, 2, args=(inputs,), timeout_s=300)
+    return spawn_ranks(tr.search_world, 2, args=(inputs,), device="cpu",
+                       timeout_s=300)
 
 
 def results(ranks, key):

@@ -82,12 +82,13 @@ def inputs(jx, root=None):
 def tp2(jx, tmp_path_factory):
     root = str(tmp_path_factory.mktemp("tp2"))
     return spawn_ranks(tr.tp_world, 2, args=(inputs(jx, root),),
-                       timeout_s=300), root
+                       device="cpu", timeout_s=300), root
 
 
 @pytest.fixture(scope="module")
 def world4(jx):
-    return spawn_ranks(tr.world4, 4, args=(inputs(jx),), timeout_s=300)
+    return spawn_ranks(tr.world4, 4, args=(inputs(jx),), device="cpu",
+                       timeout_s=300)
 
 
 def jax_run(jx, name, mode, dp):

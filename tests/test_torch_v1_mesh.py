@@ -229,7 +229,8 @@ def world(jx, tmp_path_factory):
     sides["reinfoselect"] = (params, score, pparams, pscore, batches, rngs)
 
     inputs["drivers"] = driver_argv(root, root / "ranks")
-    ranks = spawn_ranks(tr.v1_world, 2, args=(inputs,), timeout_s=600)
+    ranks = spawn_ranks(tr.v1_world, 2, args=(inputs,), device="cpu",
+                        timeout_s=600)
     return SimpleNamespace(root=root, ranks=ranks, sides=sides)
 
 

@@ -638,3 +638,140 @@ def v1_world(device, inputs: dict) -> dict:
         out[f"driver/{name}"] = {k: v for k, v in result.items()
                                  if k != "weights"}
     return out
+
+
+# ---- ANCE's alternating loop over the ranks (test_torch_ance_mesh.py) -----
+
+ANCE_TOPICS = 8
+ANCE_BERT = dict(vocab_size=32, hidden_size=16, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=32,
+                 max_position_embeddings=16, add_pooler=False)
+
+
+def ance_kw() -> dict:
+    """test_torch_ance.py's alternating miniature's fields."""
+    return dict(learning_rate=3e-3, warmup_ratio=0.0, warmup_steps=0,
+                adam_epsilon=1e-4, weight_decay=0.0, logging_steps=1000,
+                save_steps=0, seed=0)
+
+
+def ance_texts():
+    """(corpus, queries, qrels, init rows) of the topic miniature as id
+    lists of its vocabulary ([PAD] [UNK] [CLS]=2 [SEP]=3 [MASK] about=5
+    document=6 query=7 topic<i>=8+i): the corpus and queries with their
+    special tokens (as a BERT tokenizer encodes them), the init file's
+    texts without (``IdTokenizer`` adds them, as BERT's does)."""
+    doc = [[6, 5, 8 + i] for i in range(ANCE_TOPICS)]
+    qry = [[7, 5, 8 + i] for i in range(ANCE_TOPICS)]
+    corpus = {f"d{i}": [2] + doc[i] + [3] for i in range(ANCE_TOPICS)}
+    queries = {f"q{i}": [2] + qry[i] + [3] for i in range(ANCE_TOPICS)}
+    qrels = {f"q{i}": [f"d{i}"] for i in range(ANCE_TOPICS)}
+    init = [{"query": qry[i], "positives": [doc[i]],
+             "negatives": [doc[(i + 4) % ANCE_TOPICS]]}
+            for i in range(ANCE_TOPICS)]
+    return corpus, queries, qrels, init
+
+
+def ance_data_iter(make):
+    """make_data_iter over a train file: global batches of 8 queries x 2
+    passages (``make`` is (DataArguments, DRTrainDataset, QPCollator,
+    batched) of either package)."""
+    Args, Dataset, Collator, batch_fn = make
+
+    def make_data_iter(path):
+        ds = Dataset(IdTokenizer(), Args(train_path=path, train_n_passages=2,
+                                         q_max_len=8, p_max_len=8))
+        return batch_fn(ds.epoch_iterator(0, None), 8,
+                        Collator(pad_token_id=0, q_max_len=8, p_max_len=8),
+                        drop_last=True)
+
+    return make_data_iter
+
+
+def ance_world(device, inputs: dict) -> dict:
+    """The alternating miniature on this rank: DRTrainer(mesh=) over the
+    global batches, each refresh through Retriever(mesh=) (the docs
+    partition, fp32 scores) and write_ann_data(mesh=); the writes this
+    rank made to ann_dir counted. Then perf.ance_cycle's main over the
+    ranks at its --tiny size."""
+    import hashlib
+
+    from openmatch_tpu_torch.ance import loop
+    from openmatch_tpu_torch.data.collators import QPCollator
+    from openmatch_tpu_torch.data.loader import batched
+    from openmatch_tpu_torch.data.train_dataset import DRTrainDataset
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.perf import ance_cycle
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(2, 1, device)
+    model = DRModel(BertConfig(**ANCE_BERT), normalize=True)
+    model.load_state_dict(inputs["state"], strict=True)
+    trainer = DRTrainer(model, TrainingArguments(**ance_kw()),
+                        total_steps=10_000, device=device, mesh=mesh)
+    corpus, queries, qrels, _ = ance_texts()
+    losses, scores, writes = [], [], []
+
+    class Sharded:
+        """The trainer as run_ance_alternating drives it: this rank's rows
+        of each global batch."""
+
+        model = property(lambda self: trainer.model)
+        mesh = property(lambda self: mesh)
+
+        def train_step(self, batch):
+            loss = trainer.train_step(shard_batch(batch, mesh))
+            losses.append(float(loss))
+            return loss
+
+    def refresh_fn(tr, generation):
+        retriever = Retriever(tr.model, DataArguments(q_max_len=8,
+                                                      p_max_len=8),
+                              InferenceArguments(per_device_eval_batch_size=4),
+                              0, device, mesh=tr.mesh)
+        retriever.encode_corpus({"id": k, "input_ids": v}
+                                for k, v in corpus.items())
+        q_emb, qids = retriever.encode_queries(
+            {"id": k, "input_ids": v} for k, v in queries.items())
+        run = retriever.search(q_emb, qids, topk=len(corpus),
+                               search_dtype=torch.float32)
+        scores.append(np.array([[run[q][d] for d in corpus]
+                                for q in queries]))
+        cfg = loop.AnceConfig(ann_dir=inputs["ann_dir"], topk_training=8,
+                              negative_sample=1, seed=0)
+        negs = loop.generate_hard_negatives(run, qrels, cfg, generation)
+        return loop.write_ann_data(
+            cfg.ann_dir, generation,
+            loop.build_ann_lines(negs, qrels, queries, corpus),
+            mesh=tr.mesh)
+
+    def counting_open(path, mode="r", *args, **kw):
+        if "w" in mode:
+            writes.append(os.path.basename(path))
+        return open(path, mode, *args, **kw)
+
+    loop.open = counting_open  # the module's global, before the builtin
+    try:
+        used = loop.run_ance_alternating(
+            Sharded(), ance_data_iter((DataArguments, DRTrainDataset,
+                                       QPCollator, batched)),
+            refresh_fn, inputs["init"], steps_per_generation=3,
+            num_generations=3)
+    finally:
+        del loop.open
+    files = {}
+    for p in used[1:]:
+        with open(p, "rb") as f:
+            files[os.path.basename(p)] = f.read()
+    cycle = ance_cycle.main(["400", "16", "3", "--tiny", "--device", "cpu",
+                             "--workdir", inputs["cycle_dir"]])
+    with open(cycle["refresh"]["path"], "rb") as f:
+        cycle_sha = hashlib.sha256(f.read()).hexdigest()
+    return {"losses": losses, "state": _cpu(trainer.full_state()),
+            "scores": scores, "files": files, "writes": writes,
+            "listing": sorted(os.listdir(inputs["ann_dir"])),
+            "used": [os.path.basename(p) for p in used],
+            "cycle": {"negatives": cycle["refresh"]["negatives"],
+                      "losses": cycle["losses"], "sha": cycle_sha,
+                      "ranks": cycle["ranks"],
+                      "listing": sorted(os.listdir(cycle["ann_dir"]))}}
