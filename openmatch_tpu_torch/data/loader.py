@@ -2,7 +2,9 @@
 
 The port's own copy of ``batched`` and ``prefetch`` from
 ``openmatch_tpu/data/loader.py``: a plain generator plus a bounded
-background prefetch thread, deterministic and single-consumer.
+background prefetch thread, deterministic and single-consumer. The
+producer's work on an item is a ``loader.produce`` span, the consumer's
+wait for one a ``loader.wait`` span (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, List
+
+from ..utils.profiling import span
 
 
 def batched(
@@ -52,7 +56,12 @@ def prefetch(iterator: Iterable, depth: int = 2) -> Iterator:
 
     def worker():
         try:
-            for item in iterator:
+            upstream = iter(iterator)
+            while True:
+                with span("loader.produce"):
+                    item = next(upstream, _END)
+                if item is _END:
+                    break
                 # bounded put with a stop check: a consumer that abandons
                 # the generator must not leave this thread blocked on q.put
                 # forever, pinning the upstream iterator and depth+1 batches
@@ -72,7 +81,8 @@ def prefetch(iterator: Iterable, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("loader.wait"):
+                item = q.get()
             if item is _END:
                 break
             if isinstance(item, BaseException):

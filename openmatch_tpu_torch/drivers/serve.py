@@ -74,6 +74,7 @@ from ..parallel.mesh import (OP_KEEPALIVE, OP_SEARCH, OP_STOP,
 from ..retriever.reranker import (_model_max_positions, bucket_lens,
                                   collate_pairs, device_pair_len, encode_pair,
                                   score_batch)
+from ..utils.profiling import Span
 from .common import (load_tokenizer, maybe_init_distributed, setup_logging,
                      split_device_flag)
 
@@ -95,7 +96,16 @@ class _QueueService:
     Subclasses define ``_rows(args)`` (rows a request contributes) and
     ``_run_many(requests)`` (batch-execute, one result per request), and
     may define ``_idle()`` (run when nothing arrived for ``idle_s``) and
-    ``_on_close()``. Once ``failed`` is set, every request fails at once."""
+    ``_on_close()``. Once ``failed`` is set, every request fails at once.
+
+    Each dispatch is a ``serve.dispatch`` span (``utils.profiling``
+    ``Span``: timed whether tracing is on or not) over the subclass's own
+    spans. Assigning a list to ``timeline`` records one dict a dispatch,
+    read from that span: ``t`` (its start on ``time.monotonic``),
+    ``wait_s`` (the oldest request's wait for it), ``exec_s`` (the span),
+    ``device_s`` (what ``_run_many`` adds to ``_exec_device_s``; the
+    retrieval service's ``serve.launch`` and ``serve.readback`` spans),
+    ``rows``, ``reqs`` and ``error``."""
 
     max_queue = 256
     coalesce_window_s = 0.002
@@ -105,8 +115,6 @@ class _QueueService:
     def _start_worker(self):
         self._queue: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
         self.stats = {"dispatch_groups": 0, "requests": 0, "max_coalesced": 0}
-        # assign a list to record one dict per dispatch (enqueue-to-
-        # dispatch wait, exec wall, device span)
         self.timeline = None
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
@@ -156,25 +164,25 @@ class _QueueService:
         self.stats["requests"] += len(items)
         self.stats["max_coalesced"] = max(self.stats["max_coalesced"],
                                           len(items))
-        t_exec0 = time.monotonic()
-        try:
-            if self.failed is not None:
-                raise RuntimeError(f"the service failed: {self.failed}")
-            self._exec_device_s = 0.0  # _run_many accumulates
-            results = self._run_many([args for args, _, _ in items])
-            for (_, reply, _), res in zip(items, results):
-                reply.put(("ok", res))
-            err = False
-        except Exception as e:  # the worker must outlive a failed batch
-            for _, reply, _ in items:
-                reply.put(("error", f"{type(e).__name__}: {e}"))
-            err = True
-        if self.timeline is not None:
-            t1 = time.monotonic()
-            self.timeline.append({
-                "t": t_exec0,
-                "wait_s": t_exec0 - min(enq for _, _, enq in items),
-                "exec_s": t1 - t_exec0,
+        timeline = self.timeline  # a reader may swap it at any time
+        self._exec_device_s = 0.0  # _run_many accumulates
+        with Span("serve.dispatch") as dispatch:
+            try:
+                if self.failed is not None:
+                    raise RuntimeError(f"the service failed: {self.failed}")
+                results = self._run_many([args for args, _, _ in items])
+                for (_, reply, _), res in zip(items, results):
+                    reply.put(("ok", res))
+                err = False
+            except Exception as e:  # the worker must outlive a failed batch
+                for _, reply, _ in items:
+                    reply.put(("error", f"{type(e).__name__}: {e}"))
+                err = True
+        if timeline is not None:
+            timeline.append({
+                "t": dispatch.t0,
+                "wait_s": dispatch.t0 - min(enq for _, _, enq in items),
+                "exec_s": dispatch.seconds,
                 "device_s": self._exec_device_s,
                 "rows": sum(self._rows(args) for args, _, _ in items),
                 "reqs": len(items), "error": err,
@@ -261,6 +269,10 @@ class RetrievalService(_QueueService):
         """At most ``max_batch`` query strings -> reps [n, D] on the device.
         The batch is padded to ``max_batch`` rows, so a query's
         representation does not depend on what it was batched with."""
+        return self._encode(self._tokenize(queries), len(queries))
+
+    def _tokenize(self, queries) -> dict:
+        """Query strings -> padded host arrays of ``max_batch`` rows."""
         enc = [
             self.tokenizer.encode_plus(
                 q, truncation="only_first", max_length=self.q_max_len,
@@ -270,10 +282,13 @@ class RetrievalService(_QueueService):
             for q in queries
         ]
         enc = enc + [enc[-1]] * (self.max_batch - len(enc))
-        batch = pad_ids(enc, self.q_max_len, self.tokenizer.pad_token_id or 0)
+        return pad_ids(enc, self.q_max_len, self.tokenizer.pad_token_id or 0)
+
+    def _encode(self, batch: dict, n: int) -> torch.Tensor:
+        """``_tokenize``'s arrays -> the first ``n`` reps on the device."""
         ids = torch.from_numpy(batch["input_ids"]).to(self.device)
         mask = torch.from_numpy(batch["attention_mask"]).to(self.device)
-        return self.model.encode_query(ids, mask)[: len(queries)]
+        return self.model.encode_query(ids, mask)[:n]
 
     def _search_rows(self, queries):
         """One device dispatch per max_batch chunk of the merged queries;
@@ -281,16 +296,19 @@ class RetrievalService(_QueueService):
         s_out, i_out = [], []
         for start in range(0, len(queries), self.max_batch):
             chunk = queries[start:start + self.max_batch]
-            t_dev = time.monotonic()  # device span: encode->search->readback
-            reps = self.encode_queries(chunk)
-            if self.channel is None:
-                scores, indices = self.searcher.search(reps)
-            else:
-                scores, indices = self._over_ranks(
-                    OP_SEARCH, reps.to(self.searcher.dtype).contiguous())
-            s_out.append(scores.float().cpu().numpy())
-            i_out.append(indices.cpu().numpy())
-            self._exec_device_s += time.monotonic() - t_dev
+            with Span("serve.tokenize"):
+                batch = self._tokenize(chunk)
+            with Span("serve.launch") as launch:
+                reps = self._encode(batch, len(chunk))
+                if self.channel is None:
+                    scores, indices = self.searcher.search(reps)
+                else:
+                    scores, indices = self._over_ranks(
+                        OP_SEARCH, reps.to(self.searcher.dtype).contiguous())
+            with Span("serve.readback") as readback:
+                s_out.append(scores.float().cpu().numpy())
+                i_out.append(indices.cpu().numpy())
+            self._exec_device_s += launch.seconds + readback.seconds
         return np.concatenate(s_out), np.concatenate(i_out)
 
     def _run_many(self, requests):
@@ -298,16 +316,18 @@ class RetrievalService(_QueueService):
         merged = [q for queries, _ in requests for q in queries]
         scores, indices = self._search_rows(merged)
         results, row = [], 0
-        for queries, k in requests:
-            results.append([
-                [
-                    {"id": self.doc_ids[int(d)], "score": float(s)}
-                    for d, s in zip(indices[row + r, :k], scores[row + r, :k])
-                    if np.isfinite(s)
-                ]
-                for r in range(len(queries))
-            ])
-            row += len(queries)
+        with Span("serve.results"):
+            for queries, k in requests:
+                results.append([
+                    [
+                        {"id": self.doc_ids[int(d)], "score": float(s)}
+                        for d, s in zip(indices[row + r, :k],
+                                        scores[row + r, :k])
+                        if np.isfinite(s)
+                    ]
+                    for r in range(len(queries))
+                ])
+                row += len(queries)
         return results
 
     def search(self, queries, k: int = 10):

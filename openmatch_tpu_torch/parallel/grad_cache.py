@@ -22,6 +22,10 @@ all_gather_rows(p))``, as JAX's ``gc_loss`` gathers them): pass 2's rep
 gradients are then this rank's rows of the global loss's, and the replayed
 parameter gradients are this rank's share, summed over the data group
 after the passes.
+
+Passes 1 and 2's loss run in a ``train.forward`` span, the rep gradients
+and pass 3 in a ``train.backward`` span (``utils.profiling``), the names
+of a plain step's phases.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional
 
 import torch
+
+from ..utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 Encode = Callable[[Batch, Optional[torch.Generator]], torch.Tensor]
@@ -60,21 +66,24 @@ def grad_cache_backward(encode_q: Encode, encode_p: Encode,
     sides = ((encode_q, split_batch(q_batch, q_chunks)),
              (encode_p, split_batch(p_batch, p_chunks)))
     states, reps = [], []
-    with torch.no_grad():  # pass 1
-        for encode, chunks in sides:
-            side_states, side_reps = [], []
-            for chunk in chunks:
-                side_states.append(None if generator is None
-                                   else generator.get_state())
-                side_reps.append(encode(chunk, generator))
-            states.append(side_states)
-            reps.append(torch.cat(side_reps).requires_grad_())
-    loss = loss_fn(reps[0], reps[1])  # pass 2
-    rep_grads = torch.autograd.grad(loss, reps)
-    for (encode, chunks), side_states, g in zip(sides, states, rep_grads):
-        for chunk, state, g_chunk in zip(chunks, side_states,
-                                         g.chunk(len(chunks))):  # pass 3
-            if generator is not None:
-                generator.set_state(state)
-            encode(chunk, generator).backward(g_chunk)
+    with span("train.forward"):
+        with torch.no_grad():  # pass 1
+            for encode, chunks in sides:
+                side_states, side_reps = [], []
+                for chunk in chunks:
+                    side_states.append(None if generator is None
+                                       else generator.get_state())
+                    side_reps.append(encode(chunk, generator))
+                states.append(side_states)
+                reps.append(torch.cat(side_reps).requires_grad_())
+        loss = loss_fn(reps[0], reps[1])  # pass 2
+    with span("train.backward"):
+        rep_grads = torch.autograd.grad(loss, reps)
+        for (encode, chunks), side_states, g in zip(sides, states,
+                                                    rep_grads):
+            for chunk, state, g_chunk in zip(chunks, side_states,
+                                             g.chunk(len(chunks))):  # pass 3
+                if generator is not None:
+                    generator.set_state(state)
+                encode(chunk, generator).backward(g_chunk)
     return loss.detach()

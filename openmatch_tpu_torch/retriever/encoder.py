@@ -18,6 +18,7 @@ import torch
 
 from ..data.collators import InferenceCollator
 from ..data.loader import batched, prefetch
+from ..utils.profiling import span
 
 
 def encode_dataset(
@@ -35,7 +36,8 @@ def encode_dataset(
     Runs under ``torch.inference_mode`` on ``device`` (default: the
     device of the model's parameters). Batches are padded to
     ``batch_size`` rows like the JAX version, so a query encodes to the
-    same bits whichever batch it lands in."""
+    same bits whichever batch it lands in. A batch's upload and encode are
+    an ``encode.launch`` span, its read-back an ``encode.readback`` span."""
     if device is None:
         device = next(model.parameters()).device
     collator = InferenceCollator(pad_token_id=pad_token_id, max_len=max_len)
@@ -43,10 +45,12 @@ def encode_dataset(
     stream = batched(dataset, batch_size, collator, pad_to_full=True)
     with torch.inference_mode():
         for (text_ids, batch), n_valid in prefetch(stream, depth=4):
-            ids = torch.from_numpy(batch["input_ids"]).to(device)
-            mask = torch.from_numpy(batch["attention_mask"]).to(device)
-            reps = model.encode(ids, mask, is_query=is_query)
-            reps = reps.float().cpu().numpy()[:n_valid]
+            with span("encode.launch"):
+                ids = torch.from_numpy(batch["input_ids"]).to(device)
+                mask = torch.from_numpy(batch["attention_mask"]).to(device)
+                reps = model.encode(ids, mask, is_query=is_query)
+            with span("encode.readback"):
+                reps = reps.float().cpu().numpy()[:n_valid]
             chunks.append(reps.astype(out_dtype))
             all_ids.extend(text_ids[:n_valid])
     if not chunks:

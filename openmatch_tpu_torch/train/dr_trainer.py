@@ -32,6 +32,11 @@ resumed run replays the same masks. The loss stays on the device between
 logging steps. Only rank 0 writes checkpoints, in the one-process layout:
 the JAX package's ``params.msgpack`` and ``train_state.msgpack``, so a run
 of either package resumes in the other.
+
+A step's phases are spans (``utils.profiling``): ``train.forward`` (the
+upload, both encodes and the loss), ``train.backward`` and
+``train.optimizer`` (the reduction over ranks, the optimizer and the
+schedule); GradCache's passes carry the same names.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..parallel.grad_cache import grad_cache_backward
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather_rows,
                              all_reduce, flat_all_reduce, make_mesh,
                              reduce_grads, replicate)
+from ..utils.profiling import span
 from .state import (latest_checkpoint, load_train_state, make_optimizer,
                     optax_state_tree, restore_optimizer, save_train_state)
 
@@ -145,11 +151,15 @@ class DRTrainer:
         GradCache when ``grad_cache`` is set, else one forward and
         backward. ``step`` reduces both over the data group."""
         args = self.args
-        q, p = self._to_device(batch["query"]), self._to_device(
-            batch["passage"])
-        generator = self._step_generator()
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        with span("train.forward"):
+            q, p = self._to_device(batch["query"]), self._to_device(
+                batch["passage"])
+            generator = self._step_generator()
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            if not args.grad_cache:
+                loss = self.loss_fn(self._encode_q(q, generator),
+                                    self._encode_p(p, generator))
         if args.grad_cache:
             n_q, n_p = q["input_ids"].shape[0], p["input_ids"].shape[0]
             return grad_cache_backward(
@@ -157,9 +167,8 @@ class DRTrainer:
                 q_chunks=max(n_q // max(args.gc_q_chunk_size, 1), 1),
                 p_chunks=max(n_p // max(args.gc_p_chunk_size, 1), 1),
                 generator=generator)
-        loss = self.loss_fn(self._encode_q(q, generator),
-                            self._encode_p(p, generator))
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         return loss.detach()
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
@@ -186,9 +195,11 @@ class DRTrainer:
     def train_step(self, batch) -> torch.Tensor:
         """One update from this rank's rows of the global batch; returns
         the step's loss as a device scalar (no host sync)."""
-        loss = self._reduce(self.loss_and_grads(batch))
-        self.optimizer.step()
-        self.scheduler.step()
+        loss = self.loss_and_grads(batch)
+        with span("train.optimizer"):
+            loss = self._reduce(loss)
+            self.optimizer.step()
+            self.scheduler.step()
         self.step += 1
         return loss
 

@@ -10,7 +10,6 @@ CUDA kernel itself is compared with its plain version in the ``cuda``-marked
 test, which skips without a card."""
 
 import json
-import os
 
 import numpy as np
 import pytest
@@ -220,18 +219,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     path = tmp_path / "tr" / profiling.TRACE_FILE
     events = json.loads(path.read_text())["traceEvents"]
     assert events and prof.key_averages()
-
-
-def test_step_timer_and_metrics_logger(tmp_path):
-    timer = profiling.StepTimer()
-    out = timer.tick(10)
-    assert out["step_time_s"] >= 0 and "examples_per_s" in out
-    logger = profiling.MetricsLogger(str(tmp_path))
-    logger.log(3, loss=0.5)
-    logger.close()
-    (rec,) = [json.loads(x) for x in
-              open(os.path.join(str(tmp_path), "metrics.jsonl"))]
-    assert rec["step"] == 3 and rec["loss"] == 0.5
 
 
 # ---- on the card ----------------------------------------------------------
