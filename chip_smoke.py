@@ -281,6 +281,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             the phase's wall time are printed beside the card and the
             backend.
 
+15. graphs  the inference encode as a CUDA graph (models/graphs) against
+            the same encode run eagerly, at the serving shapes with seeded
+            weights (seeded_state) and ragged masks, in inference mode:
+            the BERT-base query tower at [64, 32] and the T5-base
+            t5_encdec passage tower at [128, 128], three batches each.
+            Each batch's largest gap over the largest |rep| is printed
+            beside its limit (0: the same kernels on the same operands),
+            with the capture, replay and eager counts, the ms a call of
+            each path (host clock to a synchronise, median of 20) and the
+            host's ms to the call's return, the graph's also
+            under torch.profiler, whose CUDA tracing slows a replay's
+            launch;
+            T5's tied head scaled by its host scalar must give the bits
+            it gave scaled by the old on-card bf16 scalar.
+
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
 kernel table's launches of K1 and K3 include the train, rerank, ance and
@@ -5187,8 +5202,95 @@ def mesh_perf_twins(dev, smi: str):
     log(f"mesh: perf twins {time.perf_counter() - t0:.2f} s")
 
 
+GRAPH_GAP = 0.0  # graph against eager, over max |rep|: the same kernels
+
+
+def call_ms(fn, reps: int = 20) -> float:
+    """Median ms of ``fn()`` to a synchronise, host clock."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host ms of ``fn()`` to its return, the card idle before."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def phase_graphs(dev) -> dict:
+    from openmatch_tpu_torch.models.bert import BertConfig
+    from openmatch_tpu_torch.models.dr_model import DRModel
+
+    for name, backbone, cfg, rows, cols, is_query in (
+            ("bert-base", "bert", BertConfig(), MAX_BATCH, 32, True),
+            ("t5-base", "t5_encdec", t5_base(), 128, 128, False)):
+        with torch.device(dev):
+            model = DRModel(cfg, backbone, dtype=torch.bfloat16)
+        model.load_state_dict(seeded_state(model, 0))
+        model.eval()
+        g = torch.Generator(device=dev).manual_seed(1)
+        gaps, equal = [], True
+        with torch.inference_mode():
+            for _ in range(3):
+                ids = torch.randint(1, cfg.vocab_size, (rows, cols),
+                                    generator=g, device=dev)
+                lens = torch.randint(cols // 4, cols + 1, (rows, 1),
+                                     generator=g, device=dev)
+                mask = (torch.arange(cols, device=dev) < lens).long()
+                ids = ids * mask
+                got = model.encode(ids, mask, is_query=is_query)
+                want = model.encode_eager(ids, mask, is_query=is_query)
+                equal = equal and torch.equal(got, want)
+                gaps.append(float((got.float() - want.float()).abs().max()
+                                  / want.float().abs().max()))
+            eager = call_ms(lambda: model.encode_eager(ids, mask, is_query))
+            graph = call_ms(lambda: model.encode(ids, mask, is_query))
+            eager_host = host_ms(
+                lambda: model.encode_eager(ids, mask, is_query))
+            graph_host = host_ms(lambda: model.encode(ids, mask, is_query))
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]):
+                traced_host = host_ms(
+                    lambda: model.encode(ids, mask, is_query))
+        log(f"graphs: {name} [{rows}, {cols}] graph against eager: largest "
+            f"gap / max|rep| {max(gaps):.3e} (limit {GRAPH_GAP}), "
+            f"bit-equal {equal}; {model.graph_stats}; eager "
+            f"{eager:.3f} ms, graph {graph:.3f} ms a call; the host's ms "
+            f"to the call's return: {eager_host:.3f} eager, {graph_host:.3f} "
+            f"as a graph, {traced_host:.3f} as a graph under torch.profiler")
+        if max(gaps) > GRAPH_GAP or model.graph_stats["captures"] != 1:
+            raise AssertionError(f"graphs: {name}: the graph's reps are "
+                                 "not the eager ones")
+        if backbone == "t5_encdec":
+            step = model.encoder_q
+            hidden = torch.randn(rows, 1, cfg.d_model, generator=g,
+                                 device=dev).to(torch.bfloat16)
+            old = torch.tensor(cfg.d_model ** -0.5, dtype=torch.bfloat16,
+                               device=dev)
+            same = torch.equal(hidden * step.lm_scale, hidden * old)
+            log(f"graphs: T5's tied-head scale {step.lm_scale!r} on the "
+                f"host against the card's bf16 scalar: bit-equal {same}")
+            if not same:
+                raise AssertionError("graphs: T5's head scale moved")
+        del model
+    return {}
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
-          "rerank", "ance", "beir", "v1", "research", "twins", "mesh")
+          "rerank", "ance", "beir", "v1", "research", "twins", "mesh",
+          "graphs")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -5261,7 +5363,8 @@ def main(argv=None) -> int:
                            ("v1", phase_v1, ()),
                            ("research", phase_research, ()),
                            ("twins", phase_twins, ()),
-                           ("mesh", phase_mesh, (info["smi"],))):
+                           ("mesh", phase_mesh, (info["smi"],)),
+                           ("graphs", phase_graphs, ())):
         if name in phases:
             for kernel, n in run_phase(name, fn, dev, *args).items():
                 launches[kernel] = launches.get(kernel, 0) + n

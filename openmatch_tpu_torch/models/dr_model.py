@@ -7,6 +7,11 @@ T5 encoder with the configured pooling: GTR, ``--encoder_only``) and
 ``t5_encdec`` (full T5: the rep is the hidden state of one decoder step
 fed the start token, whatever the pooling, JAX ``dr_model.py:134-139``).
 
+On a card, an inference call (no autograd, eval mode, no dropout
+generator, no tensor parallelism) replays the whole encode as a CUDA graph
+captured once per input shape (``models/graphs``); ``graph_stats`` counts
+captures, replays and eager calls.
+
 ``DRModel.load`` and ``DRModel.save`` read and write the JAX package's
 checkpoint directory (``openmatch_config.json`` plus flax-msgpack
 ``params.msgpack``) through the port's own codec (``models/flax_msgpack``),
@@ -27,6 +32,7 @@ from torch import nn
 from ..device import resolve_device, resolve_dtype
 from .bert import BertConfig, BertEncoder
 from .flax_msgpack import read_flax_msgpack, write_flax_msgpack
+from .graphs import EncodeGraphs, engages
 from .hf_convert import load_bert_encoder
 from .jax_convert import params_from_jax, params_to_jax
 from .pooling import LinearHead, pool_hidden
@@ -103,6 +109,13 @@ class DRModel(nn.Module):
         self.head_q = LinearHead(head_in_dim, head_out_dim) if has_head else None
         self.head_p = (LinearHead(head_in_dim, head_out_dim)
                        if has_head and not tied else None)
+        self._graphs = EncodeGraphs()
+
+    @property
+    def graph_stats(self) -> Dict[str, int]:
+        """Calls of ``encode`` so far: graph ``captures`` and ``replays``,
+        and the calls that ran ``eager``."""
+        return self._graphs.stats
 
     @property
     def out_dim(self) -> int:
@@ -117,7 +130,23 @@ class DRModel(nn.Module):
                is_query: bool = False,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids [B, S] -> representations [B, D] in ``dtype``.
-        ``generator`` turns dropout on in training mode (``bert.dropout``)."""
+        ``generator`` turns dropout on in training mode (``bert.dropout``).
+        Where ``graphs.engages``, a replay of the graph captured for the
+        call's shape (``models/graphs``), else ``encode_eager``."""
+        if engages(self, input_ids, generator):
+            reps = self._graphs.encode(self, is_query or self.tied,
+                                       input_ids, attention_mask)
+            if reps is not None:
+                return reps
+        self._graphs.stats["eager"] += 1
+        return self.encode_eager(input_ids, attention_mask, is_query,
+                                 generator)
+
+    def encode_eager(self, input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor, is_query: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """``encode``, its operations launched one at a time."""
         query_tower = is_query or self.tied
         encoder = self.encoder_q if query_tower else self.encoder_p
         head = self.head_q if query_tower else self.head_p

@@ -57,6 +57,7 @@ from torch import nn
 
 from ..utils.gumbel import categorical
 from .bert import ACT2FN, copy_in, dropout, linear, row_linear
+from .graphs import hold
 from .hf_convert import read_hf_state_dict
 
 
@@ -184,10 +185,10 @@ def _bucket_table(q_len: int, k_len: int, bidirectional: bool,
 def position_bias(table: torch.Tensor, q_len: int, k_len: int,
                   bidirectional: bool, cfg: T5Config) -> torch.Tensor:
     """The fp32 bias [1, H, q_len, k_len] from a [buckets, H] table."""
-    buckets = _bucket_table(q_len, k_len, bidirectional,
-                            cfg.relative_attention_num_buckets,
-                            cfg.relative_attention_max_distance,
-                            table.device)
+    buckets = hold(_bucket_table(q_len, k_len, bidirectional,
+                                 cfg.relative_attention_num_buckets,
+                                 cfg.relative_attention_max_distance,
+                                 table.device))
     return table.float()[buckets].permute(2, 0, 1)[None]
 
 
@@ -372,6 +373,10 @@ class T5EncoderDecoderStep(_T5Stack):
         self.dec_final_ln = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.lm_head = (None if cfg.tie_word_embeddings else
                         nn.Linear(cfg.d_model, cfg.vocab_size, bias=False))
+        # the tied head's d_model ** -0.5, rounded to ``dtype`` once and
+        # kept as a host scalar: no copy to the card a call (which a CUDA
+        # graph capture forbids)
+        self.lm_scale = float(torch.tensor(cfg.d_model ** -0.5, dtype=dtype))
 
     def forward(self, input_ids, attention_mask, token_type_ids=None,
                 generator: Optional[torch.Generator] = None) -> dict:
@@ -399,9 +404,8 @@ class T5EncoderDecoderStep(_T5Stack):
 
     def _lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
-            scale = torch.tensor(self.config.d_model ** -0.5,
-                                 dtype=self.dtype, device=hidden.device)
-            return F.linear(hidden * scale, self.shared.weight.to(self.dtype))
+            return F.linear(hidden * self.lm_scale,
+                            self.shared.weight.to(self.dtype))
         return linear(hidden, self.lm_head)
 
 
