@@ -295,6 +295,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             launch;
             T5's tied head scaled by its host scalar must give the bits
             it gave scaled by the old on-card bf16 scalar.
+16. moe     the grouped expert GEMM (ops/csrc/grouped_gemm.cu) against
+            its plain version at the Moonlight encode cell's shapes (64 x
+            512 x 6 slot rows, 13,400 x 6 of them routed over 64 experts
+            with a skew; the gate-and-up product [64, 2816,
+            2048] and the down product [64, 2048, 1408]), each with its
+            time beside its bound and torch._grouped_mm's (library_ms)
+            where the card's torch has it; then a DeepSeek-V3 tower at
+            published widths with one dense and one MoE layer (bf16,
+            seeded weights) encoding [64, 512] ragged batches as a CUDA
+            graph against eager, bit for bit, its expert counter zeroed
+            in place and exact after one replay.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -5288,9 +5299,128 @@ def phase_graphs(dev) -> dict:
     return {}
 
 
+MOE_ROWS, MOE_LEN, MOE_REAL = 64, 512, 13_400  # the encode cell's batch
+MOE_REL = 2.0**-7  # kernel against plain, over max|out|: both round fp32
+#                    sums to bf16 (2^-8 each), taken in other orders
+
+
+def moe_offsets(n_rows: int, E: int, g) -> torch.Tensor:
+    """[E + 1] int32 offsets of ``n_rows`` routed slots over E experts with
+    a router's skew (expert shares in proportion to squared uniforms)."""
+    share = torch.rand(E, generator=g).square()
+    counts = torch.multinomial(share, n_rows, replacement=True,
+                               generator=g).bincount(minlength=E)
+    return torch.cat([torch.zeros(1, dtype=torch.long),
+                      counts.cumsum(0)]).to(torch.int32)
+
+
+def library_grouped_ms(x, w, offsets):
+    """``torch._grouped_mm`` on the same rows and weights, where this
+    torch has it and takes them: (ms, max abs gap to the kernel's rows)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, None
+    ends = offsets[1:].contiguous()
+    try:
+        out = fn(x, w.transpose(-2, -1), offs=ends, out_dtype=torch.bfloat16)
+        ms = kernel_ms(lambda: fn(x, w.transpose(-2, -1), offs=ends,
+                                  out_dtype=torch.bfloat16))
+    except (RuntimeError, TypeError) as e:
+        log(f"moe: torch._grouped_mm refused the operands "
+            f"({type(e).__name__}: {str(e).splitlines()[0][:120]})")
+        return None, None
+    return ms, out
+
+
+def phase_moe(dev) -> dict:
+    """The grouped expert GEMM against its plain version at the encode
+    cell's shapes, and a published-width DeepSeek-V3 tower of one dense
+    and one MoE layer as a CUDA graph against eager."""
+    from openmatch_tpu_torch.models.deepseek_v3 import DeepseekV3Config
+    from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.ops.grouped_gemm import (grouped_gemm,
+                                                      grouped_gemm_plain)
+
+    cfg = DeepseekV3Config(num_hidden_layers=2)
+    E, d, w_ = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
+    g = torch.Generator().manual_seed(0)
+    gd = torch.Generator(device=dev).manual_seed(0)
+    M = MOE_ROWS * MOE_LEN * cfg.num_experts_per_tok
+    offsets = moe_offsets(MOE_REAL * cfg.num_experts_per_tok, E, g).to(dev)
+    real = int(offsets[-1])
+    grouped_gemm.launches = 0
+    for label, N, K in (("gate_up", 2 * w_, d), ("down", d, w_)):
+        x = torch.randn(M, K, generator=gd, device=dev).bfloat16()
+        w = (torch.randn(E, N, K, generator=gd, device=dev) * 0.02).bfloat16()
+        got = grouped_gemm(x, w, offsets)
+        torch.cuda.synchronize()
+        want = grouped_gemm_plain(x, w, offsets)
+        err = float((got[:real].float() - want[:real].float()).abs().max())
+        scale = float(want[:real].float().abs().max())
+        if not err <= MOE_REL * scale:
+            raise AssertionError(f"moe: grouped_gemm {label}: max abs err "
+                                 f"{err} > {MOE_REL} * {scale}")
+        ms = kernel_ms(lambda: grouped_gemm(x, w, offsets))
+        plain = kernel_ms(lambda: grouped_gemm_plain(x, w, offsets), 1, 3)
+        b = bound(E * N * K * 2 + real * (K + N) * 2, 2.0 * real * N * K)
+        lib_ms, lib = library_grouped_ms(x, w, offsets)
+        lib_gap = (float((lib[:real].float() - got[:real].float()).abs()
+                         .max()) if lib is not None else None)
+        log(f"moe: grouped_gemm {label} [{M} rows, {real} routed] x "
+            f"[{E}, {N}, {K}]: kernel {ms:.3f} ms, bound {b[0]:.3f} ms "
+            f"({b[1]}), {100 * b[0] / ms:.1f}% of it; plain "
+            f"{plain:.3f} ms; torch._grouped_mm (library_ms) "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, its max "
+            f"gap to the kernel {lib_gap}; max abs err {err:.3e}")
+        del x, w, got, want, lib
+    with torch.device(dev):
+        model = DRModel(cfg, "deepseek_v3", pooling="last", normalize=True,
+                        dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "layernorm" in name or name.endswith("norm.weight"):
+                continue
+            p.normal_(0.0, 0.02, generator=gd)
+        for layer in model.encoder_q.layers[1:]:
+            layer.mlp.gate.e_score_correction_bias.normal_(0.0, 0.05,
+                                                          generator=gd)
+    model.eval()
+    gaps, equal = [], True
+    with torch.inference_mode():
+        for _ in range(3):
+            ids = torch.randint(0, cfg.vocab_size, (MOE_ROWS, MOE_LEN),
+                                generator=gd, device=dev)
+            lens = torch.randint(32, MOE_LEN + 1, (MOE_ROWS, 1),
+                                 generator=gd, device=dev)
+            mask = (torch.arange(MOE_LEN, device=dev) < lens).long()
+            got = model.encode(ids, mask)
+            want = model.encode_eager(ids, mask)
+            equal = equal and torch.equal(got, want)
+            gaps.append(float((got.float() - want.float()).abs().max()))
+        enc = model.encoder_q
+        enc.reset_expert_slots()
+        model.encode(ids, mask)
+        slots = int(enc.expert_slots.sum())
+        eager = call_ms(lambda: model.encode_eager(ids, mask))
+        graph = call_ms(lambda: model.encode(ids, mask))
+    want_slots = cfg.num_experts_per_tok * int(mask.sum())
+    log(f"moe: DeepSeek-V3 tower (1 dense + 1 MoE layer, published widths) "
+        f"[{MOE_ROWS}, {MOE_LEN}] graph against eager: largest gap "
+        f"{max(gaps):.3e} (limit {GRAPH_GAP}), bit-equal {equal}; "
+        f"{model.graph_stats}; one replay counted {slots} routed slots "
+        f"(want {want_slots}); eager {eager:.3f} ms, graph {graph:.3f} ms a "
+        f"call; grouped_gemm launches {grouped_gemm.launches}")
+    if not equal or model.graph_stats["captures"] != 1 \
+            or slots != want_slots:
+        raise AssertionError("moe: the graph's reps or counter are not the "
+                             "eager ones")
+    del model
+    return {"grouped_gemm": grouped_gemm.launches}
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
           "rerank", "ance", "beir", "v1", "research", "twins", "mesh",
-          "graphs")
+          "graphs", "moe")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -5364,7 +5494,8 @@ def main(argv=None) -> int:
                            ("research", phase_research, ()),
                            ("twins", phase_twins, ()),
                            ("mesh", phase_mesh, (info["smi"],)),
-                           ("graphs", phase_graphs, ())):
+                           ("graphs", phase_graphs, ()),
+                           ("moe", phase_moe, ())):
         if name in phases:
             for kernel, n in run_phase(name, fn, dev, *args).items():
                 launches[kernel] = launches.get(kernel, 0) + n

@@ -3,9 +3,13 @@
 Port of ``openmatch_tpu/models/dr_model.py``: tied or untied query/passage
 towers, "first"/"mean" pooling, an optional bias-free head and optional L2
 normalisation. Backbones: ``bert`` (BERT / RoBERTa / ELECTRA), ``t5`` (the
-T5 encoder with the configured pooling: GTR, ``--encoder_only``) and
+T5 encoder with the configured pooling: GTR, ``--encoder_only``),
 ``t5_encdec`` (full T5: the rep is the hidden state of one decoder step
-fed the start token, whatever the pooling, JAX ``dr_model.py:134-139``).
+fed the start token, whatever the pooling, JAX ``dr_model.py:134-139``)
+and, in the port only, ``deepseek_v3`` (a DeepSeek-V3 / Moonlight causal
+LM, ``models/deepseek_v3``, with ``last`` pooling), whose weights are held
+in the model's dtype rather than as fp32 masters, and which ``DRTrainer``
+does not train.
 
 On a card, an inference call (no autograd, eval mode, no dropout
 generator, no tensor parallelism) replays the whole encode as a CUDA graph
@@ -15,22 +19,26 @@ captures, replays and eager calls.
 ``DRModel.load`` and ``DRModel.save`` read and write the JAX package's
 checkpoint directory (``openmatch_config.json`` plus flax-msgpack
 ``params.msgpack``) through the port's own codec (``models/flax_msgpack``),
-so a model trained in either package serves in the other. ``DRModel.build``
-also converts a raw HuggingFace BERT / RoBERTa / ELECTRA directory
-(``models/hf_convert``) or T5 / GTR directory (``models/t5``).
+so a model trained in either package serves in the other; a port-only
+backbone writes ``model.pt`` (``torch.save`` of its state) in its place.
+``DRModel.build`` also converts a raw HuggingFace BERT / RoBERTa / ELECTRA
+directory (``models/hf_convert``), T5 / GTR directory (``models/t5``) or
+DeepSeek-V3 directory (``models/deepseek_v3``).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
 from .bert import BertConfig, BertEncoder
+from .deepseek_v3 import (DeepseekV3Config, DeepseekV3Encoder,
+                          is_deepseek_v3, load_deepseek_v3)
 from .flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from .graphs import EncodeGraphs, engages
 from .hf_convert import load_bert_encoder
@@ -40,34 +48,59 @@ from .t5 import (T5Config, T5Encoder, T5EncoderDecoderStep, load_t5_encdec,
                  load_t5_encoder)
 
 OPENMATCH_CONFIG = "openmatch_config.json"
-_ENCODERS = {"bert": BertEncoder, "t5": T5Encoder,
-             "t5_encdec": T5EncoderDecoderStep}
+PORT_WEIGHTS = "model.pt"  # a port-only backbone's weights (torch.save)
+
+
+class Backbone(NamedTuple):
+    encoder: type
+    config: type
+    hidden: str  # the config's field of the rep's width
+    heads: str  # ... and of the attention heads
+    port_only: bool = False  # no JAX twin: weights in PORT_WEIGHTS, held
+    #                          in the model's dtype, not trained here
+
+
+_ENCODERS = {
+    "bert": Backbone(BertEncoder, BertConfig, "hidden_size",
+                     "num_attention_heads"),
+    "t5": Backbone(T5Encoder, T5Config, "d_model", "num_heads"),
+    "t5_encdec": Backbone(T5EncoderDecoderStep, T5Config, "d_model",
+                          "num_heads"),
+    "deepseek_v3": Backbone(DeepseekV3Encoder, DeepseekV3Config,
+                            "hidden_size", "num_attention_heads", True),
+}
+
+
+def _backbone(backbone_type: str) -> Backbone:
+    if backbone_type not in _ENCODERS:
+        raise ValueError(f"Unknown backbone type {backbone_type}")
+    return _ENCODERS[backbone_type]
 
 
 def make_encoder(backbone_type: str, config, dtype: torch.dtype):
-    """The encoder module of a backbone (``bert``, ``t5``, ``t5_encdec``)."""
-    if backbone_type not in _ENCODERS:
-        raise ValueError(f"Unknown backbone type {backbone_type}")
-    want = BertConfig if backbone_type == "bert" else T5Config
-    if not isinstance(config, want):
+    """The encoder module of a backbone (a key of ``_ENCODERS``)."""
+    b = _backbone(backbone_type)
+    if not isinstance(config, b.config):
         raise TypeError(f"backbone {backbone_type!r} needs a "
-                        f"{want.__name__}, got {type(config).__name__}")
-    return _ENCODERS[backbone_type](config, dtype)
+                        f"{b.config.__name__}, got {type(config).__name__}")
+    return b.encoder(config, dtype)
 
 
 def config_from_dict(backbone_type: str, d: Dict[str, Any]):
     """``openmatch_config.json``'s ``encoder_config`` -> its config."""
-    return BertConfig(**d) if backbone_type == "bert" else T5Config(**d)
+    return _backbone(backbone_type).config(**d)
+
+
+def _of_config(config) -> Backbone:
+    return next(b for b in _ENCODERS.values() if isinstance(config, b.config))
 
 
 def hidden_size(config) -> int:
-    return config.hidden_size if isinstance(config, BertConfig) \
-        else config.d_model
+    return getattr(config, _of_config(config).hidden)
 
 
 def num_heads(config) -> int:
-    return config.num_attention_heads if isinstance(config, BertConfig) \
-        else config.num_heads
+    return getattr(config, _of_config(config).heads)
 
 
 def dropout_active(config) -> bool:
@@ -125,6 +158,11 @@ class DRModel(nn.Module):
     @property
     def dropout_active(self) -> bool:
         return dropout_active(self.encoder_config)
+
+    @property
+    def port_only(self) -> bool:
+        """A backbone without a JAX twin (``Backbone.port_only``)."""
+        return _backbone(self.backbone_type).port_only
 
     def encode(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                is_query: bool = False,
@@ -222,10 +260,16 @@ class DRModel(nn.Module):
         return read_flax_msgpack(os.path.join(ckpt_dir, "params.msgpack"))
 
     def load_weights(self, ckpt_dir: str):
-        """Copy the weights of ``ckpt_dir/params.msgpack`` into this model's
-        parameters in place (they keep their device)."""
-        self.load_state_dict(params_from_jax(self.read_tree(ckpt_dir)),
-                             strict=True)
+        """Copy the weights of ``ckpt_dir/params.msgpack`` (``model.pt``
+        for a port-only backbone) into this model's parameters in place
+        (they keep their device)."""
+        if self.port_only:
+            state = torch.load(os.path.join(ckpt_dir, PORT_WEIGHTS),
+                               map_location="cpu", weights_only=True,
+                               mmap=True)
+        else:
+            state = params_from_jax(self.read_tree(ckpt_dir))
+        self.load_state_dict(state, strict=True)
 
     def save(self, output_dir: str, state_dict=None):
         """Write ``openmatch_config.json`` and fp32 ``params.msgpack`` in
@@ -235,9 +279,11 @@ class DRModel(nn.Module):
         os.makedirs(output_dir, exist_ok=True)
         with open(os.path.join(output_dir, OPENMATCH_CONFIG), "w") as f:
             json.dump(self.config_dict(), f, indent=4)
-        tree = params_to_jax(self.state_dict() if state_dict is None
-                             else state_dict,
-                             num_heads(self.encoder_config))
+        state = self.state_dict() if state_dict is None else state_dict
+        if self.port_only:
+            torch.save(state, os.path.join(output_dir, PORT_WEIGHTS))
+            return
+        tree = params_to_jax(state, num_heads(self.encoder_config))
         write_flax_msgpack(tree, os.path.join(output_dir, "params.msgpack"))
 
     @classmethod
@@ -249,12 +295,17 @@ class DRModel(nn.Module):
         a T5 ``config.json``) builds ``t5_encdec``, or ``t5`` with
         ``--encoder_only`` (JAX ``DRModel.build``). A new linear head is
         drawn from a generator seeded with 0 (JAX seeds its head with
-        ``PRNGKey(0)``); untied towers start as copies of each other."""
+        ``PRNGKey(0)``); untied towers start as copies of each other. A
+        DeepSeek-V3 directory (``model_type`` ``deepseek_v3``) builds
+        ``deepseek_v3``, its weights held in ``model_args.dtype``."""
         device = resolve_device(device)
         path = model_args.model_name_or_path
         if path and os.path.exists(os.path.join(path, OPENMATCH_CONFIG)):
             return cls.load(path, dtype=model_args.dtype, device=device)
-        if not _looks_like_t5(path):
+        if path and is_deepseek_v3(path):
+            backbone, (enc_config, enc_state) = "deepseek_v3", \
+                load_deepseek_v3(path, resolve_dtype(model_args.dtype))
+        elif not _looks_like_t5(path):
             backbone, (enc_config, enc_state) = "bert", load_bert_encoder(path)
         elif model_args.encoder_only:
             backbone, (enc_config, enc_state) = "t5", load_t5_encoder(path)

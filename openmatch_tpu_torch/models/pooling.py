@@ -1,5 +1,6 @@
 """Representation pooling and the bias-free linear head
-(port of ``openmatch_tpu/models/pooling.py``)."""
+(port of ``openmatch_tpu/models/pooling.py``; ``last`` pooling, for the
+causal ``deepseek_v3`` backbone, is the port's own)."""
 
 from __future__ import annotations
 
@@ -18,12 +19,22 @@ def mean_pooling(hidden: torch.Tensor,
     return summed / counts
 
 
+def last_pooling(hidden: torch.Tensor,
+                 attention_mask: torch.Tensor) -> torch.Tensor:
+    """The hidden state at each row's last unmasked position (right
+    padding); position 0's for a row with none."""
+    last = (attention_mask.sum(dim=1) - 1).clamp_min(0)
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
+
+
 def pool_hidden(hidden: torch.Tensor, attention_mask: torch.Tensor,
                 pooling: str) -> torch.Tensor:
     if pooling == "first":
         return hidden[:, 0, :]
     if pooling == "mean":
         return mean_pooling(hidden, attention_mask)
+    if pooling == "last":
+        return last_pooling(hidden, attention_mask)
     raise ValueError(f"Unknown pooling type: {pooling}")
 
 

@@ -47,6 +47,7 @@ SIGNATURES = {
     "score_gmax_launch": (_P, _P, _P, _P, _I, _I, _LL, _I, _P),
     "gmax_only_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
     "gmax_phase_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
+    "grouped_gemm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

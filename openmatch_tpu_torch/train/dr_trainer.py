@@ -75,6 +75,11 @@ class DRTrainer:
         unless the caller names the CPU). ``mesh``: this rank's place
         among the job's ranks; by default ``make_mesh(dp_size, tp_size)``
         over every rank of the initialised process group (one without)."""
+        if getattr(model, "port_only", False):
+            raise ValueError(
+                f"DRTrainer does not train the {model.backbone_type!r} "
+                "backbone: its weights are held in the compute dtype, with "
+                "no fp32 master for the optimizer")
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(
             train_args.dp_size, train_args.tp_size, self.device)
