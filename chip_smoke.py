@@ -295,17 +295,19 @@ Phases, in order; any failure raises and the script exits non-zero:
             launch;
             T5's tied head scaled by its host scalar must give the bits
             it gave scaled by the old on-card bf16 scalar.
-16. moe     the grouped expert GEMM (ops/csrc/grouped_gemm.cu) against
+16. moe     the grouped expert GEMM (ops/csrc/grouped_gemm.cu): ptxas's
+            registers and stack frame for each of its kernels (the phase
+            fails on a stack frame or a spill); then the kernel against
             its plain version at the Moonlight encode cell's shapes (64 x
-            512 x 6 slot rows, 13,400 x 6 of them routed over 64 experts
-            with a skew; the gate-and-up product [64, 2816,
-            2048] and the down product [64, 2048, 1408]), each with its
-            time beside its bound and torch._grouped_mm's (library_ms)
-            where the card's torch has it; then a DeepSeek-V3 tower at
-            published widths with one dense and one MoE layer (bf16,
-            seeded weights) encoding [64, 512] ragged batches as a CUDA
-            graph against eager, bit for bit, its expert counter zeroed
-            in place and exact after one replay.
+            512 x 6 slot rows, 13,400 x 6 of them routed over 64 experts,
+            with a router's skew and uniformly; the gate-and-up product
+            [64, 2816, 2048] and the down product [64, 2048, 1408]), each
+            with its time beside its bound and torch._grouped_mm's
+            (library_ms) where the card's torch has it; then a
+            DeepSeek-V3 tower at published widths with one dense and one
+            MoE layer (bf16, seeded weights) encoding [64, 512] ragged
+            batches as a CUDA graph against eager, bit for bit, its
+            expert counter zeroed in place and exact after one replay.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -5314,6 +5316,15 @@ def moe_offsets(n_rows: int, E: int, g) -> torch.Tensor:
                       counts.cumsum(0)]).to(torch.int32)
 
 
+def uniform_offsets(n_rows: int, E: int) -> torch.Tensor:
+    """[E + 1] int32 offsets of ``n_rows`` routed slots spread evenly over
+    E experts."""
+    counts = torch.full((E,), n_rows // E, dtype=torch.long)
+    counts[:n_rows % E] += 1
+    return torch.cat([torch.zeros(1, dtype=torch.long),
+                      counts.cumsum(0)]).to(torch.int32)
+
+
 def library_grouped_ms(x, w, offsets):
     """``torch._grouped_mm`` on the same rows and weights, where this
     torch has it and takes them: (ms, max abs gap to the kernel's rows)."""
@@ -5338,41 +5349,61 @@ def phase_moe(dev) -> dict:
     and one MoE layer as a CUDA graph against eager."""
     from openmatch_tpu_torch.models.deepseek_v3 import DeepseekV3Config
     from openmatch_tpu_torch.models.dr_model import DRModel
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.ops.grouped_gemm import (grouped_gemm,
                                                       grouped_gemm_plain)
 
+    _build.load_library()
+    usage = _build.ptxas_usage(_build.build_info["log"],
+                               "grouped_gemm_kernel")
+    for name, u in usage.items():
+        log(f"moe: ptxas {name}: {u}")
+    if not usage or any(u.get("stack_frame") != 0 or u.get("spill_stores")
+                        or u.get("spill_loads") for u in usage.values()):
+        raise AssertionError(f"moe: grouped_gemm_kernel has a stack frame "
+                             f"or spills, or ptxas's report is missing: "
+                             f"{usage}")
     cfg = DeepseekV3Config(num_hidden_layers=2)
     E, d, w_ = cfg.n_routed_experts, cfg.hidden_size, cfg.moe_intermediate_size
     g = torch.Generator().manual_seed(0)
     gd = torch.Generator(device=dev).manual_seed(0)
     M = MOE_ROWS * MOE_LEN * cfg.num_experts_per_tok
-    offsets = moe_offsets(MOE_REAL * cfg.num_experts_per_tok, E, g).to(dev)
-    real = int(offsets[-1])
+    routed = MOE_REAL * cfg.num_experts_per_tok
+    routings = (("skewed", moe_offsets(routed, E, g).to(dev)),
+                ("uniform", uniform_offsets(routed, E).to(dev)))
     grouped_gemm.launches = 0
     for label, N, K in (("gate_up", 2 * w_, d), ("down", d, w_)):
         x = torch.randn(M, K, generator=gd, device=dev).bfloat16()
         w = (torch.randn(E, N, K, generator=gd, device=dev) * 0.02).bfloat16()
-        got = grouped_gemm(x, w, offsets)
-        torch.cuda.synchronize()
-        want = grouped_gemm_plain(x, w, offsets)
-        err = float((got[:real].float() - want[:real].float()).abs().max())
-        scale = float(want[:real].float().abs().max())
-        if not err <= MOE_REL * scale:
-            raise AssertionError(f"moe: grouped_gemm {label}: max abs err "
-                                 f"{err} > {MOE_REL} * {scale}")
-        ms = kernel_ms(lambda: grouped_gemm(x, w, offsets))
-        plain = kernel_ms(lambda: grouped_gemm_plain(x, w, offsets), 1, 3)
-        b = bound(E * N * K * 2 + real * (K + N) * 2, 2.0 * real * N * K)
-        lib_ms, lib = library_grouped_ms(x, w, offsets)
-        lib_gap = (float((lib[:real].float() - got[:real].float()).abs()
-                         .max()) if lib is not None else None)
-        log(f"moe: grouped_gemm {label} [{M} rows, {real} routed] x "
-            f"[{E}, {N}, {K}]: kernel {ms:.3f} ms, bound {b[0]:.3f} ms "
-            f"({b[1]}), {100 * b[0] / ms:.1f}% of it; plain "
-            f"{plain:.3f} ms; torch._grouped_mm (library_ms) "
-            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, its max "
-            f"gap to the kernel {lib_gap}; max abs err {err:.3e}")
-        del x, w, got, want, lib
+        for routing, offsets in routings:
+            real = int(offsets[-1])
+            got = grouped_gemm(x, w, offsets)
+            torch.cuda.synchronize()
+            want = grouped_gemm_plain(x, w, offsets)
+            err = float((got[:real].float() - want[:real].float()).abs()
+                        .max())
+            scale = float(want[:real].float().abs().max())
+            if not err <= MOE_REL * scale:
+                raise AssertionError(f"moe: grouped_gemm {label} {routing}: "
+                                     f"max abs err {err} > {MOE_REL} * "
+                                     f"{scale}")
+            ms = kernel_ms(lambda: grouped_gemm(x, w, offsets))
+            plain = kernel_ms(lambda: grouped_gemm_plain(x, w, offsets), 1, 3)
+            b = bound(E * N * K * 2 + real * (K + N) * 2, 2.0 * real * N * K)
+            lib_ms, lib = library_grouped_ms(x, w, offsets)
+            lib_gap = (float((lib[:real].float() - got[:real].float()).abs()
+                             .max()) if lib is not None else None)
+            lib_txt = ("None" if lib_ms is None else
+                       f"{lib_ms:.3f} ms ({100 * b[0] / lib_ms:.1f}% of the "
+                       f"bound)")
+            log(f"moe: grouped_gemm {label} {routing} [{M} rows, {real} "
+                f"routed] x [{E}, {N}, {K}]: kernel {ms:.3f} ms, bound "
+                f"{b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.1f}% of it; "
+                f"plain {plain:.3f} ms; torch._grouped_mm (library_ms) "
+                f"{lib_txt}, its max gap to the kernel {lib_gap}; max abs "
+                f"err {err:.3e}")
+            del got, want, lib
+        del x, w
     with torch.device(dev):
         model = DRModel(cfg, "deepseek_v3", pooling="last", normalize=True,
                         dtype=torch.bfloat16)

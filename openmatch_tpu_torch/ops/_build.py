@@ -8,6 +8,8 @@ through TMA look ``cuTensorMapEncodeTiled`` up in the loaded ``libcuda`` at
 run time (``cudaGetDriverEntryPoint``), so ``libcuda`` is not linked. The
 library's file name carries a hash of the sources, the headers and the
 flags, so an edited kernel is rebuilt and a stale build is never loaded.
+The compiler's output (ptxas's registers, stack frames and spills a
+kernel) is kept beside the library and read back with a cached build.
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,7 +55,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_info: dict = {}  # seconds, library path, compiler output of the last build
+build_info: dict = {}  # seconds, library path, compiler output of the build
 
 
 def _build_dir() -> Path:
@@ -88,11 +91,14 @@ def load_library() -> ctypes.CDLL:
         out_dir = _build_dir()
         out_dir.mkdir(parents=True, exist_ok=True)
         lib_path = out_dir / f"libopenmatch_kernels_{h.hexdigest()[:16]}.so"
+        log_path = lib_path.with_suffix(".log")
         build_info.update(library=str(lib_path), seconds=0.0, log="(cached)")
         if not lib_path.exists():
             t0 = time.perf_counter()
             log = _compile_and_link(srcs, lib_path)
             build_info.update(seconds=time.perf_counter() - t0, log=log)
+        elif log_path.exists():
+            build_info.update(log=log_path.read_text())
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
@@ -123,16 +129,49 @@ def _compile_and_link(srcs, lib_path: Path) -> str:
     objs = [lib_path.with_name(f"{lib_path.stem}.{s.stem}.{tag}.o")
             for s in srcs]
     tmp = lib_path.with_suffix(f".{tag}.so")
+    tmp_log = lib_path.with_suffix(f".{tag}.log")
     try:
         log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
                     for s, o in zip(srcs, objs)])
         log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                       *map(str, objs)]])
+        tmp_log.write_text(log)
+        os.replace(tmp_log, lib_path.with_suffix(".log"))
         os.replace(tmp, lib_path)
     finally:
-        for f in objs + [tmp]:
+        for f in objs + [tmp, tmp_log]:
             f.unlink(missing_ok=True)
     return log
+
+
+def ptxas_usage(log: str, name_part: str) -> dict:
+    """What ptxas reported (``-Xptxas=-v``) for each kernel whose mangled
+    name holds ``name_part``: name -> {"registers" (a thread),
+    "stack_frame", "spill_stores", "spill_loads" (bytes)}."""
+    found, name, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1) if name_part in m.group(1) else None
+            if name:
+                found[name] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props == name:
+            found[name].update(stack_frame=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[name]["registers"] = int(m.group(1))
+    return found
 
 
 ENCODE_FAILED = 10000  # csrc/score_tile_sm90.cuh: + the CUresult

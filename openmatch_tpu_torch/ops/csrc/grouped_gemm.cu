@@ -9,207 +9,265 @@
 // int32 (expert e owns rows offsets[e] .. offsets[e + 1] - 1):
 //   out[r] = x[r] @ w[e].T        for every r in expert e's rows, [M, N]
 // with fp32 sums rounded once to bf16. Rows at or past offsets[E] (the
-// routing's unrouted slots) are neither read nor written.
+// routing's unrouted slots) are never written, and no stored row depends
+// on them.
 //
 // What bounds it on an H100: at the encode cell's shapes an expert sees
 // about 1,250 rows a call, so each weight byte feeds over a thousand
-// multiply-adds: bound by operations. A loop over experts on the host would
+// multiply-adds, far above the ~295 FLOP/byte ridge: the tensor cores
+// bound it, as long as each expert's weight is read from HBM about once a
+// call (gate-up: 64 x 11.5 MB, 0.33 ms at 3.35 TB/s against 1.41 ms of
+// operations at 80,400 routed rows). A loop over experts on the host would
 // read the offsets back (a sync a layer) and launch a GEMM per expert; the
 // device-side offsets keep the call one launch and capturable in a CUDA
 // graph.
 //
-// What the design does about it: the grid is sized from shapes alone,
-// ceil(N / 128) x (ceil(M / 128) + E) blocks, the worst case over any
-// routing; each block finds its (expert, 128-row tile) by walking the
-// offsets, and blocks past the last expert's tiles exit at once. A block
-// computes a 128-row x 128-column tile with wmma bf16 16x16x16 (8 warps, 2
-// over rows x 4 over columns, 64 x 32 each) over a 3-stage cp.async ring
-// of 64-deep chunks, as score_tile.cuh does. Rows past the expert's last
-// and columns past N are zero-filled in shared memory and not stored.
-// Consecutive blocks share an expert's weight tile, which stays in L2.
-// First version: wmma, not wgmma; making it fast is later work.
+// What the design does about it: score_tile_sm90.cuh's Hopper mainloop,
+// over a schedule the blocks derive from the offsets on the device.
+// - Persistent blocks, one per SM. Each reads the E + 1 offsets into
+//   shared memory once and derives every expert's count of 128-row tiles
+//   and the prefix sum of its work tiles (m-tiles x n-tiles). Work tile t
+//   is dealt to block t % grid: no block is launched idle, and nothing is
+//   read back to the host.
+// - Tiles run expert-major (within an expert, the m-tiles of one n-tile
+//   follow each other), so the ~132 blocks running at one time work on one
+//   expert: its weight (11.5 MB for gate-up) and its rows stay in the 50 MB
+//   L2, and each weight byte comes from HBM about once a call.
+// - One producer thread keeps TMA loads of 64-deep chunks in flight into a
+//   ring of 4 stages (8 at the narrow tile) with full and empty mbarriers:
+//   128 rows of x from a tensor map over [M, K], and TN rows of the
+//   expert's weight from one over w viewed as [E * N, K], both with the
+//   128-byte swizzle. TMA zero-fills depth past K and rows past the maps.
+//   An x tile that runs past its expert's last row reads the next
+//   expert's rows (or unrouted slots): they are computed, never stored.
+// - Two consumer warpgroups issue m64nTNk16 wgmma, each on its 64 rows of
+//   the stage against the weight tile, both operands K-major; the fp32
+//   sums stay in registers. TN is 256 where N % 256 == 0 (both products of
+//   the Moonlight cell), else 64; the launcher picks it from N.
+// - The epilogue rounds the sums to bf16 once and stores them from
+//   registers, 16 bytes a lane after a transpose inside each quad of
+//   lanes, only rows below the expert's end and columns below N, while
+//   the producer already loads the next tile's chunks.
+// - No TMA store of whole tiles: a tile's tail rows belong to the next
+//   expert, whose own tile (on another block, at another time) writes
+//   them; a whole-tile store would race with it.
+// - No split-K: each output element is summed and written by one block in
+//   a fixed order, so the output is the same bits run to run (a CUDA graph
+//   equals eager), with no atomics and no second pass. The work tiles
+//   (about 7,000 for gate-up) already fill 132 SMs many times over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "score_tile_sm90.cuh"
 
 namespace {
 
-constexpr int TM = 128;       // rows (routed slots) per block
-constexpr int TN = 128;       // output columns per block
-constexpr int KC = 64;        // depth staged per step
-constexpr int LDS = KC + 8;   // padded shared row, bf16 elements
-constexpr int LDC = TN + 4;   // padded fp32 output row
-constexpr int THREADS = 256;  // 8 warps: 2 over rows x 4 over columns
-constexpr int VEC = 8;        // bf16 per 16-byte copy
-constexpr int STAGES = 3;
+using namespace sm90;
 
-struct Operands {
-  __nv_bfloat16 a[TM][LDS];
-  __nv_bfloat16 b[TN][LDS];
-};
-
-union __align__(128) Smem {
-  Operands ops[STAGES];
-  float c[TM][LDC];
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+constexpr int TN_WIDE = QN_WIDE;      // output columns a tile, N % 256 == 0
+constexpr int TN_NARROW = QN_NARROW;  // ... otherwise
+constexpr int VEC = 8;                // bf16 per 16-byte store
 
 // two floats as a bf16 pair, the first in the low half (lower address)
-__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// start the copies of depth chunk [k0, k0 + KC): `rows` rows of a from
-// a0, TN rows of the expert's weight from b0 (those at column n >= N
-// zero-filled)
-__device__ __forceinline__ void load_chunk(
-    Operands& st, const __nv_bfloat16* __restrict__ a0, int rows,
-    const __nv_bfloat16* __restrict__ b0, int n_left, int K, int k0,
-    int tid) {
-  for (int v = tid; v < TM * (KC / VEC); v += THREADS) {
-    const int r = v / (KC / VEC);
-    const int c = (v % (KC / VEC)) * VEC;
-    const bool ok = r < rows && k0 + c < K;
-    cp_async16(&st.a[r][c], ok ? a0 + static_cast<size_t>(r) * K + k0 + c
-                                 : a0,
-               ok ? 16 : 0);
-  }
-  for (int v = tid; v < TN * (KC / VEC); v += THREADS) {
-    const int r = v / (KC / VEC);
-    const int c = (v % (KC / VEC)) * VEC;
-    const bool ok = r < n_left && k0 + c < K;
-    cp_async16(&st.b[r][c], ok ? b0 + static_cast<size_t>(r) * K + k0 + c
-                                 : b0,
-               ok ? 16 : 0);
+// c ? a : b, as `selp` (see sm90::select)
+__device__ __forceinline__ uint32_t select_u32(bool c, uint32_t a,
+                                               uint32_t b) {
+  uint32_t r;
+  asm("{\n.reg .pred p;\nsetp.ne.u32 p, %3, 0;\nselp.b32 %0, %1, %2, p;\n}\n"
+      : "=r"(r)
+      : "r"(a), "r"(b), "r"(static_cast<uint32_t>(c)));
+  return r;
+}
+
+// The block's schedule in shared memory: the offsets, and the first work
+// tile of each expert (tile0[E] is the call's count of work tiles).
+struct Schedule {
+  const int* first;  // [E + 1] offsets
+  const int* tile0;  // [E + 1]
+  int n_experts;
+  int n_nt;          // n-tiles per expert, ceil(N / TN)
+  int m_rows;        // rows of x and out
+};
+
+// Calls fn(e, row0, rows, n0) for each of the block's work tiles in
+// order: expert e's 128 rows from row0, of which the first `rows` are its
+// own, against its weight rows n0 .. n0 + TN - 1.
+template <int TN, class Fn>
+__device__ __forceinline__ void for_each_tile(const Schedule& S,
+                                              const Fn& fn) {
+  const int total = S.tile0[S.n_experts];
+  int e = 0;
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    while (t >= S.tile0[e + 1]) ++e;
+    const int lo = S.first[e];
+    const int hi = min(S.first[e + 1], S.m_rows);
+    const int m_tiles = (hi - lo + TILE_ROWS - 1) / TILE_ROWS;
+    const int u = t - S.tile0[e];
+    const int row0 = lo + (u % m_tiles) * TILE_ROWS;
+    fn(e, row0, min(TILE_ROWS, hi - row0), (u / m_tiles) * TN);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-grouped_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
+// Consumer warpgroup g's 64 x TN sums (mma_tile's layout) to out, bf16.
+// The four lanes of a quad hold two columns each of every 8; a transpose
+// inside the quad (two xor exchanges) leaves each lane the 8 columns of one
+// group of 8, stored as 16 bytes, so a warp stores 64 contiguous bytes of
+// each of its 8 rows.
+template <int TN>
+__device__ __forceinline__ void store_tile(const float (&acc)[TN / 2],
+                                           __nv_bfloat16* __restrict__ out,
+                                           int row0, int rows, int n0, int N,
+                                           int g) {
+  const int lane = threadIdx.x % 32;
+  const int w = (threadIdx.x / 32) % 4;
+  const int q = lane & 3;
+  const bool hi2 = q & 2, hi1 = q & 1;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g * WG_ROWS + 16 * w + 8 * half + lane / 4;
+    __nv_bfloat16* const dst =
+        out + static_cast<size_t>(row0 + r) * N + n0;
+#pragma unroll
+    for (int m = 0; m < TN / 32; ++m) {
+      // v[i]: this lane's 2 columns of group 4m + i
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 4 * m + i;
+        v[i] = pack2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // lanes q, q ^ 2 swap 2 x 2 blocks
+        const uint32_t got = __shfl_xor_sync(
+            0xffffffffu, select_u32(hi2, v[i], v[i + 2]), 2);
+        v[i] = select_u32(hi2, got, v[i]);
+        v[i + 2] = select_u32(hi2, v[i + 2], got);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {  // lanes q, q ^ 1 swap single words
+        const uint32_t got = __shfl_xor_sync(
+            0xffffffffu, select_u32(hi1, v[i], v[i + 1]), 1);
+        v[i] = select_u32(hi1, got, v[i]);
+        v[i + 1] = select_u32(hi1, v[i + 1], got);
+      }
+      // now v[p]: lane p's 2 columns of group 4m + q
+      const int col = VEC * (4 * m + q);
+      if (r < rows && n0 + col < N)
+        *reinterpret_cast<uint4*>(dst + col) =
+            make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
                     const int* __restrict__ offsets,
-                    __nv_bfloat16* __restrict__ out, int n_experts, int N,
-                    int K) {
-  using namespace nvcuda;
-  // this block's expert and row tile: the same for every thread
-  int t = blockIdx.y;
-  int e = 0, row0 = 0, rows = 0;
-  for (; e < n_experts; ++e) {
-    const int lo = offsets[e];
-    const int n_rows = offsets[e + 1] - lo;
-    const int tiles = (n_rows + TM - 1) / TM;
-    if (t < tiles) {
-      row0 = lo + t * TM;
-      rows = min(TM, n_rows - t * TM);
-      break;
-    }
-    t -= tiles;
-  }
-  if (e == n_experts) return;  // past the last expert's tiles
-  const int n0 = blockIdx.x * TN;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp >> 2;  // 64-row half of the tile
-  const int wn = warp & 3;   // 32-column quarter of the tile
-  const __nv_bfloat16* a0 = x + static_cast<size_t>(row0) * K;
-  const __nv_bfloat16* b0 =
-      w + (static_cast<size_t>(e) * N + n0) * static_cast<size_t>(K);
-  const int n_left = N - n0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int n_chunks = (K + KC - 1) / KC;
-#pragma unroll
-  for (int c = 0; c < STAGES - 1; ++c) {
-    if (c < n_chunks)
-      load_chunk(sm.ops[c], a0, rows, b0, n_left, K, c * KC, tid);
-    cp_async_commit();
-  }
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (for this thread)
-    __syncthreads();              // ... for every thread; stage c-1 is free
-    const int next = c + STAGES - 1;
-    if (next < n_chunks)
-      load_chunk(sm.ops[next % STAGES], a0, rows, b0, n_left, K, next * KC,
-                 tid);
-    cp_async_commit();
-    const Operands& st = sm.ops[c % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a[4];
-      // weight rows are stored [n][k]: the K x N operand, column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], &st.a[wm * 64 + i * 16][kk], LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &st.b[wn * 32 + j * 16][kk], LDS);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+                    __nv_bfloat16* __restrict__ out, int n_experts,
+                    int m_rows, int N, const Layout L) {
+  uint8_t* sm = aligned_smem();
+  int* const first = reinterpret_cast<int*>(sm + L.off_epi);
+  int* const tile0 = first + n_experts + 1;
+  for (int e = threadIdx.x; e <= n_experts; e += blockDim.x)
+    first[e] = offsets[e];
+  __syncthreads();
+  const int n_nt = (N + TN - 1) / TN;
+  if (threadIdx.x == 0) {
+    tile0[0] = 0;
+    for (int e = 0; e < n_experts; ++e) {
+      const int n_rows = min(first[e + 1], m_rows) - first[e];
+      tile0[e + 1] =
+          tile0[e] + max(0, (n_rows + TILE_ROWS - 1) / TILE_ROWS) * n_nt;
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();
+  Barriers& bar = init_barriers(sm, L);  // also syncs the schedule
+  const Schedule S{first, tile0, n_experts, n_nt, m_rows};
 
-  // the operand ring is dead: the fp32 tile reuses its memory
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&sm.c[wm * 64 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // 8 columns a thread, one 16-byte store each; N % 8 == 0
-  for (int v = tid; v < TM * (TN / VEC); v += THREADS) {
-    const int r = v / (TN / VEC);
-    const int c = (v % (TN / VEC)) * VEC;
-    if (r >= rows || c >= n_left) continue;
-    const float* s = &sm.c[r][c];
-    const uint4 packed = make_uint4(pack2(s[0], s[1]), pack2(s[2], s[3]),
-                                    pack2(s[4], s[5]), pack2(s[6], s[7]));
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * N + n0 +
-                              c) = packed;
+  if (threadIdx.x >= CONSUMER_THREADS) {
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_THREADS) {
+      Ring r;
+      for_each_tile<TN>(S, [&](int e, int row0, int, int n0) {
+        const int w_row0 = e * N + n0;
+        for (int c = 0; c < L.n_chunks; ++c) {
+          mbar_wait(&bar.empty[r.s], r.ph ^ 1);
+          uint8_t* st = sm + L.off_stages + r.s * L.stage_bytes;
+          mbar_expect_tx(&bar.full[r.s], L.stage_bytes);
+          tma_load(st, &xmap, c * KC, row0, &bar.full[r.s]);
+          tma_load(st + TILE_ROWS * ROW_BYTES, &wmap, c * KC, w_row0,
+                   &bar.full[r.s]);
+          r.next(L.stages);
+        }
+      });
+    }
+  } else {
+    reg_alloc<CONSUMER_REGS>();
+    const int g = threadIdx.x / 128;  // consumer warpgroup: rows 64 g ..
+    Ring r;
+    float acc[TN / 2];
+    for_each_tile<TN>(S, [&](int, int row0, int rows, int n0) {
+      mma_tile<TN>(acc, L, sm, bar, r, g);
+      store_tile<TN>(acc, out, row0, rows, n0, N, g);
+    });
   }
+}
+
+// The ring's stages, then the schedule's 2 (E + 1) ints, then the
+// barriers; every stage streams its weight tile (nothing is resident).
+inline Layout gemm_layout(int TN, int K, int n_experts) {
+  Layout L;
+  const int table = (2 * (n_experts + 1) * 4 + 7) / 8 * 8;
+  L.n_chunks = (K + KC - 1) / KC;
+  L.resident = 0;
+  L.stage_bytes = (TILE_ROWS + TN) * ROW_BYTES;
+  L.off_stages = 0;
+  const int fit = (SMEM_LIMIT - ALIGN - static_cast<int>(sizeof(Barriers)) -
+                   table) / L.stage_bytes;
+  L.stages = fit < MAX_STAGES ? fit : MAX_STAGES;
+  L.off_epi = L.stages * L.stage_bytes;
+  L.off_bar = L.off_epi + table;
+  L.bytes = L.off_bar + static_cast<int>(sizeof(Barriers)) + ALIGN;
+  return L;
+}
+
+template <int TN>
+int run(const void* x, const void* w, const void* offsets, void* out,
+        int n_experts, int m_rows, int N, int K, void* stream) {
+  const Layout L = gemm_layout(TN, K, n_experts);
+  if (L.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  int rc = encode_rows(&xmap, x, m_rows, K, TILE_ROWS);
+  if (rc) return rc;
+  rc = encode_rows(&wmap, w, static_cast<long long>(n_experts) * N, K, TN);
+  if (rc) return rc;
+  const auto kernel = grouped_gemm_kernel<TN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the most work tiles any routing of m_rows rows can make
+  const long long most =
+      (static_cast<long long>(m_rows) / TILE_ROWS + n_experts) *
+      ((N + TN - 1) / TN);
+  kernel<<<grid_for(most), THREADS, L.bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      xmap, wmap, static_cast<const int*>(offsets),
+      static_cast<__nv_bfloat16*>(out), n_experts, m_rows, N, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError(). x [m_rows, K] and
-// out [m_rows, N] bf16 row-major, w [n_experts, N, K] bf16, offsets
+// Launches on `stream` and returns cudaGetLastError(), or the code of a
+// failed tensor-map encode (score_tile_sm90.cuh). x [m_rows, K] and out
+// [m_rows, N] bf16 row-major, w [n_experts, N, K] bf16, offsets
 // [n_experts + 1] int32 non-decreasing with offsets[n_experts] <= m_rows;
 // N % 8 == 0, K % 8 == 0, all pointers 16-byte aligned.
 extern "C" int grouped_gemm_launch(const void* x, const void* w,
@@ -218,18 +276,12 @@ extern "C" int grouped_gemm_launch(const void* x, const void* w,
                                    void* stream) {
   if (n_experts < 1 || m_rows < 1 || N < 1 || K < 1 || N % VEC || K % VEC)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long y_tiles =
-      (static_cast<long long>(m_rows) + TM - 1) / TM + n_experts;
-  if (y_tiles > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(Smem)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + TN - 1) / TN, static_cast<unsigned>(y_tiles));
-  grouped_gemm_kernel<<<grid, THREADS, sizeof(Smem),
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(offsets),
-      static_cast<__nv_bfloat16*>(out), n_experts, N, K);
-  return static_cast<int>(cudaGetLastError());
+  if ((static_cast<long long>(m_rows) / TILE_ROWS + n_experts) *
+          ((N + TN_NARROW - 1) / TN_NARROW) >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  return N % TN_WIDE == 0
+             ? run<TN_WIDE>(x, w, offsets, out, n_experts, m_rows, N, K,
+                            stream)
+             : run<TN_NARROW>(x, w, offsets, out, n_experts, m_rows, N, K,
+                              stream);
 }

@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) mainloop of the corpus-streaming kernels:
-// plain_gmax.cu (K1, K2, K4, K7) and scores.cu (K8). score_tile.cuh keeps
-// the older wmma mainloop for K9, K10 and K11.
+// plain_gmax.cu (K1, K2, K4, K7) and scores.cu (K8); grouped_gemm.cu (K12)
+// runs mma_tile over its own schedule, with every stage streamed.
+// score_tile.cuh keeps the older wmma mainloop for K9, K10 and K11.
 //
 // What it computes: fp32 tiles of <corpus row, query> for 128 corpus rows
 // by QN queries (QN = 64 for Q <= 64, else 256), bf16 in, fp32 sums; the

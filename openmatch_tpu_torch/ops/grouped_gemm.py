@@ -11,9 +11,10 @@ expert, ``w`` [E, N, K] one ``nn.Linear`` weight per expert, ``offsets``
 puts its unrouted slots there.
 
 A CUDA tensor launches ``csrc/grouped_gemm.cu`` (bf16, ``N % 8 == 0``,
-``K % 8 == 0``; one launch whose grid is sized from the shapes alone, so
-nothing is read back and the call can be captured in a CUDA graph), counted
-in ``grouped_gemm.launches``. A CPU tensor takes ``grouped_gemm_plain``,
+``K % 8 == 0``; one launch of one persistent block per SM, which derive
+their work tiles from the offsets on the card, so nothing is read back and
+the call can be captured in a CUDA graph), counted in
+``grouped_gemm.launches``. A CPU tensor takes ``grouped_gemm_plain``,
 the same contract as a loop over experts with the offsets read on the
 host. Nothing falls back from one to the other. The kernel replaces no TPU
 kernel; its source says why it was added and what bounds it.

@@ -414,21 +414,46 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# case -> (rows per expert, unrouted rows after them, N, K, whether the
+# unrouted rows are NaN). The kernel's tile is 128 rows by 256 columns where
+# N % 256 == 0, else by 64; its depth chunk is 64.
+KERNEL_CASES = {
+    # N = 384 takes the narrow tile; empty experts between full ones
+    "ragged": ([0, 300, 1, 0, 129, 64, 0, 700], 50, 384, 256, False),
+    # the wide tile; empty experts first and last, one of 129 rows
+    "wide": ([0, 129, 300, 1, 0], 7, 512, 256, False),
+    # N and K that no tile or chunk divides
+    "ragged_n_and_k": ([5, 0, 250, 129, 0], 3, 200, 200, False),
+    # one expert owns every row: 71 x 4 work tiles, several a block
+    "one_expert": ([0, 0, 9000, 0], 0, 1024, 128, False),
+    # the last tile reads unrouted NaN rows and must not store them
+    "nan_unrouted": ([0, 200, 129, 0, 64, 0], 100, 512, 192, True),
+}
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_its_plain_version(cuda_device):
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_cuda_kernel_matches_its_plain_version(cuda_device, case):
+    counts, unrouted, N, K, nan = KERNEL_CASES[case]
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    E, K, N = 8, 256, 384
-    counts = [0, 300, 1, 0, 129, 64, 0, 700]
-    M = sum(counts) + 50
-    x = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+    E, real = len(counts), sum(counts)
+    x = torch.randn(real + unrouted, K, generator=g,
+                    device=cuda_device).bfloat16()
+    if nan:
+        x[real:] = float("nan")
     w = torch.randn(E, N, K, generator=g, device=cuda_device).bfloat16()
     offsets = torch.tensor([0] + list(np.cumsum(counts)), dtype=torch.int32,
                            device=cuda_device)
-    got = grouped_gemm(x, w, offsets)[:sum(counts)].float().cpu()
-    want = grouped_gemm_plain(x.cpu(), w.cpu(), offsets.cpu())[
-        :sum(counts)].float()
+    before = grouped_gemm.launches
+    got = grouped_gemm(x, w, offsets)[:real]
+    again = grouped_gemm(x, w, offsets)[:real]
+    assert grouped_gemm.launches == before + 2
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)  # each element summed in a fixed order
+    want = grouped_gemm_plain(x.cpu(), w.cpu(), offsets.cpu())[:real]
     # one bf16 rounding of fp32 sums taken in another order
-    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=1e-2,
+                               atol=1e-2)
 
 
 @pytest.mark.cuda

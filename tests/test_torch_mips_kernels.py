@@ -252,6 +252,34 @@ def test_c_entry_points_match_signatures():
     assert found == dict(_build.SIGNATURES)
 
 
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6helperv' for 'sm_90a'
+ptxas info    : Function properties for _Z6helperv
+    16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 352 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119grouped_gemm_kernelILi256EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z7calleev
+    24 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119grouped_gemm_kernelILi256EEEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1064 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_reads_each_matching_entry_function():
+    """Registers, stack frame and spills of the kernels named, each from
+    its own entry's lines: another function's properties do not count."""
+    assert _build.ptxas_usage(PTXAS_LOG, "grouped_gemm_kernel") == {
+        "_ZN12_GLOBAL__N_119grouped_gemm_kernelILi256EEEvv": {
+            "registers": 168, "stack_frame": 0, "spill_stores": 0,
+            "spill_loads": 0}}
+    assert _build.ptxas_usage(PTXAS_LOG, "helper")["_Z6helperv"] == {
+        "registers": 40, "stack_frame": 16, "spill_stores": 8,
+        "spill_loads": 8}
+    assert _build.ptxas_usage("(cached)", "grouped_gemm_kernel") == {}
+
+
 # ---- on the card ----------------------------------------------------------
 
 
