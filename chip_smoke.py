@@ -303,11 +303,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             with a router's skew and uniformly; the gate-and-up product
             [64, 2816, 2048] and the down product [64, 2048, 1408]), each
             with its time beside its bound and torch._grouped_mm's
-            (library_ms) where the card's torch has it; then a
-            DeepSeek-V3 tower at published widths with one dense and one
-            MoE layer (bf16, seeded weights) encoding [64, 512] ragged
-            batches as a CUDA graph against eager, bit for bit, its
-            expert counter zeroed in place and exact after one replay.
+            (library_ms) where the card's torch has it (the kernel
+            table's K12 row is the gate-and-up product under the skew);
+            then a DeepSeek-V3 tower at published widths with one dense
+            and one MoE layer (bf16, seeded weights) encoding [64, 512]
+            ragged batches as a CUDA graph against eager, bit for bit,
+            its expert counter zeroed in place and exact after one
+            replay.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -374,6 +376,8 @@ KERNELS = {
     "gmax_only": (CSRC + "score_tiles.cu", TPU + "254"),
     "gmax_phase": (CSRC + "gmax_phases.cu",
                    "scripts/perf/score_path_phases.py:164"),
+    # K12 replaces no TPU kernel
+    "grouped_gemm": (CSRC + "grouped_gemm.cu", None),
 }
 CORPUS_COPY = 13e9  # bytes: a layout path allocating this much copied the index
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and dense bf16 tensor-core
@@ -404,27 +408,6 @@ def kernel_ms(fn, warmup: int = 3, reps: int = 15, queue: str = "call") -> float
     from openmatch_tpu_torch.perf import time_ms
 
     return time_ms(fn, torch.device("cuda", 0), warmup, reps, queue)
-
-
-def reset_launches(cm):
-    """Set every kernel wrapper's launch count to 0."""
-    cm.fused_plain_gmax.launches = 0
-    cm.fused_plain_gmax_segs.launches = 0
-    cm.gather_rescore.launches = 0
-    cm.gather_rescore.seg_launches = 0
-    cm.gather_rescore.pipelined_launches = 0
-    cm.fused_block_gmax.launches = 0
-    cm.fused_scores.launches = 0
-    cm.fused_score_gmax.launches = 0
-    cm.fused_gmax_only.launches = 0
-    cm.fused_gmax_phase.launches = 0
-
-
-def read_launches(cm) -> dict:
-    """Every kernel wrapper's launch count, by kernel-table name."""
-    from openmatch_tpu_torch.perf import launch_counts
-
-    return launch_counts()
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -929,11 +912,12 @@ def same_above_band(name: str, s_a, i_a, s_b, i_b, phase: str = "serve"):
     log(f"{phase}: {name}: equal above the tie band for {s_b.shape[0]} rows")
 
 
-def serve_http(service, requests, cm) -> tuple:
+def serve_http(service, requests) -> tuple:
     """GET /health and the requests as concurrent POST /search over HTTP,
     with every launch count set to 0 just before and read just after.
     Returns (answers, launches)."""
     from openmatch_tpu_torch.drivers.serve import ServingHTTPServer, make_handler
+    from openmatch_tpu_torch.ops import _build
 
     service.warmup()
     service.timeline = []
@@ -942,14 +926,14 @@ def serve_http(service, requests, cm) -> tuple:
     thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     try:
-        reset_launches(cm)
+        _build.launches.clear()
         status, health, _ = http_json(base + "/health")
         with ThreadPoolExecutor(max_workers=len(requests)) as pool:
             futures = [pool.submit(http_json, base + "/search",
                                    {"queries": qs, "k": K})
                        for qs in requests]
             answers = [f.result() for f in futures]
-        launches = read_launches(cm)
+        launches = dict(_build.launches)
     finally:
         server.shutdown()
         server.server_close()
@@ -994,6 +978,7 @@ def phase_serve(dev, replay: list) -> tuple:
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
     from openmatch_tpu_torch.models.jax_convert import params_from_jax
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.ops import cuda_mips as cm
     from openmatch_tpu_torch.ops.mips import Searcher, _select_groups
     from openmatch_tpu_torch.retriever.encoder import (encode_dataset,
@@ -1065,9 +1050,11 @@ def phase_serve(dev, replay: list) -> tuple:
                                max_batch=MAX_BATCH)
     requests = [[" ".join(rng.choice(words, rng.integers(3, 9)))
                  for _ in range(8)] for _ in range(8)]
-    flat_res, launches = serve_http(service, requests, cm)
-    if min(launches["plain_gmax"], launches["gather_rescore"]) < 1 \
-            or launches["plain_gmax_segs"] or launches["gather_rescore_seg"]:
+    flat_res, launches = serve_http(service, requests)
+    if min(launches.get("plain_gmax", 0),
+           launches.get("gather_rescore", 0)) < 1 \
+            or launches.get("plain_gmax_segs") \
+            or launches.get("gather_rescore_seg"):
         raise AssertionError("the single-buffer path must run the "
                              f"single-buffer kernels only: {launches}")
 
@@ -1117,9 +1104,9 @@ def phase_serve(dev, replay: list) -> tuple:
             f"{search_ms:.4f} ms")
 
         # the pipelined rescore and the sequential corpus windows, at Q=64
-        reset_launches(cm)
+        _build.launches.clear()
         s_p, i_p = cm.plain_topk_prepared(reps, prep, K, pipeline=True)
-        launches["gather_rescore_pipelined"] = read_launches(cm)[
+        launches["gather_rescore_pipelined"] = _build.launches[
             "gather_rescore_pipelined"]
         if launches["gather_rescore_pipelined"] < 1:
             raise AssertionError("pipeline=True never launched the "
@@ -1172,6 +1159,7 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
     library call (one torch.mm) and the two-call gmax (torch.mm, then
     amax) as context. Returns the layout kernels' launches and (err, ms,
     plain ms, (bound ms, bound by), library ms)."""
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.ops.mips import _select_groups
     from openmatch_tpu_torch.perf.micro import mm_f32
 
@@ -1201,16 +1189,16 @@ def serve_layouts(index, reps, s_k, i_k, cm) -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             resident = torch.cuda.memory_allocated()
-            reset_launches(cm)
+            _build.launches.clear()
             s, i = fn()
             torch.cuda.synchronize()
-            ran = {n for n, v in read_launches(cm).items() if v}
+            ran = set(_build.launches)
             extra = torch.cuda.max_memory_allocated() - resident
             if ran != kernels:
                 raise AssertionError(f"{name} launched {sorted(ran)}, "
                                      f"expected {sorted(kernels)}")
             for n in layout_kernels:
-                launches[n] += read_launches(cm)[n]
+                launches[n] += _build.launches[n]
             same_above_band(f"{name} vs the default", s, i, s_k, i_k)
             del s, i
             if extra >= CORPUS_COPY:
@@ -1310,9 +1298,10 @@ def serve_segmented(dev, model, tok, index, doc_ids, doc_pos, requests,
         f"{time.perf_counter() - t0:.2f} s")
     service = RetrievalService(model, tok, searcher, doc_ids, q_max_len=32,
                                max_batch=MAX_BATCH)
-    seg_res, launches = serve_http(service, requests, cm)
-    if min(launches["plain_gmax_segs"], launches["gather_rescore_seg"]) < 1 \
-            or launches["plain_gmax"] or launches["gather_rescore"]:
+    seg_res, launches = serve_http(service, requests)
+    if min(launches.get("plain_gmax_segs", 0),
+           launches.get("gather_rescore_seg", 0)) < 1 \
+            or launches.get("plain_gmax") or launches.get("gather_rescore"):
         raise AssertionError("the segmented path must run the segment "
                              f"kernels only: {launches}")
     with torch.inference_mode():
@@ -1412,14 +1401,16 @@ def trace_k11(cm, q, plain, profiling):
         f"key_averages device time: {avg_us} us")
 
 
-def drive(name: str, fn, want: set, cm) -> dict:
+def drive(name: str, fn, want: set) -> dict:
     """Run one twin phase or mode with every count set to 0 just before
     and read just after; it must launch exactly ``want``."""
-    reset_launches(cm)
+    from openmatch_tpu_torch.ops import _build
+
+    _build.launches.clear()
     fn()
     torch.cuda.synchronize()
-    got = read_launches(cm)
-    ran = {n for n, v in got.items() if v}
+    got = _build.launches.copy()
+    ran = set(got)
     if ran != want:
         raise AssertionError(f"perf: {name} launched {sorted(ran)}, expected "
                              f"{sorted(want)}")
@@ -1427,7 +1418,7 @@ def drive(name: str, fn, want: set, cm) -> dict:
     return got
 
 
-def search_twins(cm) -> dict:
+def search_twins() -> dict:
     """The search twins through their main(argv), each under ``drive``:
     corpus_scale over the 8,841,823-doc corpus at Q=128, k=1000 (its fp32
     audit must pass), qbatch_sweep over the same at SWEEP_QS, each
@@ -1442,7 +1433,7 @@ def search_twins(cm) -> dict:
 
     def run(name, fn, want):
         box = {}
-        got = drive(name, lambda: box.update(out=fn()), want, cm)
+        got = drive(name, lambda: box.update(out=fn()), want)
         for kernel, n in got.items():
             total[kernel] = total.get(kernel, 0) + n
         return box.pop("out")
@@ -1505,15 +1496,14 @@ def phase_perf(dev) -> tuple:
         log(f"perf: K11 at Q={PERF_Q}, NB={nbp}: "
             + ", ".join(f"{p} {t:.4f} ms" for p, t in ms.items())
             + f"; plain {plain_ms:.4f} ms; bound {b11[0]:.4f} ms ({b11[1]})")
-    launches = dict.fromkeys(read_launches(cm), 0)
+    k11 = 0
     for phase, want in SPP_KERNELS.items():
-        got = drive(f"score_path_phases {phase}", lambda: spp.main([phase]),
-                    want, cm)
-        launches = {n: launches[n] + got[n] for n in launches}
+        k11 += drive(f"score_path_phases {phase}", lambda: spp.main([phase]),
+                     want)["gmax_phase"]
     for mode, want in MICRO_KERNELS.items():
-        drive(f"micro {mode}", lambda: micro.main([mode]), want, cm)
-    twins = search_twins(cm)
-    twins["gmax_phase"] = twins.get("gmax_phase", 0) + launches["gmax_phase"]
+        drive(f"micro {mode}", lambda: micro.main([mode]), want)
+    twins = search_twins()
+    twins["gmax_phase"] = twins.get("gmax_phase", 0) + k11
     with torch.inference_mode():  # a profiler session last: after the times
         trace_k11(cm, q, plain, profiling)
         del plain, q
@@ -1538,14 +1528,13 @@ def phase_twins(dev) -> dict:
     each run's line and peak; pipeline_e2e's MRR@10 above 0.99
     (functional_pass) and its retrieve stage's K1 and K3 launches, which
     are returned."""
-    from openmatch_tpu_torch.ops import cuda_mips as cm
     from openmatch_tpu_torch.perf import (pipeline_e2e, rerank_bench,
                                           train_bench)
 
     def run(name, fn):
         box = {}
         torch.cuda.reset_peak_memory_stats()
-        drive(name, lambda: box.update(out=fn()), set(), cm)
+        drive(name, lambda: box.update(out=fn()), set())
         return box.pop("out"), torch.cuda.max_memory_allocated() / 2**30
 
     for flags in TRAIN_BENCH_RUNS:
@@ -1849,7 +1838,7 @@ def phase_train(dev, cfg=None) -> dict:
                                              successive_retrieve, train_dr)
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.train import dr_trainer
     from openmatch_tpu_torch.utils.metrics import (eval_mrr, load_qrels,
                                                    load_run)
@@ -1968,11 +1957,11 @@ def phase_train(dev, cfg=None) -> dict:
                 for n in ("retrieve", "successive")}
         search = ["--query_path", os.path.join(root, "dev.jsonl"),
                   "--retrieve_depth", "100"]
-        reset_launches(cm)
+        _build.launches.clear()
         retrieve.main(common + search + ["--trec_save_path",
                                          runs["retrieve"]], tokenizer=tok)
         sync(dev)
-        launches = read_launches(cm)
+        launches = _build.launches.copy()
         log(f"train: launches during retrieve {launches}")
         if cuda and (launches["plain_gmax"] < 1
                      or launches["gather_rescore"] < 1):
@@ -2243,7 +2232,7 @@ def phase_rerank(dev, bert_cfg=None, t5_cfg=None) -> dict:
                                              retrieve, train_rr)
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.rr_model import RRModel
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.retriever.reranker import collate_pairs
     from openmatch_tpu_torch.train import rr_trainer
     from openmatch_tpu_torch.utils.metrics import (eval_mrr, load_qrels,
@@ -2282,14 +2271,14 @@ def phase_rerank(dev, bert_cfg=None, t5_cfg=None) -> dict:
         log(f"rerank: build_index with T5 (t5_encdec, bf16) encoded "
             f"{TRAIN_PASSAGES} passages in {time.perf_counter() - t0:.2f} s "
             "(model load included)")
-        reset_launches(cm)
+        _build.launches.clear()
         retrieve.main(common + ["--query_path", os.path.join(root,
                                                              "dev.jsonl"),
                                 "--retrieve_depth", "100",
                                 "--trec_save_path", run_path],
                       tokenizer=tok_t5)
         sync(dev)
-        launches = read_launches(cm)
+        launches = _build.launches.copy()
         log(f"rerank: launches during the T5 retrieve {launches}")
         if cuda and (launches["plain_gmax"] < 1
                      or launches["gather_rescore"] < 1):
@@ -2592,7 +2581,7 @@ def phase_ance(dev, cfg=None) -> dict:
     from openmatch_tpu_torch.data.train_dataset import DRTrainDataset
     from openmatch_tpu_torch.models.bert import BertConfig
     from openmatch_tpu_torch.models.dr_model import DRModel
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.perf import ance_cycle
     from openmatch_tpu_torch.retriever.retriever import Retriever
     from openmatch_tpu_torch.utils.metrics import load_qrels
@@ -2606,7 +2595,7 @@ def phase_ance(dev, cfg=None) -> dict:
         hf_bert_base(rng, cfg, hf_dir)
 
         # 1. one alternating cycle at the reference's ANCE scale
-        reset_launches(cm)
+        _build.launches.clear()
         t0 = time.perf_counter()
         cycle = ance_cycle.main([
             str(ANCE_DOCS), str(ANCE_QUERIES), str(ANCE_STEPS),
@@ -2614,7 +2603,7 @@ def phase_ance(dev, cfg=None) -> dict:
             "--device", str(dev), "--workdir", root])
         sync(dev)
         cycle_s = time.perf_counter() - t0
-        launches = read_launches(cm)
+        launches = _build.launches.copy()
         log(f"ance: launches during the cycle {launches} (the refresh's "
             "search is the cycle's only one)")
         if cuda and (launches["plain_gmax"] < 1
@@ -2689,7 +2678,7 @@ def phase_ance(dev, cfg=None) -> dict:
                              data_args, inf_args, 0, dev)
 
         ann_dir = os.path.join(root, "ann")
-        reset_launches(cm)
+        _build.launches.clear()
         sync(dev)
         t0 = time.perf_counter()
         run_ance_generator(
@@ -2701,7 +2690,7 @@ def phase_ance(dev, cfg=None) -> dict:
             AnceConfig(ann_dir=ann_dir), max_generations=1)
         sync(dev)
         gen_s = time.perf_counter() - t0
-        more = read_launches(cm)
+        more = _build.launches.copy()
         log(f"ance: launches during the generator {more}")
         if cuda and (more["plain_gmax"] < 1 or more["gather_rescore"] < 1):
             raise AssertionError("ance: the generator did not launch K1 and "
@@ -2786,7 +2775,7 @@ def phase_beir(dev, cfg=None) -> dict:
     from openmatch_tpu_torch.data.beir import BEIRDataset
     from openmatch_tpu_torch.drivers import retrieve_beir
     from openmatch_tpu_torch.models.bert import BertConfig
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.retriever.retriever import Retriever
     from openmatch_tpu_torch.utils.trec import load_from_trec
 
@@ -2828,7 +2817,7 @@ def phase_beir(dev, cfg=None) -> dict:
         Retriever.encode_corpus, Retriever.encode_queries = (encode_corpus,
                                                              encode_queries)
         run_path = os.path.join(root, "run.trec")
-        reset_launches(cm)
+        _build.launches.clear()
         t0 = time.perf_counter()
         try:
             metrics = retrieve_beir.main([
@@ -2842,7 +2831,7 @@ def phase_beir(dev, cfg=None) -> dict:
             Retriever.encode_corpus, Retriever.encode_queries = real
         sync(dev)
         total = time.perf_counter() - t0
-        launches = read_launches(cm)
+        launches = _build.launches.copy()
         log(f"beir: launches during retrieve_beir {launches}")
         if cuda and (launches["plain_gmax"] < 1
                      or launches["gather_rescore"] < 1):
@@ -4492,7 +4481,7 @@ def mesh_search(dev, spec) -> dict:
     segments; each search's launches counted, its answer equal to one
     process above the tie band, its time; then its kernels held to their
     plain versions on the Searcher's own operands."""
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.ops.mips import (TILE_ROWS, Searcher,
                                               shard_rows_for)
     from openmatch_tpu_torch.parallel.mesh import make_mesh
@@ -4526,10 +4515,10 @@ def mesh_search(dev, spec) -> dict:
             torch.cuda.empty_cache()
             held = sum(s.numel() * 2 for s in searcher._prep.plain)
         searcher.search(q)  # warm
-        reset_launches(cm)
+        _build.launches.clear()
         s, i = searcher.search(q)
         sync(dev)
-        n = read_launches(cm)
+        n = _build.launches.copy()
         want = (("plain_gmax", "gather_rescore") if part == "docs"
                 else ("plain_gmax_segs", "gather_rescore_seg"))
         # CPU tensors (a rehearsal) run the plain versions: no launches
@@ -4618,15 +4607,15 @@ def mesh_serve(dev, spec, mesh, searcher, part: str) -> dict:
     from openmatch_tpu_torch.drivers.serve import (RetrievalService,
                                                    ServingHTTPServer, follow,
                                                    make_handler)
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.parallel.mesh import ControlChannel
 
     channel = ControlChannel(mesh, searcher.dim, searcher.dtype)
-    reset_launches(cm)
+    _build.launches.clear()
     if mesh.rank:
         n = follow(searcher, channel)
         sync(dev)
-        return {"follower_searches": n, "launches": read_launches(cm)}
+        return {"follower_searches": n, "launches": _build.launches.copy()}
     service = RetrievalService(
         mesh_serve_model(dev, spec), WhitespaceTokenizer(spec["cfg"][
             "vocab_size"]), searcher, SyntheticDocIds([], searcher.n_docs),
@@ -4654,7 +4643,7 @@ def mesh_serve(dev, spec, mesh, searcher, part: str) -> dict:
     finally:
         service.close()  # "stop": the follower returns
     sync(dev)
-    launches = read_launches(cm)
+    launches = _build.launches.copy()
     if any(st != 200 for st, _, _ in answers):
         raise AssertionError(f"mesh serve {part}: HTTP "
                              f"{[st for st, _, _ in answers]}")
@@ -4679,7 +4668,7 @@ def mesh_serve_main(dev, spec) -> dict:
     import socket
 
     from openmatch_tpu_torch.drivers import serve
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.parallel.mesh import world_size
 
     port, seen = 0, {}
@@ -4711,7 +4700,7 @@ def mesh_serve_main(dev, spec) -> dict:
                 os.kill(os.getpid(), signal.SIGTERM)
 
         threading.Thread(target=drive, daemon=True).start()
-    reset_launches(cm)
+    _build.launches.clear()
     t0 = time.perf_counter()
     serve.main(["--model_name_or_path", spec["hf"], "--encoded_save_path",
                 spec["small_index"], "--port", str(port), "--max_batch", "8",
@@ -4721,7 +4710,8 @@ def mesh_serve_main(dev, spec) -> dict:
                 "--search_method", "kernel", "--device", dev.type],
                tokenizer=WhitespaceTokenizer(spec["cfg"]["vocab_size"]))
     sync(dev)
-    out = {"launches": read_launches(cm), "seconds": time.perf_counter() - t0,
+    out = {"launches": _build.launches.copy(),
+           "seconds": time.perf_counter() - t0,
            "world": world_size()}
     if rank0:
         if "error" in seen or seen.get("status") != 200:
@@ -4928,7 +4918,7 @@ def mesh_ance(dev, spec) -> dict:
 
     import torch.distributed as dist
 
-    from openmatch_tpu_torch.ops import cuda_mips as cm
+    from openmatch_tpu_torch.ops import _build
     from openmatch_tpu_torch.ops.mips import (TILE_ROWS, pyramid_fanouts,
                                               shard_rows_for)
     from openmatch_tpu_torch.perf import ance_cycle
@@ -4946,7 +4936,7 @@ def mesh_ance(dev, spec) -> dict:
             identical.append(same_on_ranks(model, kw["mesh"]))
 
     workdir = os.path.join(spec["root"], "ance")
-    reset_launches(cm)
+    _build.launches.clear()
     sync(dev)
     t0 = time.perf_counter()
     rmod.Retriever = Checked
@@ -4956,7 +4946,7 @@ def mesh_ance(dev, spec) -> dict:
         rmod.Retriever = real
     sync(dev)
     seconds = time.perf_counter() - t0
-    launches = read_launches(cm)
+    launches = _build.launches.copy()
     trainer = cycle.pop("trainer")
     identical.append(same_on_ranks(trainer.model, trainer.mesh))
     del trainer
@@ -5343,10 +5333,16 @@ def library_grouped_ms(x, w, offsets):
     return ms, out
 
 
-def phase_moe(dev) -> dict:
+def phase_moe(dev) -> tuple:
     """The grouped expert GEMM against its plain version at the encode
     cell's shapes, and a published-width DeepSeek-V3 tower of one dense
-    and one MoE layer as a CUDA graph against eager."""
+    and one MoE layer as a CUDA graph against eager. Returns K12's row
+    (err, ms, plain ms, (bound ms, bound by), library ms) of the gate-and-up
+    product under the skewed routing, and K12's launches on the main path,
+    the tower's encodes. A graph replay runs no Python and is not counted,
+    so that count comes from the tower's eager calls and its one capture
+    (the capture's eager warm-up run and the captured run); the timing
+    loops' launches are left out."""
     from openmatch_tpu_torch.models.deepseek_v3 import DeepseekV3Config
     from openmatch_tpu_torch.models.dr_model import DRModel
     from openmatch_tpu_torch.ops import _build
@@ -5371,7 +5367,7 @@ def phase_moe(dev) -> dict:
     routed = MOE_REAL * cfg.num_experts_per_tok
     routings = (("skewed", moe_offsets(routed, E, g).to(dev)),
                 ("uniform", uniform_offsets(routed, E).to(dev)))
-    grouped_gemm.launches = 0
+    row = None
     for label, N, K in (("gate_up", 2 * w_, d), ("down", d, w_)):
         x = torch.randn(M, K, generator=gd, device=dev).bfloat16()
         w = (torch.randn(E, N, K, generator=gd, device=dev) * 0.02).bfloat16()
@@ -5402,6 +5398,8 @@ def phase_moe(dev) -> dict:
                 f"plain {plain:.3f} ms; torch._grouped_mm (library_ms) "
                 f"{lib_txt}, its max gap to the kernel {lib_gap}; max abs "
                 f"err {err:.3e}")
+            if row is None:  # the table's row: gate_up under the skew
+                row = (err, ms, plain, b, lib_ms)
             del got, want, lib
         del x, w
     with torch.device(dev):
@@ -5417,6 +5415,7 @@ def phase_moe(dev) -> dict:
                                                           generator=gd)
     model.eval()
     gaps, equal = [], True
+    _build.launches.clear()
     with torch.inference_mode():
         for _ in range(3):
             ids = torch.randint(0, cfg.vocab_size, (MOE_ROWS, MOE_LEN),
@@ -5428,6 +5427,7 @@ def phase_moe(dev) -> dict:
             want = model.encode_eager(ids, mask)
             equal = equal and torch.equal(got, want)
             gaps.append(float((got.float() - want.float()).abs().max()))
+        tower_launches = _build.launches["grouped_gemm"]
         enc = model.encoder_q
         enc.reset_expert_slots()
         model.encode(ids, mask)
@@ -5440,13 +5440,14 @@ def phase_moe(dev) -> dict:
         f"{max(gaps):.3e} (limit {GRAPH_GAP}), bit-equal {equal}; "
         f"{model.graph_stats}; one replay counted {slots} routed slots "
         f"(want {want_slots}); eager {eager:.3f} ms, graph {graph:.3f} ms a "
-        f"call; grouped_gemm launches {grouped_gemm.launches}")
+        f"call; grouped_gemm launches in the tower's encodes "
+        f"{tower_launches}")
     if not equal or model.graph_stats["captures"] != 1 \
             or slots != want_slots:
         raise AssertionError("moe: the graph's reps or counter are not the "
                              "eager ones")
     del model
-    return {"grouped_gemm": grouped_gemm.launches}
+    return {"grouped_gemm": row}, {"grouped_gemm": tower_launches}
 
 
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
@@ -5504,15 +5505,16 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         run_phase("kernels", phase_kernels, dev)
     rows, launches, replay = {}, {}, []
-    if "serve" in phases:
-        r, n = run_phase("serve", phase_serve, dev, replay)
-        rows.update(r)
-        launches.update(n)
-    if "perf" in phases:
-        r, n = run_phase("perf", phase_perf, dev)
+
+    def merge(r, n):
         rows.update(r)
         for kernel, count in n.items():
             launches[kernel] = launches.get(kernel, 0) + count
+
+    if "serve" in phases:
+        merge(*run_phase("serve", phase_serve, dev, replay))
+    if "perf" in phases:
+        merge(*run_phase("perf", phase_perf, dev))
     if "stages" in phases and replay:
         run_phase("stages", phase_stages, dev, replay)
     # the chains' retrieves add their K1 and K3 launches to the table's
@@ -5525,11 +5527,11 @@ def main(argv=None) -> int:
                            ("research", phase_research, ()),
                            ("twins", phase_twins, ()),
                            ("mesh", phase_mesh, (info["smi"],)),
-                           ("graphs", phase_graphs, ()),
-                           ("moe", phase_moe, ())):
+                           ("graphs", phase_graphs, ())):
         if name in phases:
-            for kernel, n in run_phase(name, fn, dev, *args).items():
-                launches[kernel] = launches.get(kernel, 0) + n
+            merge({}, run_phase(name, fn, dev, *args))
+    if "moe" in phases:
+        merge(*run_phase("moe", phase_moe, dev))
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -16,10 +16,20 @@ package on machines without ``nvcc``.
 The build directory defaults to ``build/kernels`` at the root of the
 checkout (listed in ``.gitignore``); ``OPENMATCH_KERNEL_BUILD_DIR``
 overrides it.
+
+``launches`` counts every successful launch a wrapper makes (a CUDA
+graph's replays run no Python and are not counted), keyed by the name the
+wrapper passes to ``check``: ``plain_gmax`` (K1/K2), ``gather_rescore``
+(K3), ``plain_gmax_segs`` (K4), ``gather_rescore_seg`` (K5),
+``gather_rescore_pipelined`` (K6), ``block_gmax`` (K7), ``scores`` (K8),
+``score_gmax`` (K9), ``gmax_only`` (K10), ``gmax_phase`` (K11) and
+``grouped_gemm`` (K12). Readers take ``launches.copy()`` (a kernel that
+never launched reads 0) and reset it with ``launches.clear()``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -56,6 +66,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}  # seconds, library path, compiler output of the build
+launches: collections.Counter = collections.Counter()  # kernel -> launches
 
 
 def _build_dir() -> Path:
@@ -178,10 +189,11 @@ ENCODE_FAILED = 10000  # csrc/score_tile_sm90.cuh: + the CUresult
 
 
 def check(rc: int, name: str):
-    """Raise if a launch entry point reported a CUDA error or a failed
-    tensor-map encode."""
+    """Raise if the launch of kernel ``name`` reported a CUDA error or a
+    failed tensor-map encode; else count it in ``launches``."""
     if rc >= ENCODE_FAILED:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
                            f"CUresult {rc - ENCODE_FAILED}")
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {rc}")
+    launches[name] += 1

@@ -39,11 +39,10 @@
 // grid (else as 4-byte stores, consecutive threads on consecutive blocks),
 // and take its level-1 maxima from it. The pattern of these writes is
 // what the epilogue costs: one tile's 64-byte pieces of 64 query rows per
-// store cost the stream far more than runs of 1 KB per row
-// (perf/ablate.py --kernel gmax times the run lengths, and the kernel
-// without stores or without any epilogue). The [Q, NB] maxima are 1/8 of the
-// score bytes. All offsets into the outputs are 64-bit: at 8.84M x 768
-// they pass 2^32.
+// store cost the stream far more than runs of 1 KB per row (measured
+// against shorter runs, and against the kernel without stores or without
+// any epilogue). The [Q, NB] maxima are 1/8 of the score bytes. All
+// offsets into the outputs are 64-bit: at 8.84M x 768 they pass 2^32.
 //
 // Segments and windows: one tensor map per segment, passed by value as a
 // __grid_constant__ parameter (64 maps are 8 KB; CUDA >= 12.1 allows
@@ -85,9 +84,8 @@ struct SegMaps {
 
 // Tiles per run of neighbouring tiles one block takes (for_each_item): at
 // QN = 64 a run of 16 tiles gives each query 256 neighbouring block maxima,
-// 1 KB written contiguously (shorter runs measured slower:
-// perf/ablate.py --kernel gmax); at QN = 256 one tile's staging takes 20 KB,
-// so a run is one item
+// 1 KB written contiguously (shorter runs measured slower); at QN = 256
+// one tile's staging takes 20 KB, so a run is one item
 template <int QN>
 constexpr int kRunTiles = QN == QN_NARROW ? 16 : 1;
 

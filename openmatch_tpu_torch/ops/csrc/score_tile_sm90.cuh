@@ -40,7 +40,7 @@
 // - Register arrays are indexed by constants only (`select` below): an
 //   array the compiler moves to local memory (ptxas then reports a stack
 //   frame) costs far more than the shuffles it was meant to feed.
-// perf/ablate.py --kernel gmax times the mainloop alone, with no epilogue.
+// The mainloop was timed alone, with no epilogue, against the whole kernel.
 
 #pragma once
 

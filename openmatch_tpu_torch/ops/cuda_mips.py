@@ -52,8 +52,8 @@ epilogues, so ``perf/score_path_phases.py`` can time each epilogue's share.
 
 Each kernel wrapper dispatches on where its tensors lie: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
-kernel or raises; nothing falls back from one to the other. Each wrapper
-counts its kernel launches in its ``launches`` attribute.
+kernel or raises; nothing falls back from one to the other. Each launch
+is counted in ``_build.launches`` under its kernel-table name.
 """
 
 from __future__ import annotations
@@ -232,12 +232,11 @@ def plain_gmax_reference(
     return (gmax, _level1(gmax, emit_l1)) if emit_l1 else gmax
 
 
-def _gmax_launch(wrapper, queries: torch.Tensor, segs, blk_lo: int,
+def _gmax_launch(name: str, queries: torch.Tensor, segs, blk_lo: int,
                  n_blk: int, emit_l1: int, nb_valid: Optional[int]):
     """Launch ``csrc/plain_gmax.cu`` over the window [blk_lo, blk_lo +
-    n_blk) of the segments' global blocks, counted in ``wrapper.launches``;
+    n_blk) of the segments' global blocks, counted under ``name``;
     returns gmax or (gmax, l1)."""
-    name = wrapper.__name__
     Q, D = queries.shape
     if queries.dtype != torch.bfloat16 or any(
             s.dtype != torch.bfloat16 for s in segs):
@@ -258,7 +257,6 @@ def _gmax_launch(wrapper, queries: torch.Tensor, segs, blk_lo: int,
             nb_valid if nb_valid is not None else blk_lo + n_blk, emit_l1,
             torch.cuda.current_stream(queries.device).cuda_stream)
         check(rc, name)
-        wrapper.launches += 1
     return (gmax, l1) if emit_l1 else gmax
 
 
@@ -288,11 +286,8 @@ def fused_plain_gmax(
     if not queries.is_cuda:
         return plain_gmax_reference(queries, plain, blk_lo, n_blk, emit_l1,
                                     nb_valid)
-    return _gmax_launch(fused_plain_gmax, queries, (plain,), blk_lo, n_blk,
+    return _gmax_launch("plain_gmax", queries, (plain,), blk_lo, n_blk,
                         emit_l1, nb_valid)
-
-
-fused_plain_gmax.launches = 0
 
 
 def plain_gmax_segs_reference(queries: torch.Tensor, segs, emit_l1: int = 0,
@@ -333,11 +328,8 @@ def fused_plain_gmax_segs(queries: torch.Tensor, segs, emit_l1: int = 0,
         raise ValueError(f"emit_l1={emit_l1} must divide {GMAX_TILE_BLOCKS}")
     if not queries.is_cuda:
         return plain_gmax_segs_reference(queries, segs, emit_l1, nb_valid)
-    return _gmax_launch(fused_plain_gmax_segs, queries, segs, 0, NB, emit_l1,
+    return _gmax_launch("plain_gmax_segs", queries, segs, 0, NB, emit_l1,
                         nb_valid)
-
-
-fused_plain_gmax_segs.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -462,10 +454,11 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
     the JAX package).
 
     CPU tensors run ``gather_rescore_reference``; CUDA tensors (bf16
-    operands, int32 ids) launch ``csrc/gather_rescore.cu`` (counted in
-    ``launches``, or ``seg_launches`` over more than one segment: a memset
-    and four kernels per 64 queries) or ``csrc/gather_rescore_pipelined.cu``
-    (``pipelined_launches``: one cooperative kernel per call). Both read
+    operands, int32 ids) launch ``csrc/gather_rescore.cu`` (counted as
+    ``gather_rescore``, or ``gather_rescore_seg`` over more than one
+    segment: a memset and four kernels per 64 queries) or
+    ``csrc/gather_rescore_pipelined.cu`` (``gather_rescore_pipelined``: one
+    cooperative kernel per call). Both read
     each distinct selected block once per 64 queries, with scratch from
     the caching allocator (``_rescore_scratch``)."""
     segs = _segments(plain)
@@ -499,23 +492,14 @@ def gather_rescore(queries: torch.Tensor, plain: Body, bids: torch.Tensor,
                 out.data_ptr(), mask, slot, ulist, scores, Q, D, k, NB,
                 stream)
             check(rc, "gather_rescore_pipelined")
-            gather_rescore.pipelined_launches += 1
         else:
             base, blk0 = _seg_table(segs)
             rc = lib.gather_rescore_launch(
                 queries.data_ptr(), base, blk0, len(segs), bids.data_ptr(),
                 out.data_ptr(), mask, slot, ulist, scores, Q, D, k, stream)
-            check(rc, "gather_rescore")
-            if len(segs) > 1:
-                gather_rescore.seg_launches += 1
-            else:
-                gather_rescore.launches += 1
+            check(rc, "gather_rescore_seg" if len(segs) > 1
+                  else "gather_rescore")
     return out
-
-
-gather_rescore.launches = 0
-gather_rescore.seg_launches = 0
-gather_rescore.pipelined_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -800,12 +784,9 @@ def fused_block_gmax(queries: torch.Tensor, cb: torch.Tensor) -> torch.Tensor:
         rc = load_library().block_gmax_launch(
             queries.data_ptr(), cb.data_ptr(), gmax.data_ptr(), Q, D, NB,
             _stream(queries))
-        check(rc, "fused_block_gmax")
-        fused_block_gmax.launches += 1
+        check(rc, "block_gmax")
     return gmax
 
-
-fused_block_gmax.launches = 0
 
 
 def _block_ids(bid: torch.Tensor) -> torch.Tensor:
@@ -938,12 +919,9 @@ def fused_scores(queries: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
         rc = load_library().scores_launch(
             queries.data_ptr(), plain.data_ptr(), out.data_ptr(), Q, D, N,
             _stream(queries))
-        check(rc, "fused_scores")
-        fused_scores.launches += 1
+        check(rc, "scores")
     return out
 
-
-fused_scores.launches = 0
 
 
 def _block_score_topk_core(queries: torch.Tensor, cb: torch.Tensor,
@@ -1038,12 +1016,9 @@ def fused_score_gmax(queries: torch.Tensor, corpus: torch.Tensor,
         rc = load_library().score_gmax_launch(
             queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(),
             gmax.data_ptr(), Q, D, N, tile, _stream(queries))
-        check(rc, "fused_score_gmax")
-        fused_score_gmax.launches += 1
+        check(rc, "score_gmax")
     return scores, gmax
 
-
-fused_score_gmax.launches = 0
 
 
 def gmax_only_reference(queries: torch.Tensor, corpus: torch.Tensor,
@@ -1082,12 +1057,9 @@ def fused_gmax_only(queries: torch.Tensor, corpus: torch.Tensor,
         rc = load_library().gmax_only_launch(
             queries.data_ptr(), corpus.data_ptr(), gmax.data_ptr(), Q, D, N,
             tile, _stream(queries))
-        check(rc, "fused_gmax_only")
-        fused_gmax_only.launches += 1
+        check(rc, "gmax_only")
     return gmax
 
-
-fused_gmax_only.launches = 0
 
 
 def _strided_members(gi: torch.Tensor, tile: int) -> torch.Tensor:
@@ -1198,7 +1170,7 @@ def fused_gmax_phase(queries: torch.Tensor, plain: torch.Tensor,
     - "a3nomax": [Q, NB], the score of each block's first doc (8b).
 
     CPU tensors run ``gmax_phase_reference``; CUDA tensors (bf16) launch
-    ``csrc/gmax_phases.cu``, counted in ``launches``."""
+    ``csrc/gmax_phases.cu``."""
     _check_phase(phase)
     NB = _check_body(queries, (plain,))
     if not queries.is_cuda:
@@ -1211,9 +1183,6 @@ def fused_gmax_phase(queries: torch.Tensor, plain: torch.Tensor,
         rc = load_library().gmax_phase_launch(
             queries.data_ptr(), plain.data_ptr(), out.data_ptr(), Q, D, NB,
             GMAX_PHASES[phase], _stream(queries))
-        check(rc, "fused_gmax_phase")
-        fused_gmax_phase.launches += 1
+        check(rc, "gmax_phase")
     return out
 
-
-fused_gmax_phase.launches = 0

@@ -14,7 +14,7 @@ A CUDA tensor launches ``csrc/grouped_gemm.cu`` (bf16, ``N % 8 == 0``,
 ``K % 8 == 0``; one launch of one persistent block per SM, which derive
 their work tiles from the offsets on the card, so nothing is read back and
 the call can be captured in a CUDA graph), counted in
-``grouped_gemm.launches``. A CPU tensor takes ``grouped_gemm_plain``,
+``_build.launches``. A CPU tensor takes ``grouped_gemm_plain``,
 the same contract as a loop over experts with the offsets read on the
 host. Nothing falls back from one to the other. The kernel replaces no TPU
 kernel; its source says why it was added and what bounds it.
@@ -81,8 +81,4 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), offsets.data_ptr(), out.data_ptr(),
         w.shape[0], x.shape[0], w.shape[1], w.shape[2],
         torch.cuda.current_stream(x.device).cuda_stream), "grouped_gemm")
-    grouped_gemm.launches += 1
     return out
-
-
-grouped_gemm.launches = 0

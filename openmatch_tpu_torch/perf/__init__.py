@@ -10,8 +10,8 @@
     python -m openmatch_tpu_torch.perf.rerank_bench bert|monot5 [BATCH] [SEQ_LEN] [--tiny]
     python -m openmatch_tpu_torch.perf.pipeline_e2e [--n-docs N] [--n-queries Q] [--depth D] [--tiny]
 
-(and ``ance_cycle``, ``mesh_parity``, ``sharded_merge``, ``serve_load``,
-``ablate``, ``parent_vs_change``, each described in its own module). Each
+(and ``ance_cycle``, ``mesh_parity``, ``sharded_merge`` and
+``serve_load``, each described in its own module). Each
 runs one phase, mode or configuration, prints its line, and returns its
 numbers from ``main(argv)``. They run on the card unless ``--device cpu``
 is given, and raise without one. This module holds what they share: the
@@ -142,23 +142,6 @@ def spin_ms() -> tuple:
     b.record()
     b.synchronize()
     return _spin_cycles, a.elapsed_time(b)
-
-
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by the name of the kernel's row
-    in ``chip_smoke.py``'s table."""
-    from ..ops import cuda_mips as cm
-
-    return {"plain_gmax": cm.fused_plain_gmax.launches,
-            "plain_gmax_segs": cm.fused_plain_gmax_segs.launches,
-            "gather_rescore": cm.gather_rescore.launches,
-            "gather_rescore_seg": cm.gather_rescore.seg_launches,
-            "gather_rescore_pipelined": cm.gather_rescore.pipelined_launches,
-            "block_gmax": cm.fused_block_gmax.launches,
-            "scores": cm.fused_scores.launches,
-            "score_gmax": cm.fused_score_gmax.launches,
-            "gmax_only": cm.fused_gmax_only.launches,
-            "gmax_phase": cm.fused_gmax_phase.launches}
 
 
 TIE_REL = 1e-4  # agree_above_band: score tolerance and tie band, x max|score|

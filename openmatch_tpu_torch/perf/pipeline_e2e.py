@@ -24,9 +24,10 @@ runs as ``python -m openmatch_tpu_torch.perf.pipeline_e2e --stage NAME
 ...``, a fresh process that calls ``drivers.<stage>.main(argv,
 tokenizer=TermTokenizer())`` (``perf/serve_load.py``'s tokenizer of the
 script's 205-word vocabulary, so no stage needs ``transformers``);
-the retrieve stage prints the kernel launches of its search on a line of
-its own (``launches {...}``). Wall seconds per stage, MRR@10 and those
-launches are printed as one JSON line and returned.
+the retrieve stage prints the kernels its search launched, each with its
+count (``_build.launches``), on a line of its own (``launches {...}``).
+Wall seconds per stage, MRR@10 and those launches are printed as one JSON
+line and returned.
 """
 
 from __future__ import annotations
@@ -137,17 +138,15 @@ def make_checkpoint(workdir: str, tiny: bool) -> str:
 def run_stage_here(stage: str, argv: List[str]):
     """One stage in this process: ``drivers.<stage>.main`` on ``argv``."""
     from ..drivers import build_index, evaluate, retrieve
-    from . import launch_counts
+    from ..ops import _build
     from .serve_load import TermTokenizer
 
     if stage == "build_index":
         build_index.main(argv, tokenizer=TermTokenizer())
     elif stage == "retrieve":
-        before = launch_counts()
         retrieve.main(argv, tokenizer=TermTokenizer())
-        after = launch_counts()
-        print(STAGE_PREFIX + json.dumps(
-            {k: after[k] - before[k] for k in after}), flush=True)
+        # the stage's own process: the counter holds its launches alone
+        print(STAGE_PREFIX + json.dumps(_build.launches), flush=True)
     elif stage == "evaluate":
         evaluate.main(argv)
     else:

@@ -9,6 +9,7 @@ compared with the plain versions in the ``cuda``-marked tests, which skip
 without a card. The card's machine has no JAX: there they run alone with
 ``python -m pytest --noconftest tests/test_torch_mips_kernels.py -m cuda``."""
 
+import collections
 import ctypes
 import re
 
@@ -18,6 +19,8 @@ import torch
 
 from openmatch_tpu_torch.ops import _build
 from openmatch_tpu_torch.ops import cuda_mips as cm
+from openmatch_tpu_torch.ops.grouped_gemm import (grouped_gemm,
+                                                  grouped_gemm_plain)
 
 try:
     import jax.numpy as jnp
@@ -66,10 +69,8 @@ def test_plain_gmax_matches_jax(emit_l1, nb_valid, tile_lo, n_tiles):
                                emit_l1=emit_l1, nb_valid=nb_valid)
     blk_lo = tile_lo * TILE_G
     n_blk = None if n_tiles is None else n_tiles * TILE_G
-    before = cm.fused_plain_gmax.launches
     got = cm.fused_plain_gmax(q, plain, blk_lo=blk_lo, n_blk=n_blk,
                               emit_l1=emit_l1, nb_valid=nb_valid)
-    assert cm.fused_plain_gmax.launches == before  # CPU: no kernel launch
     if emit_l1:
         assert_match(got[0], want[0])
         assert_match(got[1], want[1])
@@ -280,6 +281,82 @@ def test_ptxas_usage_reads_each_matching_entry_function():
     assert _build.ptxas_usage("(cached)", "grouped_gemm_kernel") == {}
 
 
+def wrapper_and_plain(name: str):
+    """(the wrapper's call, its plain version's call) of the kernel counted
+    as ``name``, on CPU tensors at a tiny size."""
+    plain, _ = bf16_data(30, 256 * 8, 64)  # 256 blocks: two segments of 128
+    q, _ = bf16_data(31, 4, 64)
+    segs = (plain[:128 * 8], plain[128 * 8:])
+    bids = torch.from_numpy(np.random.RandomState(32).randint(
+        0, 256, size=(4, 5)).astype(np.int32))
+    cb = plain.view(256, 8 * 64)
+    x, _ = bf16_data(33, 9, 16)  # every row routed: none left unset
+    w, _ = bf16_data(34, 3, 24, 16)
+    offsets = torch.tensor([0, 4, 4, 9], dtype=torch.int32)
+    return {
+        "plain_gmax": (lambda: cm.fused_plain_gmax(q, plain, emit_l1=8),
+                       lambda: cm.plain_gmax_reference(q, plain, emit_l1=8)),
+        "plain_gmax_segs": (
+            lambda: cm.fused_plain_gmax_segs(q, segs, emit_l1=8),
+            lambda: cm.plain_gmax_segs_reference(q, segs, emit_l1=8)),
+        "gather_rescore": (
+            lambda: cm.gather_rescore(q, plain, bids),
+            lambda: cm.gather_rescore_reference(q, plain, bids)),
+        "gather_rescore_seg": (
+            lambda: cm.gather_rescore(q, segs, bids),
+            lambda: cm.gather_rescore_reference(q, segs, bids)),
+        "gather_rescore_pipelined": (
+            lambda: cm.gather_rescore(q, plain, bids, pipeline=True),
+            lambda: cm.gather_rescore_reference(q, plain, bids)),
+        "block_gmax": (lambda: cm.fused_block_gmax(q, cb),
+                       lambda: cm.block_gmax_reference(q, cb)),
+        "scores": (lambda: cm.fused_scores(q, plain),
+                   lambda: cm.scores_reference(q, plain)),
+        "score_gmax": (lambda: cm.fused_score_gmax(q, plain, tile=1024),
+                       lambda: cm.score_gmax_reference(q, plain, tile=1024)),
+        "gmax_only": (lambda: cm.fused_gmax_only(q, plain, tile=1024),
+                      lambda: cm.gmax_only_reference(q, plain, tile=1024)),
+        "gmax_phase": (
+            lambda: cm.fused_gmax_phase(q, plain, "a3base"),
+            lambda: cm.gmax_phase_reference(q, plain, "a3base")),
+        "grouped_gemm": (lambda: grouped_gemm(x, w, offsets),
+                         lambda: grouped_gemm_plain(x, w, offsets)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", [
+    "plain_gmax", "plain_gmax_segs", "gather_rescore", "gather_rescore_seg",
+    "gather_rescore_pipelined", "block_gmax", "scores", "score_gmax",
+    "gmax_only", "gmax_phase", "grouped_gemm"])
+def test_cpu_wrapper_takes_its_plain_version_and_counts_no_launch(name):
+    """Each wrapper counted in ``_build.launches`` runs its plain version
+    on CPU tensors, and no launch is counted."""
+    call, plain_call = wrapper_and_plain(name)
+    before = _build.launches.copy()
+    got, want = call(), plain_call()
+    assert _build.launches == before
+    for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                      for o in (got, want))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rc,counted", [
+    (0, 1), (700, 0), (_build.ENCODE_FAILED + 1, 0)])
+def test_check_counts_a_launch_only_when_it_succeeds(monkeypatch, rc,
+                                                     counted):
+    """``check`` counts a launch that returned 0 under the kernel's name;
+    a CUDA error or a failed tensor-map encode raises naming the kernel and
+    counts nothing."""
+    monkeypatch.setattr(_build, "launches", collections.Counter())
+    if counted:
+        _build.check(rc, "scores")
+    else:
+        with pytest.raises(RuntimeError,
+                           match=f"^scores: .* {rc % _build.ENCODE_FAILED}$"):
+            _build.check(rc, "scores")
+    assert _build.launches == ({"scores": counted} if counted else {})
+
+
 # ---- on the card ----------------------------------------------------------
 
 
@@ -314,12 +391,12 @@ def test_cuda_plain_gmax_matches_plain(cuda_device, emit_l1, nb_valid):
     plain = torch.randn(8 * 4099, 768, generator=g, device=cuda_device
                         ).to(torch.bfloat16)
     q = torch.randn(70, 768, generator=g, device=cuda_device).to(torch.bfloat16)
-    before = cm.fused_plain_gmax.launches
+    before = _build.launches["plain_gmax"]
     got = cm.fused_plain_gmax(q, plain, blk_lo=3, emit_l1=emit_l1,
                               nb_valid=nb_valid)
     want = cm.plain_gmax_reference(q, plain, blk_lo=3, emit_l1=emit_l1,
                                    nb_valid=nb_valid)
-    assert cm.fused_plain_gmax.launches == before + 1
+    assert _build.launches["plain_gmax"] == before + 1
     for a, b in zip(got if emit_l1 else (got,), want if emit_l1 else (want,)):
         assert_kernel_close(a, b)
 
@@ -333,14 +410,14 @@ def test_cuda_plain_gmax_segs_matches_plain(cuda_device, emit_l1):
                  for i, nb in enumerate((256, 512, 301)))
     q = card_data(cuda_device, 13, 70, 768)
     nb_valid = 256 + 512 + 301 - 29
-    before = cm.fused_plain_gmax_segs.launches
+    before = _build.launches["plain_gmax_segs"]
     got = cm.fused_plain_gmax_segs(q, segs, emit_l1=emit_l1,
                                    nb_valid=nb_valid)
     want = cm.plain_gmax_segs_reference(q, segs, emit_l1=emit_l1,
                                         nb_valid=nb_valid)
     one = cm.fused_plain_gmax(q, torch.cat(segs), emit_l1=emit_l1,
                               nb_valid=nb_valid)
-    assert cm.fused_plain_gmax_segs.launches == before + 1
+    assert _build.launches["plain_gmax_segs"] == before + 1
     for a, b, c in zip(*((x,) if not emit_l1 else x
                          for x in (got, want, one))):
         assert_kernel_close(a, b)
@@ -363,13 +440,13 @@ def test_cuda_gather_rescore_segments_and_pipeline(cuda_device, pipeline):
     bids[:, :6] = torch.tensor([0, 299, 300, 816, 817, 916],
                                dtype=torch.int32, device=cuda_device)
     if pipeline:
-        before = cm.gather_rescore.pipelined_launches
+        before = _build.launches["gather_rescore_pipelined"]
         got = cm.gather_rescore(q, full, bids, pipeline=True)
-        assert cm.gather_rescore.pipelined_launches == before + 1
+        assert _build.launches["gather_rescore_pipelined"] == before + 1
     else:
-        before = cm.gather_rescore.seg_launches
+        before = _build.launches["gather_rescore_seg"]
         got = cm.gather_rescore(q, segs, bids)
-        assert cm.gather_rescore.seg_launches == before + 1
+        assert _build.launches["gather_rescore_seg"] == before + 1
         assert torch.equal(got, cm.gather_rescore(q, full, bids))
     assert_kernel_close(got, cm.gather_rescore_reference(q, segs, bids))
 
@@ -405,11 +482,11 @@ def test_cuda_gather_rescore_selections(cuda_device, selection, Q, D):
     segs = cm.prepare_plain_corpus(corpus, n_segs=3).plain
     q = card_data(cuda_device, 71, Q, D)
     bids = card_selection(cuda_device, selection, Q, k, NB)
-    before = (cm.gather_rescore.launches, cm.gather_rescore.seg_launches)
+    before = _build.launches.copy()
     got = cm.gather_rescore(q, corpus, bids)
     got5 = cm.gather_rescore(q, segs, bids)
-    assert (cm.gather_rescore.launches, cm.gather_rescore.seg_launches) \
-        == (before[0] + 1, before[1] + 1)
+    assert _build.launches - before == {"gather_rescore": 1,
+                                        "gather_rescore_seg": 1}
     assert_kernel_close(got, cm.gather_rescore_reference(q, corpus, bids))
     assert torch.equal(got5, got)
 
@@ -429,10 +506,10 @@ def test_cuda_gather_rescore_pipelined_selections(cuda_device, selection, Q,
     corpus = card_data(cuda_device, 70, 8 * NB, D)
     q = card_data(cuda_device, 71, Q, D)
     bids = card_selection(cuda_device, selection, Q, k, NB)
-    before = cm.gather_rescore.pipelined_launches
+    before = _build.launches["gather_rescore_pipelined"]
     got = cm.gather_rescore(q, corpus, bids, pipeline=True)
     again = cm.gather_rescore(q, corpus, bids, pipeline=True)
-    assert cm.gather_rescore.pipelined_launches == before + 2
+    assert _build.launches["gather_rescore_pipelined"] == before + 2
     assert_kernel_close(got, cm.gather_rescore_reference(q, corpus, bids))
     assert torch.equal(again, got)
 
@@ -460,9 +537,9 @@ def test_cuda_block_gmax_matches_plain(cuda_device, Q):
     body = card_data(cuda_device, 30, 8 * 4099, 768)
     prep = cm.prepare_block_corpus(body)
     q = card_data(cuda_device, 31, Q, 768)
-    before = cm.fused_block_gmax.launches
+    before = _build.launches["block_gmax"]
     got = cm.fused_block_gmax(q, prep.cb)
-    assert cm.fused_block_gmax.launches == before + 1
+    assert _build.launches["block_gmax"] == before + 1
     assert_kernel_close(got, cm.block_gmax_reference(q, prep.cb))
     assert torch.equal(got, cm.fused_plain_gmax(q, prep.plain))
 
@@ -474,9 +551,9 @@ def test_cuda_scores_matches_plain(cuda_device, N):
     stores."""
     c = card_data(cuda_device, 32, N, 768)
     q = card_data(cuda_device, 33, 70, 768)
-    before = cm.fused_scores.launches
+    before = _build.launches["scores"]
     got = cm.fused_scores(q, c)
-    assert cm.fused_scores.launches == before + 1
+    assert _build.launches["scores"] == before + 1
     assert_kernel_close(got, cm.scores_reference(q, c))
 
 
@@ -489,11 +566,10 @@ def test_cuda_score_gmax_and_gmax_only_match_plain(cuda_device, tile, N):
     and K10's maxima bit-equal to K9's."""
     c = card_data(cuda_device, 34, N, 768)
     q = card_data(cuda_device, 35, 70, 768)
-    b9, b10 = cm.fused_score_gmax.launches, cm.fused_gmax_only.launches
+    before = _build.launches.copy()
     s, g = cm.fused_score_gmax(q, c, tile=tile)
     g10 = cm.fused_gmax_only(q, c, tile=tile)
-    assert (cm.fused_score_gmax.launches, cm.fused_gmax_only.launches) \
-        == (b9 + 1, b10 + 1)
+    assert _build.launches - before == {"score_gmax": 1, "gmax_only": 1}
     rs, rg = cm.score_gmax_reference(q, c, tile=tile)
     assert_kernel_close(s, rs)
     assert_kernel_close(g, rg)

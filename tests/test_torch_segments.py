@@ -52,10 +52,8 @@ def test_plain_gmax_segs_matches_jax(tile_q):
     q, q_j = bf16_data(24, Q, D)
     want = pm.fused_plain_gmax_segs(q_j, jax_segments(segs), TILE_G, tile_q,
                                     emit_l1=8, nb_valid=nb_valid)
-    before = cm.fused_plain_gmax_segs.launches
     got = cm.fused_plain_gmax_segs(q, tuple(segs), emit_l1=8,
                                    nb_valid=nb_valid)
-    assert cm.fused_plain_gmax_segs.launches == before  # CPU: no launch
     assert_match(got[0], want[0])
     assert_match(got[1], want[1])
     # without level 1: the single-buffer JAX kernel over the concatenation,
