@@ -5420,8 +5420,10 @@ def phase_moe(dev) -> tuple:
         for _ in range(3):
             ids = torch.randint(0, cfg.vocab_size, (MOE_ROWS, MOE_LEN),
                                 generator=gd, device=dev)
-            lens = torch.randint(32, MOE_LEN + 1, (MOE_ROWS, 1),
-                                 generator=gd, device=dev)
+            # about MOE_REAL real tokens a batch, as the cell's, so each
+            # batch fits the packed stream and replays the graph
+            lens = torch.randint(32, 2 * MOE_REAL // MOE_ROWS - 31,
+                                 (MOE_ROWS, 1), generator=gd, device=dev)
             mask = (torch.arange(MOE_LEN, device=dev) < lens).long()
             got = model.encode(ids, mask)
             want = model.encode_eager(ids, mask)

@@ -30,12 +30,26 @@ checkpoint. The equations are DeepSeek-V3's modeling code, which
   and summed in fp32 by one batched product (no atomics, so replays
   repeat bit for bit).
 
-One departure from the published code: pad positions are not routed.
-Their top-k ids go to a sentinel (E) that sorts last and that no expert
-processes, and their routed output is zero. Under the causal mask with
-right padding no real position reads a pad position, so the reps do not
-change; without it a batch padded to 512 would send most of its slots to
-the few experts the pad id prefers.
+One departure from the published code: pad positions are not computed.
+The forward gathers the batch's real tokens from the right-padded [B, S]
+input into a packed stream of ``packed_slots(B, S)`` slots (the tokens of
+half the rows, rounded up, at full length), and runs every token-wise
+operation on it: the embedding, the norms, the projections, RoPE (each
+token's angles gathered by its column), the residuals, the MLPs, the
+router, the sort and the gathers. Only the attention core sees the padded
+layout: q, k and v are gathered back to [B, S] for it, and its output
+packed again. The packing is made on the device from the mask (a cumsum
+and a scatter, no host read), so the forward replays as a CUDA graph.
+Each of its operations has one shape per input shape and treats each
+token alone, so a passage encodes to the same bits whichever batch it
+lands in. Slots past the last real token hold no token: their top-k ids
+go to a sentinel (E) that sorts last and that no expert processes, and
+their routed output is zero. A batch whose real tokens overflow the
+stream runs eagerly in two halves of its rows, each of which fits (the
+forward reads the count from the card; a capture does not read it, and
+``DRModel.encode`` sends such a batch to the eager path). Under the
+causal mask with right padding no real position reads a pad position, so
+the reps do not change; the final state at a pad position is zero.
 
 The weights are held in the model's ``dtype`` (bf16, as the published
 checkpoint stores them), with no fp32 master and no cast per call; the
@@ -57,7 +71,7 @@ import os
 import re
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -149,6 +163,52 @@ def rope_tables(cfg: DeepseekV3Config, seq: int, device) -> tuple:
     return angles.cos(), angles.sin()
 
 
+def packed_slots(batch: int, seq: int) -> int:
+    """The packed stream's slots for an input [batch, seq]: the tokens of
+    half the rows (rounded up) at full length, so either half of the rows
+    fits whatever its lengths."""
+    return -(-batch // 2) * seq
+
+
+class Packing(NamedTuple):
+    """Where a batch's real tokens sit in a packed stream of ``n`` slots,
+    in row-major order: ``source`` [n] each slot's position in the
+    flattened [B x S] input (the first position for a slot past the last
+    real token), ``real`` [n] whether the slot holds a real token, and
+    ``slot`` [B, S] each position's slot (``n`` at a pad position)."""
+
+    source: torch.Tensor
+    real: torch.Tensor
+    slot: torch.Tensor
+
+    @classmethod
+    def of(cls, real: torch.Tensor, n: int) -> "Packing":
+        """The packing of the right-padded mask ``real`` [B, S] bool into
+        ``n`` slots, made on the device with fixed shapes. A token past the
+        ``n``-th has no slot (the caller keeps the count within ``n``)."""
+        flat = real.reshape(-1)
+        slot = (torch.cumsum(flat, 0) - 1).masked_fill_(~flat, n) \
+            .clamp_max_(n)
+        source = torch.zeros(n + 1, dtype=torch.int64,
+                             device=real.device).scatter_(
+            0, slot, torch.arange(flat.numel(), device=real.device))[:n]
+        used = torch.arange(n, device=real.device) < flat.sum()
+        return cls(source, used, slot.view(real.shape))
+
+    def padded(self, t: torch.Tensor) -> torch.Tensor:
+        """Packed ``t`` [n, ...] at the padded layout [B, S, ...]; a pad
+        position holds some slot's finite values, which the attention
+        core's masks make exactly no weight."""
+        n = self.real.numel()
+        return t.index_select(0, self.slot.reshape(-1).clamp_max(n - 1)) \
+            .view(*self.slot.shape, *t.shape[1:])
+
+    def packed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [B, S, ...] (any strides) at the packed layout [n, ...]."""
+        S = self.slot.shape[1]
+        return t[self.source // S, self.source % S]
+
+
 def attention_bias(real: torch.Tensor) -> torch.Tensor:
     """[B, 1, S, S] fp32: 0 where query i may read key j (j <= i, j a real
     position), float32's lowest value elsewhere; ``real`` [B, S] bool."""
@@ -162,8 +222,9 @@ def attention_bias(real: torch.Tensor) -> torch.Tensor:
 
 def rotary(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
-    """x [B, S, n, r] with its pairs (2i, 2i + 1) rotated by the angles of
-    their positions, in fp32, returned in x's dtype."""
+    """x [..., S, n, r] with its pairs (2i, 2i + 1) rotated by the angles
+    [S, r / 2] of their positions, in fp32, returned in x's dtype (the
+    encoder passes a packed stream [T, n, r] and each token's angles)."""
     pairs = x.float().unflatten(-1, (-1, 2))
     a, b = pairs[..., 0], pairs[..., 1]
     c, s = cos[:, None, :], sin[:, None, :]
@@ -188,27 +249,29 @@ class MLAttention(nn.Module):
         self.o_proj = Linear(H * cfg.v_head_dim, d, dtype)
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor, pack: Packing) -> torch.Tensor:
+        """h [T, d] packed, ``cos`` and ``sin`` [T, rope / 2] each token's;
+        the core runs on the padded layout ``pack`` gives."""
         cfg = self.cfg
-        B, S, _ = h.shape
+        T = h.shape[0]
         H, nope, rope = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
                          cfg.qk_rope_head_dim)
-        q_nope, q_rope = self.q_proj(h).view(B, S, H, nope + rope).split(
+        q_nope, q_rope = self.q_proj(h).view(T, H, nope + rope).split(
             [nope, rope], -1)
         latent, k_rope = self.kv_a_proj_with_mqa(h).split(
             [cfg.kv_lora_rank, rope], -1)
         k_nope, v = self.kv_b_proj(self.kv_a_layernorm(latent)).view(
-            B, S, H, nope + cfg.v_head_dim).split([nope, cfg.v_head_dim], -1)
+            T, H, nope + cfg.v_head_dim).split([nope, cfg.v_head_dim], -1)
         q_rope = rotary(q_rope, cos, sin)
-        k_rope = rotary(k_rope[:, :, None, :], cos, sin)
-        q = torch.cat((q_nope, q_rope), -1).transpose(1, 2)  # [B, H, S, qk]
-        k = torch.cat((k_nope, k_rope.expand(B, S, H, rope)),
-                      -1).transpose(1, 2)
+        k_rope = rotary(k_rope[:, None, :], cos, sin)
+        q = pack.padded(torch.cat((q_nope, q_rope), -1)).transpose(1, 2)
+        k = pack.padded(torch.cat((k_nope, k_rope.expand(T, H, rope)),
+                                  -1)).transpose(1, 2)  # [B, H, S, qk]
         scores = torch.matmul(q, k.transpose(-1, -2)).float()
         scores.mul_(self.scale).add_(bias)
         probs = torch.softmax(scores, dim=-1).to(h.dtype)
-        ctx = torch.matmul(probs, v.transpose(1, 2))  # [B, H, S, v]
-        return self.o_proj(ctx.transpose(1, 2).reshape(B, S, -1))
+        ctx = torch.matmul(probs, pack.padded(v).transpose(1, 2))
+        return self.o_proj(pack.packed(ctx.transpose(1, 2)).reshape(T, -1))
 
 
 class MLP(nn.Module):
@@ -272,18 +335,18 @@ class MoE(nn.Module):
             dtype)
         self.routes: Optional[list] = None  # see recording_routes
 
-    def forward(self, h: torch.Tensor, real: torch.Tensor,
+    def forward(self, x: torch.Tensor, pack: Packing,
                 slots: torch.Tensor) -> torch.Tensor:
-        """h [B, S, d], real [B, S] bool; ``slots`` [E] int64 gains the
-        real-token slots routed to each expert."""
+        """x [T, d] packed; ``slots`` [E] int64 gains the real-token slots
+        routed to each expert."""
         cfg = self.cfg
         E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
-        x = h.reshape(-1, h.shape[-1])
-        real = real.reshape(-1)
+        real = pack.real
         with span("moe.route"):
             ids, weights = self.gate(x, real)
-            if self.routes is not None:
-                self.routes.append(ids)
+            if self.routes is not None:  # [B x S, k], pads the sentinel
+                self.routes.append(torch.cat((ids, ids.new_full(
+                    (1, k), E))).index_select(0, pack.slot.reshape(-1)))
             flat = ids.reshape(-1)
             order = torch.sort(flat, stable=True).indices
             counts = torch.zeros(E + 1, dtype=torch.int64,
@@ -302,8 +365,8 @@ class MoE(nn.Module):
                 0, order, torch.arange(order.numel(), device=x.device))
             out = out.index_select(0, inverse).view(x.shape[0], k, -1)
             routed = torch.bmm(weights[:, None, :], out.float()).squeeze(1)
-            routed = routed.masked_fill(~real[:, None], 0.0).to(h.dtype)
-        return routed.view(h.shape) + self.shared_experts(h)
+            routed = routed.masked_fill(~real[:, None], 0.0).to(x.dtype)
+        return routed + self.shared_experts(x)
 
 
 class DecoderLayer(nn.Module):
@@ -318,17 +381,19 @@ class DecoderLayer(nn.Module):
         self.mlp = (MLP(cfg.hidden_size, cfg.intermediate_size, dtype)
                     if dense else MoE(cfg, dtype))
 
-    def forward(self, h, bias, cos, sin, real, slots):
+    def forward(self, h, bias, cos, sin, pack, slots):
         with span("mla.attention"):
-            h = h + self.self_attn(self.input_layernorm(h), bias, cos, sin)
+            h = h + self.self_attn(self.input_layernorm(h), bias, cos, sin,
+                                   pack)
         x = self.post_attention_layernorm(h)
         return h + (self.mlp(x) if slots is None
-                    else self.mlp(x, real, slots))
+                    else self.mlp(x, pack, slots))
 
 
 class DeepseekV3Encoder(nn.Module):
-    """Returns {"last_hidden_state": [B, S, d]}, the final norm's output,
-    computed in ``dtype`` (in which the weights are held)."""
+    """Returns {"last_hidden_state": [B, S, d]}, the final norm's output
+    (zero at pad positions), computed in ``dtype`` (in which the weights
+    are held) on the packed stream of the batch's real tokens."""
 
     def __init__(self, config: DeepseekV3Config,
                  dtype: torch.dtype = torch.float32):
@@ -344,6 +409,9 @@ class DeepseekV3Encoder(nn.Module):
         self.register_buffer("expert_slots", torch.zeros(
             cfg.n_moe_layers, cfg.n_routed_experts, dtype=torch.int64),
             persistent=False)
+        self._routes: Optional[list] = None  # see recording_routes
+
+    packed_slots = staticmethod(packed_slots)
 
     def reset_expert_slots(self):
         """Zero the counter in place (a CUDA graph keeps its address)."""
@@ -360,26 +428,57 @@ class DeepseekV3Encoder(nn.Module):
                 if isinstance(layer.mlp, MoE)]
         for moe in moes:
             moe.routes = log
+        self._routes = log
         try:
             yield log
         finally:
             for moe in moes:
                 moe.routes = None
+            self._routes = None
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> dict:
         """Right-padded ids and mask [B, S]; the model has no dropout."""
         real = attention_mask.bool()
+        n = packed_slots(*real.shape)
+        capturing = real.is_cuda and torch.cuda.is_current_stream_capturing()
+        if not capturing and int(real.count_nonzero()) > n:
+            return {"last_hidden_state": self._in_halves(input_ids, real, n)}
+        return {"last_hidden_state": self._packed(input_ids, real, n)}
+
+    def _packed(self, input_ids: torch.Tensor, real: torch.Tensor,
+                n: int) -> torch.Tensor:
+        """The final state [B, S, d] of the batch, its real tokens packed
+        into ``n`` slots (at least its count)."""
+        pack = Packing.of(real, n)
         bias = attention_bias(real)
-        cos, sin = rope_tables(self.config, input_ids.shape[1],
-                               input_ids.device)
-        h = self.embed_tokens(input_ids)
+        cos, sin = rope_tables(self.config, real.shape[1], real.device)
+        column = pack.source % real.shape[1]
+        cos, sin = cos.index_select(0, column), sin.index_select(0, column)
+        h = self.embed_tokens(input_ids.reshape(-1).index_select(
+            0, pack.source))
         first_moe = self.config.first_k_dense_replace
         for i, layer in enumerate(self.layers):
             slots = None if i < first_moe else self.expert_slots[i - first_moe]
-            h = layer(h, bias, cos, sin, real, slots)
-        return {"last_hidden_state": self.norm(h)}
+            h = layer(h, bias, cos, sin, pack, slots)
+        return pack.padded(self.norm(h)).masked_fill_(~real[..., None], 0)
+
+    def _in_halves(self, input_ids: torch.Tensor, real: torch.Tensor,
+                   n: int) -> torch.Tensor:
+        """``_packed`` over each half of the rows into the same ``n``
+        slots, which each half fits; a recorded layer's ids [B x S, k] are
+        the halves' joined."""
+        log, mark = self._routes, len(self._routes or ())
+        half = -(-real.shape[0] // 2)
+        out = torch.cat([self._packed(input_ids[rows], real[rows], n)
+                         for rows in (slice(None, half), slice(half, None))])
+        if log is not None:
+            halves = log[mark:]
+            layers = len(halves) // 2
+            log[mark:] = [torch.cat(pair) for pair in
+                          zip(halves[:layers], halves[layers:])]
+        return out
 
 
 # ---- HuggingFace names -> the encoder's --------------------------------------

@@ -14,7 +14,10 @@ does not train.
 On a card, an inference call (no autograd, eval mode, no dropout
 generator, no tensor parallelism) replays the whole encode as a CUDA graph
 captured once per input shape (``models/graphs``); ``graph_stats`` counts
-captures, replays and eager calls.
+captures, replays and eager calls. An encoder that packs its real tokens
+(``deepseek_v3``: ``packed_slots``) also has its calls' real tokens,
+packed slots and overflowing batches counted there; such a batch runs
+eagerly, in two halves of its rows.
 
 ``DRModel.load`` and ``DRModel.save`` read and write the JAX package's
 checkpoint directory (``openmatch_config.json`` plus flax-msgpack
@@ -143,12 +146,18 @@ class DRModel(nn.Module):
         self.head_p = (LinearHead(head_in_dim, head_out_dim)
                        if has_head and not tied else None)
         self._graphs = EncodeGraphs()
+        self._packing = ({"packed_tokens": 0, "packed_slots": 0,
+                          "packed_overflow": 0}
+                         if hasattr(self.encoder_q, "packed_slots") else {})
 
     @property
     def graph_stats(self) -> Dict[str, int]:
         """Calls of ``encode`` so far: graph ``captures`` and ``replays``,
-        and the calls that ran ``eager``."""
-        return self._graphs.stats
+        and the calls that ran ``eager``; for an encoder that packs, the
+        real tokens (``packed_tokens``), the slots they were packed into
+        (``packed_slots``, twice a batch's for one run in halves) and the
+        batches that overflowed (``packed_overflow``)."""
+        return {**self._graphs.stats, **self._packing}
 
     @property
     def out_dim(self) -> int:
@@ -170,8 +179,10 @@ class DRModel(nn.Module):
         """Token ids [B, S] -> representations [B, D] in ``dtype``.
         ``generator`` turns dropout on in training mode (``bert.dropout``).
         Where ``graphs.engages``, a replay of the graph captured for the
-        call's shape (``models/graphs``), else ``encode_eager``."""
-        if engages(self, input_ids, generator):
+        call's shape (``models/graphs``), else ``encode_eager``; a batch
+        that overflows its encoder's packed stream runs eagerly."""
+        overflow = self._count_packed(is_query, attention_mask)
+        if not overflow and engages(self, input_ids, generator):
             reps = self._graphs.encode(self, is_query or self.tied,
                                        input_ids, attention_mask)
             if reps is not None:
@@ -179,6 +190,21 @@ class DRModel(nn.Module):
         self._graphs.stats["eager"] += 1
         return self.encode_eager(input_ids, attention_mask, is_query,
                                  generator)
+
+    def _count_packed(self, is_query: bool,
+                      attention_mask: torch.Tensor) -> bool:
+        """For a tower that packs: count the batch in ``graph_stats`` (a
+        read from the card); True when it overflows the packed stream."""
+        if not self._packing:
+            return False
+        encoder = self.encoder_q if is_query or self.tied else self.encoder_p
+        tokens = int(attention_mask.count_nonzero())
+        slots = encoder.packed_slots(*attention_mask.shape)
+        over = tokens > slots
+        self._packing["packed_tokens"] += tokens
+        self._packing["packed_slots"] += 2 * slots if over else slots
+        self._packing["packed_overflow"] += over
+        return over
 
     def encode_eager(self, input_ids: torch.Tensor,
                      attention_mask: torch.Tensor, is_query: bool = False,

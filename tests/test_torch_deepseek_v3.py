@@ -202,10 +202,11 @@ def test_pads_are_not_routed_and_the_counter_is_exact():
     with torch.no_grad():
         model.encode_passage(ids, mask)
         model.encode_passage(ids, mask)
-    real = mask.bool().reshape(-1)
+    n = int(mask.sum())  # the router sees the packed stream: n real slots
     for j, routed in enumerate(seen[:2]):
-        assert (routed[~real] == CFG.n_routed_experts).all()
-        want = torch.bincount(routed[real].reshape(-1),
+        assert routed.shape[0] == ds.packed_slots(*mask.shape)
+        assert (routed[n:] == CFG.n_routed_experts).all()
+        want = torch.bincount(routed[:n].reshape(-1),
                               minlength=CFG.n_routed_experts)
         assert torch.equal(enc.expert_slots[j], 2 * want)
     assert int(enc.expert_slots.sum()) == 2 * 2 * 2 * int(mask.sum())
@@ -227,10 +228,12 @@ def test_recorded_routes_are_the_routers_and_the_reference_takes_them():
             lambda mod, inp, out: seen.append(out[0]))
     with torch.no_grad(), enc.recording_routes() as log:
         model.encode_eager(ids, mask)
-    assert len(log) == 2 and all(torch.equal(a, b)
-                                 for a, b in zip(log, seen))
-    assert all(layer.mlp.routes is None for layer in enc.layers[1:])
     real = mask.bool().reshape(-1)
+    n = int(real.sum())  # the router sees the packed stream, real slots first
+    assert len(log) == 2 and all(
+        a.shape == (real.numel(), 2) and torch.equal(a[real], b[:n])
+        for a, b in zip(log, seen))
+    assert all(layer.mlp.routes is None for layer in enc.layers[1:])
     assert (log[0][~real] == CFG.n_routed_experts).all()
     with torch.no_grad(), exact_fp32():
         along = ref.Routes([t[real] for t in log])
@@ -256,9 +259,101 @@ def test_pad_positions_do_not_move_the_reps():
                                    model.encode_passage(ids, mask), **TOL)
 
 
+# ---- the packed stream ---------------------------------------------------
+
+
+def padded_states(enc, ids, mask, routes=None):
+    """The encoder's layers over every position of the padded batch, each
+    position a slot of its own (pads computed, not routed): the math
+    before packing. Returns the final states [B, S, d]; each MoE layer's
+    ids [B x S, k] go to ``routes`` if given."""
+    real = mask.bool()
+    B, S = real.shape
+    every = torch.arange(B * S)
+    pack = ds.Packing(every, real.reshape(-1), every.view(B, S))
+    cos, sin = ds.rope_tables(enc.config, S, "cpu")
+    bias = ds.attention_bias(real)
+    slots = torch.zeros_like(enc.expert_slots)
+    h = enc.embed_tokens(ids.reshape(-1))
+    dense = enc.config.first_k_dense_replace
+    for i, layer in enumerate(enc.layers):
+        if i >= dense:
+            layer.mlp.routes = routes
+        h = layer(h, bias, cos[every % S], sin[every % S], pack,
+                  None if i < dense else slots[i - dense])
+        if i >= dense:
+            layer.mlp.routes = None
+    return enc.norm(h).view(B, S, -1)
+
+
+# name -> (lengths, width); the packed stream holds ceil(B / 2) x width
+PACKED_CASES = {
+    "mixed_lengths": ([5, 9, 2, 3], 10),
+    "a_row_of_one_token": ([1, 6, 4], 8),
+    "a_full_row": ([8, 2, 3], 8),
+    "all_pad_filler_rows": ([6, 0, 5, 0], 8),  # as pad_to_full fills
+    "over_the_stream": ([8, 7, 8, 6], 8),  # 29 > 16: two halves
+    "over_the_stream_odd_rows": ([8, 8, 8], 8),  # halves of 2 and 1 rows
+}
+
+
+@pytest.mark.parametrize("case", list(PACKED_CASES))
+def test_packed_forward_matches_the_padded_math(case):
+    lens, width = PACKED_CASES[case]
+    ids, mask = batch(lens, width=width, seed=len(lens) + width)
+    model = program(weights(5))
+    enc = model.encoder_q
+    real = mask.bool()
+    n, slots = int(real.sum()), ds.packed_slots(*mask.shape)
+    assert (n > slots) == case.startswith("over")
+    with torch.no_grad():
+        want_log = []
+        want = padded_states(enc, ids, mask, want_log)
+        reps = model.encode_passage(ids, mask)
+        enc.reset_expert_slots()
+        with enc.recording_routes() as log:
+            got = enc(ids, mask)["last_hidden_state"]
+    torch.testing.assert_close(got[real], want[real], **TOL)
+    assert (got[~real] == 0).all()
+    want_reps = F.normalize(pooling.pool_hidden(want, mask, "last"), dim=-1)
+    rows = real.any(1)  # a filler row's rep is read by no one
+    torch.testing.assert_close(reps[rows], want_reps[rows], **TOL)
+    # one [B x S, k] a MoE layer, the sentinel at every pad
+    flat = real.reshape(-1)
+    assert len(log) == len(want_log) == CFG.n_moe_layers
+    for a, b in zip(log, want_log):
+        assert a.shape == (len(lens) * width, CFG.num_experts_per_tok)
+        assert (a[~flat] == CFG.n_routed_experts).all()
+        assert torch.equal(a[flat], b[flat])
+    # the counter: real tokens only, once each a layer
+    for j, a in enumerate(log):
+        assert torch.equal(enc.expert_slots[j], torch.bincount(
+            a[flat].reshape(-1), minlength=CFG.n_routed_experts))
+
+
+def test_the_packing_counters_add_up():
+    model = program(weights())
+    fits, over = batch([6, 0, 5, 2], width=8), batch([8, 7, 8, 6], width=8)
+    with torch.no_grad():
+        for ids, mask in (fits, over, fits):
+            model.encode_passage(ids, mask)
+    slots = ds.packed_slots(4, 8)
+    assert model.graph_stats == {
+        "captures": 0, "replays": 0, "eager": 3,
+        "packed_tokens": 13 + 29 + 13, "packed_slots": slots + 2 * slots
+        + slots, "packed_overflow": 1}
+    enc = model.encoder_q
+    assert int(enc.expert_slots.sum()) == (
+        CFG.n_moe_layers * CFG.num_experts_per_tok * (13 + 29 + 13))
+    bert = DRModel(BertConfig(vocab_size=32, hidden_size=8,
+                              num_hidden_layers=1, num_attention_heads=2,
+                              intermediate_size=16))
+    assert "packed_tokens" not in bert.graph_stats  # packs nothing
+
+
 def test_spans_fire_on_eager_calls():
     model = program(weights())
-    ids, mask = batch([4, 6])
+    ids, mask = batch([4, 6, 1])  # fits the packed stream: one pass
     profiling.clear()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]), torch.no_grad():
@@ -467,4 +562,95 @@ def test_cuda_graph_equals_eager(cuda_device):
             got = model.encode(ids, mask)
             want = model.encode_eager(ids, mask)
             assert torch.equal(got, want), (got - want).abs().max()
-    assert model.graph_stats == {"captures": 1, "replays": 3, "eager": 0}
+    assert model.graph_stats == {"captures": 1, "replays": 3, "eager": 0,
+                                 "packed_tokens": 3 * 25,
+                                 "packed_slots": 3 * 32,
+                                 "packed_overflow": 0}
+
+
+def moonlight_widths(device, layers=3):
+    """Moonlight-16B-A3B's published widths with ``layers`` layers (one
+    dense, the rest MoE), its seeded weights in bf16 on ``device``."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "benchmark",
+                        "configs", "moonlight-16b-a3b.json")
+    with open(path) as f:
+        hf = dict(json.load(f), num_hidden_layers=layers)
+    cfg = ds.deepseek_v3_config_from_hf(hf)
+    with torch.device(device):
+        model = DRModel(cfg, backbone_type="deepseek_v3", pooling="last",
+                        normalize=True, dtype=torch.bfloat16)
+    dest = model.encoder_q.state_dict()
+    drawn = Drawn(hf, 7, device, torch.bfloat16)
+    for name in drawn:
+        ds.load_hf_tensor(dest, name, drawn[name])
+    return model.eval()
+
+
+# size -> (rows, width, the passage's length): the tiny model, and
+# Moonlight's widths at the encode cell's batch
+BIT_EQUAL_SIZES = {"tiny": (8, 24, 17), "moonlight_widths": (64, 512, 300)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", list(BIT_EQUAL_SIZES))
+def test_cuda_a_passage_is_bit_equal_in_any_batch(cuda_device, size):
+    """One passage's rep and expert choices are the same bits in a batch
+    of short neighbours, of long ones that nearly fill the packed stream,
+    in batches that overflow it (the passage in either half), alone among
+    filler rows, by a graph replay or eagerly, and recorded eagerly as
+    the benchmark's check records them.
+
+    The overflow design kept: a batch over ``packed_slots`` runs eagerly
+    in two halves of its rows, each packed into the same slots, so every
+    token-wise product keeps the one shape of the batches that fit, and
+    each attention core runs over half the rows: the device does the
+    padded encode's work, with no second graph. The alternative, a
+    second packed size of B x S, would put every token-wise product at
+    another M, where cuBLAS may pick another kernel; on an H100 the bf16
+    products of Moonlight's widths gave a row the same bits at M = 16,384
+    and 32,768 (PERF.md, section 6), but that holds by cuBLAS's choice, and
+    the second size would take a second graph of ``MAX_GRAPHS``. This
+    test holds the halves' attention core, over half the batch, to the
+    same bits."""
+    B, S, L = BIT_EQUAL_SIZES[size]
+    if size == "tiny":
+        model = program({k: v.to(cuda_device) for k, v in weights().items()},
+                        dtype=torch.bfloat16, device=cuda_device)
+    else:
+        model = moonlight_widths(cuda_device)
+    cfg = model.encoder_config
+    g = np.random.default_rng(11)
+    passage = g.integers(1, cfg.vocab_size, L)
+    slots = ds.packed_slots(B, S)
+    fill = (slots - L) // (B - 1)
+    # name -> (the passage's row, the other rows' lengths)
+    layouts = {
+        "short_neighbours": (1, g.integers(S // 16, S // 8, B - 1)),
+        "long_neighbours": (B // 2 + 1, np.full(B - 1, fill)),
+        "overflow_second_half": (B - 2, np.full(B - 1, S * 3 // 4)),
+        "overflow_first_half": (0, np.full(B - 1, S * 3 // 4)),
+        "alone_among_fillers": (0, np.zeros(B - 1, np.int64)),
+    }
+    seen = {}
+    with torch.inference_mode():
+        for name, (row, others) in layouts.items():
+            lens = list(others[:row]) + [L] + list(others[row:])
+            ids, mask = batch(lens, width=S, seed=row, vocab=cfg.vocab_size)
+            ids[row, :L] = torch.from_numpy(passage)
+            ids, mask = ids.to(cuda_device), mask.to(cuda_device)
+            assert (int(mask.sum()) > slots) == name.startswith("overflow")
+            rep = model.encode(ids, mask)[row]
+            with model.encoder_q.recording_routes() as log:
+                eager = model.encode_eager(ids, mask)[row]
+            routes = torch.stack([t.view(B, S, -1)[row, :L] for t in log])
+            seen[name] = (rep, eager, routes)
+    stats = model.graph_stats
+    assert stats["captures"] == 1 and stats["packed_overflow"] == 2
+    assert stats["eager"] == 2  # the overflowing batches
+    rep0, _, routes0 = seen["short_neighbours"]
+    assert bool(torch.isfinite(rep0).all())
+    assert (routes0 < cfg.n_routed_experts).all()
+    for name, (rep, eager, routes) in seen.items():
+        assert torch.equal(rep, rep0), (name, (rep - rep0).abs().max())
+        assert torch.equal(eager, rep0), (name, "eager")
+        assert torch.equal(routes, routes0), name
