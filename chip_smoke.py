@@ -310,6 +310,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             ragged batches as a CUDA graph against eager, bit for bit,
             its expert counter zeroed in place and exact after one
             replay.
+17. kda     K13, the chunked KDA forward (ops/csrc/kda_chunk.cu):
+            ptxas's registers and stack frame for each of its kernels
+            (the phase fails on a stack frame or a spill); then the
+            kernel against its plain version at the Kimi-Linear encode
+            cell's shapes (48 documents of the cell's lengths, the first
+            1,024 long, packed into 24,576 slots; 32 heads of 128), under
+            a typical and a 100 times slower decay, each with its launches
+            counted from the cleared counter, its pad slots left zero, and
+            its time beside its bound (arith_kimi.kda_chunk_bound_s); the
+            kernel table's K13 row is the typical decay.
 
 Each phase logs what was allocated on the card at its start, its peak,
 what it left allocated, which must be under 1 GiB, and its wall time. The
@@ -376,8 +386,9 @@ KERNELS = {
     "gmax_only": (CSRC + "score_tiles.cu", TPU + "254"),
     "gmax_phase": (CSRC + "gmax_phases.cu",
                    "scripts/perf/score_path_phases.py:164"),
-    # K12 replaces no TPU kernel
+    # K12 and K13 replace no TPU kernel
     "grouped_gemm": (CSRC + "grouped_gemm.cu", None),
+    "kda_chunk": (CSRC + "kda_chunk.cu", None),
 }
 CORPUS_COPY = 13e9  # bytes: a layout path allocating this much copied the index
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and dense bf16 tensor-core
@@ -5452,9 +5463,98 @@ def phase_moe(dev) -> tuple:
     return {"grouped_gemm": row}, {"grouped_gemm": tower_launches}
 
 
+KDA_DOCS, KDA_SLOTS = 48, 24 * 1024  # the Kimi encode cell's batch, packed
+KDA_REL = 2.0**-7  # kernel against plain, over max|o|: both round fp32
+#                    sums to bf16 (2^-8 each), taken in other orders
+# decay -> the largest -log decay a step: the uniform draw the CPU tests
+# use, and one 100 times slower, whose state carries a 1,024-token
+# document's whole length
+KDA_DECAYS = {"typical": 1.0, "slow": 0.01}
+
+
+def kda_lengths(g) -> list:
+    """The cell's document lengths (lognormal, median 330, sigma 0.6,
+    clipped to 64-1,024) for ``KDA_DOCS`` documents, the first 1,024 long:
+    the longest chain of chunks the cell runs."""
+    draw = torch.randn(KDA_DOCS - 1, generator=g, dtype=torch.float64)
+    lens = (np.log(330.0) + 0.6 * draw).exp().round().clamp(64, 1024)
+    return [1024] + [int(n) for n in lens]
+
+
+def phase_kda(dev) -> tuple:
+    """K13, the chunked KDA forward, against its plain version at the
+    Kimi encode cell's shapes (48 documents packed into 24,576 slots, 32
+    heads of 128), under two decays. Returns K13's row (err, ms, plain ms,
+    (bound ms, bound by), None) under the typical decay, and its launches
+    in the two checked calls, each counted from ``_build.launches`` cleared
+    just before it (the timing loops' launches are left out)."""
+    from benchmark import arith_kimi
+    from openmatch_tpu_torch.ops import _build
+    from openmatch_tpu_torch.ops.kda import kda_chunk, kda_chunk_plain
+
+    _build.load_library()
+    usage = _build.ptxas_usage(_build.build_info["log"], "kda_chunk")
+    for name, u in usage.items():
+        log(f"kda: ptxas {name}: {u}")
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "kimi-linear-48b-a3b.json")) as f:
+        cfg = json.load(f)
+    H = cfg["linear_attn_config"]["num_heads"]
+    Dh = cfg["linear_attn_config"]["head_dim"]
+    taps = cfg["linear_attn_config"]["short_conv_kernel_size"]
+    g = torch.Generator().manual_seed(0)
+    gd = torch.Generator(device=dev).manual_seed(0)
+    lens = kda_lengths(g)
+    tokens = sum(lens)
+    cu = torch.tensor([0] + list(np.cumsum(lens)), device=dev)
+    T = KDA_SLOTS
+    qkv = torch.randn(T, 3 * H * Dh, generator=gd, device=dev).bfloat16()
+    conv = (torch.rand(3 * H * Dh, taps, generator=gd, device=dev)
+            - 0.5).bfloat16()
+    beta = torch.rand(T, H, generator=gd, device=dev)
+    b = arith_kimi.kda_chunk_bound_s(cfg, float(tokens))
+    b = (b[0] * 1000, b[1])
+    row, calls = None, 0
+    for label, scale in KDA_DECAYS.items():
+        gdec = -scale * torch.rand(T, H * Dh, generator=gd, device=dev)
+        _build.launches.clear()
+        got = kda_chunk(qkv, conv, gdec, beta, cu, H)
+        torch.cuda.synchronize()
+        launched = _build.launches["kda_chunk"]
+        calls += launched
+        want = kda_chunk_plain(qkv, conv, gdec, beta, cu, H)
+        err = float((got[:tokens].float() - want[:tokens].float()).abs()
+                    .max())
+        scale_o = float(want[:tokens].float().abs().max())
+        mean_o = float(want[:tokens].float().abs().mean())
+        pads = float(got[tokens:].float().abs().max())
+        ms = kernel_ms(lambda: kda_chunk(qkv, conv, gdec, beta, cu, H))
+        plain = kernel_ms(lambda: kda_chunk_plain(qkv, conv, gdec, beta, cu,
+                                                  H), 1, 3)
+        log(f"kda: kda_chunk {label} decay [{KDA_DOCS} documents, {tokens} "
+            f"tokens in {T} slots, {H} heads of {Dh}]: kernel {ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]}), {100 * b[0] / ms:.2f}% of it; "
+            f"plain {plain:.1f} ms; max abs err {err:.3e} (limit {KDA_REL} "
+            f"x max|o| {scale_o:.3e}; mean|o| {mean_o:.3e}); largest pad "
+            f"slot {pads}; launches of the checked call {launched}")
+        if not err <= KDA_REL * scale_o or pads != 0.0 or launched != 1:
+            raise AssertionError(f"kda: kda_chunk {label}: max abs err {err}"
+                                 f" > {KDA_REL} * {scale_o}, a pad slot "
+                                 f"written ({pads}) or launches {launched} "
+                                 f"!= 1")
+        if row is None:  # the table's row: the typical decay
+            row = (err, ms, plain, b, None)
+        del got, want, gdec
+    if not usage or any(u.get("stack_frame") != 0 or u.get("spill_stores")
+                        or u.get("spill_loads") for u in usage.values()):
+        raise AssertionError(f"kda: a kda_chunk kernel has a stack frame or "
+                             f"spills, or ptxas's report is missing: {usage}")
+    return {"kda_chunk": row}, {"kda_chunk": calls}
+
+
 PHASES = ("device", "build", "kernels", "serve", "perf", "stages", "train",
           "rerank", "ance", "beir", "v1", "research", "twins", "mesh",
-          "graphs", "moe")
+          "graphs", "moe", "kda")
 
 
 LEFT_BYTES = 2**30  # what a phase may leave allocated for the next
@@ -5534,6 +5634,8 @@ def main(argv=None) -> int:
             merge({}, run_phase(name, fn, dev, *args))
     if "moe" in phases:
         merge(*run_phase("moe", phase_moe, dev))
+    if "kda" in phases:
+        merge(*run_phase("kda", phase_kda, dev))
     if rows:
         print(json.dumps({"kernels": [
             {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -28,7 +28,10 @@ checkpoint. The equations are DeepSeek-V3's modeling code, which
   one fused gate-and-up product, SiLU x up, the down product, and each
   token's slots gathered back by the inverse permutation and weighted
   and summed in fp32 by one batched product (no atomics, so replays
-  repeat bit for bit).
+  repeat bit for bit). A layer may hold a contiguous share of the routed
+  experts (``MoE(held=...)``, Kimi-Linear's one-card share): the router
+  keeps its width and top k, and a slot of an expert not held reads a
+  computed row at weight 0, adding nothing. Moonlight holds all of them.
 
 One departure from the published code: pad positions are not computed.
 The forward gathers the batch's real tokens from the right-padded [B, S]
@@ -233,9 +236,15 @@ def rotary(x: torch.Tensor, cos: torch.Tensor,
 
 
 class MLAttention(nn.Module):
-    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype):
+    """Latent attention; with ``rope=False`` (NoPE, Kimi-Linear's MLA
+    layers) the 64-wide rotary parts stay plain dimensions and nothing
+    rotates them."""
+
+    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype,
+                 rope: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.rope = rope
         d, H = cfg.hidden_size, cfg.num_attention_heads
         qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         self.scale = qk ** -0.5
@@ -250,8 +259,9 @@ class MLAttention(nn.Module):
 
     def forward(self, h: torch.Tensor, bias: torch.Tensor, cos: torch.Tensor,
                 sin: torch.Tensor, pack: Packing) -> torch.Tensor:
-        """h [T, d] packed, ``cos`` and ``sin`` [T, rope / 2] each token's;
-        the core runs on the padded layout ``pack`` gives."""
+        """h [T, d] packed, ``cos`` and ``sin`` [T, rope / 2] each token's
+        (unread without RoPE); the core runs on the padded layout ``pack``
+        gives."""
         cfg = self.cfg
         T = h.shape[0]
         H, nope, rope = (cfg.num_attention_heads, cfg.qk_nope_head_dim,
@@ -262,8 +272,10 @@ class MLAttention(nn.Module):
             [cfg.kv_lora_rank, rope], -1)
         k_nope, v = self.kv_b_proj(self.kv_a_layernorm(latent)).view(
             T, H, nope + cfg.v_head_dim).split([nope, cfg.v_head_dim], -1)
-        q_rope = rotary(q_rope, cos, sin)
-        k_rope = rotary(k_rope[:, None, :], cos, sin)
+        k_rope = k_rope[:, None, :]
+        if self.rope:
+            q_rope = rotary(q_rope, cos, sin)
+            k_rope = rotary(k_rope, cos, sin)
         q = pack.padded(torch.cat((q_nope, q_rope), -1)).transpose(1, 2)
         k = pack.padded(torch.cat((k_nope, k_rope.expand(T, H, rope)),
                                   -1)).transpose(1, 2)  # [B, H, S, qk]
@@ -315,9 +327,10 @@ class Experts(nn.Module):
     width, hidden] (each expert's gate rows, then its up rows) and
     ``down_proj`` [E, hidden, width]."""
 
-    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype):
+    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype,
+                 count: Optional[int] = None):
         super().__init__()
-        E, d, w = (cfg.n_routed_experts, cfg.hidden_size,
+        E, d, w = (count or cfg.n_routed_experts, cfg.hidden_size,
                    cfg.moe_intermediate_size)
         self.gate_up_proj = nn.Parameter(torch.zeros(E, 2 * w, d,
                                                      dtype=dtype))
@@ -325,22 +338,33 @@ class Experts(nn.Module):
 
 
 class MoE(nn.Module):
-    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype):
+    """The routed experts ``held`` = (first, count) of the router's
+    ``n_routed_experts`` (all of them by default) and the shared experts.
+    The router keeps its whole width and its top k; a slot routed to an
+    expert the layer does not hold goes to the sentinel, as a pad's does,
+    and adds nothing: the routed sum covers the held experts only (one
+    card's share under expert parallelism, without the exchange)."""
+
+    def __init__(self, cfg: DeepseekV3Config, dtype: torch.dtype,
+                 held: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.cfg = cfg
+        self.held = held or (0, cfg.n_routed_experts)
         self.gate = Router(cfg)
-        self.experts = Experts(cfg, dtype)
+        self.experts = Experts(cfg, dtype, self.held[1])
         self.shared_experts = MLP(
             cfg.hidden_size, cfg.moe_intermediate_size * cfg.n_shared_experts,
             dtype)
         self.routes: Optional[list] = None  # see recording_routes
 
-    def forward(self, x: torch.Tensor, pack: Packing,
-                slots: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pack: Packing, slots: torch.Tensor,
+                held_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [T, d] packed; ``slots`` [E] int64 gains the real-token slots
-        routed to each expert."""
+        routed to each expert, ``held_slots`` (a 0-d int64, if given)
+        those routed to the held experts."""
         cfg = self.cfg
         E, k = cfg.n_routed_experts, cfg.num_experts_per_tok
+        first, n = self.held
         real = pack.real
         with span("moe.route"):
             ids, weights = self.gate(x, real)
@@ -348,12 +372,20 @@ class MoE(nn.Module):
                 self.routes.append(torch.cat((ids, ids.new_full(
                     (1, k), E))).index_select(0, pack.slot.reshape(-1)))
             flat = ids.reshape(-1)
-            order = torch.sort(flat, stable=True).indices
             counts = torch.zeros(E + 1, dtype=torch.int64,
                                  device=x.device).scatter_add_(
                 0, flat, torch.ones_like(flat))
             slots.add_(counts[:E])
-            offsets = F.pad(torch.cumsum(counts[:E], 0), (1, 0)).to(
+            if n != E:  # the held experts' ids, the rest the sentinel n
+                flat = flat - first
+                flat = flat.masked_fill((flat < 0) | (flat >= n), n)
+                counts = torch.zeros(n + 1, dtype=torch.int64,
+                                     device=x.device).scatter_add_(
+                    0, flat, torch.ones_like(flat))
+            if held_slots is not None:
+                held_slots.add_(counts[:n].sum())
+            order = torch.sort(flat, stable=True).indices
+            offsets = F.pad(torch.cumsum(counts[:n], 0), (1, 0)).to(
                 torch.int32)
         with span("moe.experts"):
             rows = x.index_select(0, order // k)
@@ -363,9 +395,18 @@ class MoE(nn.Module):
                                self.experts.down_proj, offsets)
             inverse = torch.empty_like(order).scatter_(
                 0, order, torch.arange(order.numel(), device=x.device))
+            keep = real
+            if n != E:
+                # a slot of an expert not held reads row 0 (a held slot's,
+                # finite) at weight 0; a token none of whose slots is held
+                # (whose rows may all be unset) is zeroed after the sum
+                away = (flat == n).view(-1, k)
+                inverse = inverse.masked_fill(away.reshape(-1), 0)
+                weights = weights.masked_fill(away, 0.0)
+                keep = real & ~away.all(1)
             out = out.index_select(0, inverse).view(x.shape[0], k, -1)
             routed = torch.bmm(weights[:, None, :], out.float()).squeeze(1)
-            routed = routed.masked_fill(~real[:, None], 0.0).to(x.dtype)
+            routed = routed.masked_fill(~keep[:, None], 0.0).to(x.dtype)
         return routed + self.shared_experts(x)
 
 
@@ -390,26 +431,13 @@ class DecoderLayer(nn.Module):
                     else self.mlp(x, pack, slots))
 
 
-class DeepseekV3Encoder(nn.Module):
-    """Returns {"last_hidden_state": [B, S, d]}, the final norm's output
-    (zero at pad positions), computed in ``dtype`` (in which the weights
-    are held) on the packed stream of the batch's real tokens."""
-
-    def __init__(self, config: DeepseekV3Config,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__()
-        cfg = self.config = config
-        self.dtype = dtype
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                         dtype=dtype)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, i < cfg.first_k_dense_replace, dtype)
-            for i in range(cfg.num_hidden_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
-        self.register_buffer("expert_slots", torch.zeros(
-            cfg.n_moe_layers, cfg.n_routed_experts, dtype=torch.int64),
-            persistent=False)
-        self._routes: Optional[list] = None  # see recording_routes
+class PackedEncoder(nn.Module):
+    """What a decoder that packs its real tokens shares (this module's
+    ``DeepseekV3Encoder``, ``kimi_linear.KimiLinearEncoder``): the call,
+    which runs an overflowing batch in two halves, and the expert
+    counter. A subclass has ``layers`` (each MoE layer's ``mlp`` a
+    ``MoE``), an ``expert_slots`` buffer and ``_packed(input_ids, real,
+    n)``, the final state [B, S, d] of a batch packed into ``n`` slots."""
 
     packed_slots = staticmethod(packed_slots)
 
@@ -447,6 +475,44 @@ class DeepseekV3Encoder(nn.Module):
             return {"last_hidden_state": self._in_halves(input_ids, real, n)}
         return {"last_hidden_state": self._packed(input_ids, real, n)}
 
+    def _in_halves(self, input_ids: torch.Tensor, real: torch.Tensor,
+                   n: int) -> torch.Tensor:
+        """``_packed`` over each half of the rows into the same ``n``
+        slots, which each half fits; a recorded layer's ids [B x S, k] are
+        the halves' joined."""
+        log, mark = self._routes, len(self._routes or ())
+        half = -(-real.shape[0] // 2)
+        out = torch.cat([self._packed(input_ids[rows], real[rows], n)
+                         for rows in (slice(None, half), slice(half, None))])
+        if log is not None:
+            halves = log[mark:]
+            layers = len(halves) // 2
+            log[mark:] = [torch.cat(pair) for pair in
+                          zip(halves[:layers], halves[layers:])]
+        return out
+
+
+class DeepseekV3Encoder(PackedEncoder):
+    """Returns {"last_hidden_state": [B, S, d]}, the final norm's output
+    (zero at pad positions), computed in ``dtype`` (in which the weights
+    are held) on the packed stream of the batch's real tokens."""
+
+    def __init__(self, config: DeepseekV3Config,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = self.config = config
+        self.dtype = dtype
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         dtype=dtype)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, i < cfg.first_k_dense_replace, dtype)
+            for i in range(cfg.num_hidden_layers))
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
+        self.register_buffer("expert_slots", torch.zeros(
+            cfg.n_moe_layers, cfg.n_routed_experts, dtype=torch.int64),
+            persistent=False)
+        self._routes: Optional[list] = None  # see recording_routes
+
     def _packed(self, input_ids: torch.Tensor, real: torch.Tensor,
                 n: int) -> torch.Tensor:
         """The final state [B, S, d] of the batch, its real tokens packed
@@ -463,22 +529,6 @@ class DeepseekV3Encoder(nn.Module):
             slots = None if i < first_moe else self.expert_slots[i - first_moe]
             h = layer(h, bias, cos, sin, pack, slots)
         return pack.padded(self.norm(h)).masked_fill_(~real[..., None], 0)
-
-    def _in_halves(self, input_ids: torch.Tensor, real: torch.Tensor,
-                   n: int) -> torch.Tensor:
-        """``_packed`` over each half of the rows into the same ``n``
-        slots, which each half fits; a recorded layer's ids [B x S, k] are
-        the halves' joined."""
-        log, mark = self._routes, len(self._routes or ())
-        half = -(-real.shape[0] // 2)
-        out = torch.cat([self._packed(input_ids[rows], real[rows], n)
-                         for rows in (slice(None, half), slice(half, None))])
-        if log is not None:
-            halves = log[mark:]
-            layers = len(halves) // 2
-            log[mark:] = [torch.cat(pair) for pair in
-                          zip(halves[:layers], halves[layers:])]
-        return out
 
 
 # ---- HuggingFace names -> the encoder's --------------------------------------

@@ -7,17 +7,19 @@ T5 encoder with the configured pooling: GTR, ``--encoder_only``),
 ``t5_encdec`` (full T5: the rep is the hidden state of one decoder step
 fed the start token, whatever the pooling, JAX ``dr_model.py:134-139``)
 and, in the port only, ``deepseek_v3`` (a DeepSeek-V3 / Moonlight causal
-LM, ``models/deepseek_v3``, with ``last`` pooling), whose weights are held
-in the model's dtype rather than as fp32 masters, and which ``DRTrainer``
-does not train.
+LM, ``models/deepseek_v3``) and ``kimi_linear`` (a Kimi-Linear hybrid of
+KDA linear attention and latent attention, ``models/kimi_linear``), both
+with ``last`` pooling, whose weights are held in the model's dtype rather
+than as fp32 masters, and which ``DRTrainer`` does not train.
 
 On a card, an inference call (no autograd, eval mode, no dropout
 generator, no tensor parallelism) replays the whole encode as a CUDA graph
 captured once per input shape (``models/graphs``); ``graph_stats`` counts
 captures, replays and eager calls. An encoder that packs its real tokens
-(``deepseek_v3``: ``packed_slots``) also has its calls' real tokens,
-packed slots and overflowing batches counted there; such a batch runs
-eagerly, in two halves of its rows.
+(``deepseek_v3``, ``kimi_linear``: ``packed_slots``) also has its calls'
+real tokens, packed slots and overflowing batches counted there; such a
+batch runs eagerly, in two halves of its rows. An encoder with device
+counters (``kimi_linear``: ``counters``) adds their sums.
 
 ``DRModel.load`` and ``DRModel.save`` read and write the JAX package's
 checkpoint directory (``openmatch_config.json`` plus flax-msgpack
@@ -25,8 +27,9 @@ checkpoint directory (``openmatch_config.json`` plus flax-msgpack
 so a model trained in either package serves in the other; a port-only
 backbone writes ``model.pt`` (``torch.save`` of its state) in its place.
 ``DRModel.build`` also converts a raw HuggingFace BERT / RoBERTa / ELECTRA
-directory (``models/hf_convert``), T5 / GTR directory (``models/t5``) or
-DeepSeek-V3 directory (``models/deepseek_v3``).
+directory (``models/hf_convert``), T5 / GTR directory (``models/t5``),
+DeepSeek-V3 directory (``models/deepseek_v3``) or Kimi-Linear directory
+(``models/kimi_linear``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from .flax_msgpack import read_flax_msgpack, write_flax_msgpack
 from .graphs import EncodeGraphs, engages
 from .hf_convert import load_bert_encoder
 from .jax_convert import params_from_jax, params_to_jax
+from .kimi_linear import (KimiLinearConfig, KimiLinearEncoder,
+                          is_kimi_linear, load_kimi_linear)
 from .pooling import LinearHead, pool_hidden
 from .t5 import (T5Config, T5Encoder, T5EncoderDecoderStep, load_t5_encdec,
                  load_t5_encoder)
@@ -70,6 +75,8 @@ _ENCODERS = {
     "t5_encdec": Backbone(T5EncoderDecoderStep, T5Config, "d_model",
                           "num_heads"),
     "deepseek_v3": Backbone(DeepseekV3Encoder, DeepseekV3Config,
+                            "hidden_size", "num_attention_heads", True),
+    "kimi_linear": Backbone(KimiLinearEncoder, KimiLinearConfig,
                             "hidden_size", "num_attention_heads", True),
 }
 
@@ -156,8 +163,16 @@ class DRModel(nn.Module):
         and the calls that ran ``eager``; for an encoder that packs, the
         real tokens (``packed_tokens``), the slots they were packed into
         (``packed_slots``, twice a batch's for one run in halves) and the
-        batches that overflowed (``packed_overflow``)."""
-        return {**self._graphs.stats, **self._packing}
+        batches that overflowed (``packed_overflow``); for an encoder
+        with device counters, their sums (``held_slots``,
+        ``routed_slots``, ``kda_chunks``: a read from the card)."""
+        counters = getattr(self.encoder_q, "counters", dict)()
+        return {**self._graphs.stats, **self._packing, **counters}
+
+    def release_graphs(self):
+        """Drop the captured graphs and their memory pool (``graph_stats``
+        keeps its counts); the next inference call captures anew."""
+        self._graphs.release()
 
     @property
     def out_dim(self) -> int:
@@ -323,7 +338,9 @@ class DRModel(nn.Module):
         drawn from a generator seeded with 0 (JAX seeds its head with
         ``PRNGKey(0)``); untied towers start as copies of each other. A
         DeepSeek-V3 directory (``model_type`` ``deepseek_v3``) builds
-        ``deepseek_v3``, its weights held in ``model_args.dtype``."""
+        ``deepseek_v3`` and a Kimi-Linear one (``model_type``
+        ``kimi_linear``) builds ``kimi_linear``, their weights held in
+        ``model_args.dtype``."""
         device = resolve_device(device)
         path = model_args.model_name_or_path
         if path and os.path.exists(os.path.join(path, OPENMATCH_CONFIG)):
@@ -331,6 +348,9 @@ class DRModel(nn.Module):
         if path and is_deepseek_v3(path):
             backbone, (enc_config, enc_state) = "deepseek_v3", \
                 load_deepseek_v3(path, resolve_dtype(model_args.dtype))
+        elif path and is_kimi_linear(path):
+            backbone, (enc_config, enc_state) = "kimi_linear", \
+                load_kimi_linear(path, resolve_dtype(model_args.dtype))
         elif not _looks_like_t5(path):
             backbone, (enc_config, enc_state) = "bert", load_bert_encoder(path)
         elif model_args.encoder_only:

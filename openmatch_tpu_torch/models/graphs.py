@@ -24,7 +24,7 @@ fp32 -> bf16 weight casts are inside the graph and read the parameters
 at every replay. At most ``MAX_GRAPHS`` shapes are kept; a further shape
 runs eagerly, with no eviction. The graphs' pool (about the eager
 encode's peak at its largest shape) stays allocated while the model
-lives.
+lives, or until ``release``.
 
 A capture runs the encode once eagerly on a side stream (it fills lazy
 state: T5's bucket tables, cuBLAS's handle and workspace), then captures
@@ -126,6 +126,13 @@ class EncodeGraphs:
             self._tp_modules = [m for m in model.modules()
                                 if hasattr(m, "tp")]
 
+    def release(self):
+        """Drop every graph and the pool they share (the counts stay);
+        the next call captures anew."""
+        with self._lock:
+            self._graphs.clear()
+            self._pool = self._fingerprint = None
+
     def tensor_parallel(self, model) -> bool:
         """Whether a module of ``model`` carries a ``tp`` context."""
         self._scan(model)
@@ -172,6 +179,10 @@ class EncodeGraphs:
         with torch.cuda.stream(side):
             model.encode_eager(ids, mask, is_query)
         torch.cuda.current_stream().wait_stream(side)
+        # the warm run's cached blocks go back to the card before the
+        # capture fills its own pool: a model near the card's size cannot
+        # hold both
+        torch.cuda.empty_cache()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()

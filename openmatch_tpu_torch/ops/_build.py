@@ -22,9 +22,10 @@ graph's replays run no Python and are not counted), keyed by the name the
 wrapper passes to ``check``: ``plain_gmax`` (K1/K2), ``gather_rescore``
 (K3), ``plain_gmax_segs`` (K4), ``gather_rescore_seg`` (K5),
 ``gather_rescore_pipelined`` (K6), ``block_gmax`` (K7), ``scores`` (K8),
-``score_gmax`` (K9), ``gmax_only`` (K10), ``gmax_phase`` (K11) and
-``grouped_gemm`` (K12). Readers take ``launches.copy()`` (a kernel that
-never launched reads 0) and reset it with ``launches.clear()``.
+``score_gmax`` (K9), ``gmax_only`` (K10), ``gmax_phase`` (K11),
+``grouped_gemm`` (K12) and ``kda_chunk`` (K13). Readers take
+``launches.copy()`` (a kernel that never launched reads 0) and reset it
+with ``launches.clear()``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas=-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # C entry point -> argument types; every pointer and the stream are c_void_p
 SIGNATURES = {
     "plain_gmax_launch": (_P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _LL, _I,
@@ -61,6 +63,8 @@ SIGNATURES = {
     "gmax_only_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
     "gmax_phase_launch": (_P, _P, _P, _I, _I, _LL, _I, _P),
     "grouped_gemm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "kda_chunk_launch": (_P, _LL, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I,
+                         _F, _F, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -235,14 +235,17 @@ def _c_kind(param: str):
         return ctypes.c_void_p
     if "long long" in param:
         return ctypes.c_longlong
+    if re.match(r"(const\s+)?float\s+\w+$", param.strip()):
+        return ctypes.c_float
     assert re.match(r"(const\s+)?int\s+\w+$", param.strip()), param
     return ctypes.c_int
 
 
 def test_c_entry_points_match_signatures():
     """Every ``extern "C"`` entry point of ops/csrc/*.cu has the number and
-    kinds of parameters (pointer / int / long long) that ``_build`` hands
-    ctypes: a drift shows on the card only as a truncated pointer."""
+    kinds of parameters (pointer / int / long long / float) that
+    ``_build`` hands ctypes: a drift shows on the card only as a truncated
+    pointer."""
     found = {}
     for src in sorted(_build.SRC_DIR.glob("*.cu")):
         text = src.read_text()
